@@ -6,23 +6,41 @@
 Phases, each of which raises on failure (non-zero exit):
 
 1. setup: the card's name and power limit, torch/CUDA versions, TF32 off,
-   and the build of every kernel from the sources in the checkout;
+   and the build of every kernel from the sources in the checkout (one
+   nvcc per source, all at once; seconds, registers and spills logged);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with error and CUDA-event times;
+   shapes the main paths give it, with error and CUDA-event times beside
+   its bound and, where one PyTorch call computes the same function, that
+   call's time: ``matern_score``, ``flash_attention`` (bf16 at Qwen2-1.5B's
+   heads, and the reference's kernel cases) and ``decode_attention``;
 3. the sequential engine, ``BayesSplitEdge(default_vgg19_problem(),
    budget=20).run(seed=0)``, must reach 87.5 % at split layer 7;
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
    offsets 0/-2 dB x budgets 20/28) must match the per-scenario
-   accuracies recorded in ``benchmarks/artifacts/BENCH_bo_engine.json``.
+   accuracies recorded in ``benchmarks/artifacts/BENCH_bo_engine.json``;
+5. split serving of Qwen2-1.5B at full width (bf16, weights from
+   ``torch.Generator`` seed 0): ``SplitRunner`` at l = 0, 1, 14, 28 must
+   equal the unsplit forward bit for bit, then ``launch.serve.main``
+   (budget 15) must pick the split and power the CPU run picks;
+6. greedy decoding at full width (a B 2 x 512 prompt, 32 new tokens,
+   ``max_seq`` 1024); where the time goes (``torch.profiler``: device
+   time by kernel class and the idle share) in one split-serving
+   forward, one prefill and one decode step; and prefill + one decode
+   step against the full forward, in bf16 and on a float32 copy of the
+   model.
 
-Launch counters are zeroed before phases 3 and 4 and read after them:
-each kernel of the path must have launched. The last line is the JSON
-``{"ok": true, "device": {...}}``; a JSON line before it lists every
-kernel with its launches, error, times and bound. Exits non-zero without
-a CUDA device, and outside a checkout (it imports ``src/repro_torch``).
+Launch counters are zeroed just before each main path (phases 3, 4, 5's
+serving run and 6's generation) and read just after: each kernel of the
+path must have launched, flash attention 28 times per forward and decode
+attention 28 times per step, and the plain versions never. The last line
+is the JSON ``{"ok": true, "device": {...}}``; a JSON line before it
+lists every kernel with its launches, error, times and bound. Exits
+non-zero without a CUDA device, and outside a checkout (it imports
+``src/repro_torch``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -45,6 +63,57 @@ PEAK_BYTES_PER_S = 3.35e12
 # per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), so 1/16 of the f32 operation peak
 PEAK_SFU_PER_S = PEAK_F32_FLOPS / 16
+PEAK_BF16_FLOPS = 989e12            # dense tensor-core bf16
+ATTN_RTOL = 1e-2                    # the reference's kernel tolerances
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+QWEN = dict(Hq=12, Hkv=2, hd=128)   # Qwen2-1.5B's attention heads
+# flash attention: (name, B, S, window, dtype, Hq, Hkv, hd)
+FLASH_SHAPES = [
+    ("split_serving", 2, 32, 0, torch.bfloat16, *QWEN.values()),
+    ("prefill", 2, 512, 0, torch.bfloat16, *QWEN.values()),
+    ("long", 1, 4096, 0, torch.bfloat16, *QWEN.values()),
+    ("prefill_window", 2, 512, 128, torch.bfloat16, *QWEN.values()),
+    ("ragged", 2, 100, 0, torch.bfloat16, *QWEN.values()),
+    # the pool's other head dims: 120 (H2O-Danube3), 256 (RecurrentGemma)
+    ("hd120", 1, 256, 0, torch.bfloat16, 8, 2, 120),
+    ("hd256_window", 1, 512, 128, torch.bfloat16, 10, 1, 256),
+    ("hd256_f32", 1, 128, 0, torch.float32, 4, 1, 256),
+    # the reference's kernel cases (tests/test_kernels.py)
+    ("case0", 2, 128, 0, torch.float32, 4, 2, 32),
+    ("case1", 1, 256, 0, torch.float32, 8, 8, 64),
+    ("case2", 1, 96, 0, torch.float32, 4, 1, 16),
+    ("case3", 2, 128, 24, torch.float32, 4, 4, 32),
+    ("case4", 1, 160, 48, torch.float32, 8, 2, 64),
+    ("case5", 2, 128, 0, torch.bfloat16, 4, 2, 32),
+    ("case6", 1, 64, 0, torch.bfloat16, 2, 2, 128),
+]
+FLASH_MAIN = "prefill"
+# decode attention: (name, B, T, last, q_pos, window, dtype, Hq, Hkv,
+# hd); slot p % T holds position p for p <= last, the rest are empty
+DECODE_SHAPES = [
+    ("decode", 2, 1024, 543, 543, 0, torch.bfloat16, *QWEN.values()),
+    ("ring_window", 2, 256, 700, 700, 256, torch.bfloat16, *QWEN.values()),
+    ("hd120", 1, 256, 200, 200, 0, torch.bfloat16, 8, 2, 120),
+    ("hd256", 1, 512, 300, 300, 0, torch.bfloat16, 10, 1, 256),
+    ("hd256_f32", 1, 128, 99, 100, 0, torch.float32, 4, 1, 256),
+    # the reference's kernel cases (tests/test_kernels.py)
+    ("case0", 2, 128, 99, 100, 0, torch.float32, 4, 2, 32),
+    ("case1", 1, 256, 255, 256, 0, torch.float32, 8, 1, 64),
+    ("case2", 2, 96, 59, 60, 32, torch.float32, 4, 4, 32),
+    ("case3", 1, 128, 76, 77, 0, torch.bfloat16, 8, 2, 128),
+]
+DECODE_MAIN = "decode"
+DEVICE = "cuda"
+ARCH = "qwen2-1.5b"
+SPLIT_BATCH, SPLIT_SEQ, SPLITS = 2, 32, (0, 1, 14, 28)
+SERVE_BUDGET = 15
+SERVE_EXPECT = (1, 0.040, 15)       # split, power (W), evaluations: CPU run
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 2, 512, 32, 1024
+# prefill + decode vs the full forward's last hidden state: bf16 rounds
+# the residual stream at every layer (a unit of the last place is 2^-8
+# relative, 0.0156 at |h| = 4) and the two routes round at different
+# places; float32 differs only in summation order
+HIDDEN_TOL = {torch.bfloat16: (3e-2, 2e-2), torch.float32: (1e-3, 1e-3)}
 MAIN_N = 64 * 64 + 37 + 45          # grid + VGG19 boundary + local slots
 SHAPES = ([(16, MAIN_N, n, 2) for n in (16, 32, 48, 64)]
           + [(256, MAIN_N, 64, 2)])            # 256: a serving-pool width
@@ -244,6 +313,436 @@ def breakdown_phase(core):
     return share
 
 
+# --------------------------------------------------------------------------
+# phase 2: the attention kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def median_ms(fns, args, samples=5, inner=10):
+    """Median device ms per call of each function, sampled in turns."""
+    for fn in fns.values():                              # warm-up
+        time_calls(fn, args, inner=2)
+    times = {name: [] for name in fns}
+    for _ in range(samples):
+        for name, fn in fns.items():
+            times[name].append(time_calls(fn, args, inner))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def attn_bound(nbytes, pairs, hd, Hq, dtype):
+    """Least time on an H100: the larger of the bytes at the HBM rate and
+    the 4 hd operations per allowed (q, k) pair per q head at the peak
+    for the inputs' type (bf16 tensor cores, or f32)."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 4 * hd * Hq * pairs / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops))
+
+
+def allowed_pairs(Sq, Skv, window, causal=True):
+    """(q, k) pairs the mask allows, per (batch row, q head)."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(Sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def check_close(name, shape, got, ref, dtype):
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    ok = bool(torch.allclose(got.float(), ref.float(), rtol=ATTN_RTOL,
+                             atol=ATTN_ATOL[dtype]))
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{shape}: max abs err {err}, rtol/atol "
+                             f"{ATTN_RTOL}/{ATTN_ATOL[dtype]}")
+    return err
+
+
+def flash_phase(kernels):
+    F = torch.nn.functional
+    rows = []
+    for name, B, S, window, dtype, Hq, Hkv, hd in FLASH_SHAPES:
+        rng = np.random.default_rng(S + hd + window)
+        q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                   device=DEVICE).to(dtype)
+                   for s in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+        got = kernels.flash_attention(q, k, v, causal=True, window=window)
+        ref = kernels.attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = check_close("flash_attention", name, got, ref, dtype)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            i = torch.arange(S, device=DEVICE)
+            mask = ((i[None, :] <= i[:, None])
+                    & (i[:, None] - i[None, :] < window))
+            library = (lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=mask, enable_gqa=True))
+        else:
+            library = (lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=True, enable_gqa=True))
+        ms = median_ms(dict(
+            plain=lambda: kernels.attention_ref(q, k, v, window=window),
+            kernel=lambda: kernels.flash_attention(q, k, v, window=window),
+            library=lambda: library(qh, kh, vh)), ())
+        esize = q.element_size()
+        nbytes = esize * (2 * q.numel() + k.numel() + v.numel())
+        pairs = B * allowed_pairs(S, S, window)
+        bound_ms, bound_by, terms = attn_bound(nbytes, pairs, hd, Hq, dtype)
+        row = dict(name=name, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window,
+                   dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                   ms=ms["kernel"], plain_ms=ms["plain"],
+                   library_ms=ms["library"], bound_ms=bound_ms,
+                   bound_by=bound_by, bound_terms=terms)
+        log("flash_attention", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def decode_inputs(B, T, last, q_pos, Hq, Hkv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                               device=DEVICE).to(dtype)
+               for s in ((B, Hq, hd), (B, T, Hkv, hd), (B, T, Hkv, hd)))
+    pos = np.full((B, T), np.iinfo(np.int32).max, np.int32)
+    for p in range(max(0, last - T + 1), last + 1):
+        pos[:, p % T] = p
+    kv_pos = torch.as_tensor(pos, device=DEVICE)
+    q_pos = torch.full((B,), q_pos, dtype=torch.int32, device=DEVICE)
+    return q, k, v, kv_pos, q_pos
+
+
+def decode_phase(kernels):
+    F = torch.nn.functional
+    rows = []
+    for name, B, T, last, qp, window, dtype, Hq, Hkv, hd in DECODE_SHAPES:
+        args = decode_inputs(B, T, last, qp, Hq, Hkv, hd, dtype, seed=T + hd)
+        q, k, v, kv_pos, q_pos = args
+        got = kernels.decode_attention(*args, window=window)
+        ref = kernels.decode_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        err = check_close("decode_attention", name, got, ref, dtype)
+        kp, qpl = kv_pos.long(), q_pos.long()[:, None]
+        allowed = (kp <= qpl) & ((qpl - kp < window) if window else True)
+        mask = allowed[:, None, None, :]                 # (B, 1, 1, T)
+        qh, kh, vh = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        ms = median_ms(dict(
+            plain=lambda: kernels.decode_attention_ref(*args, window=window),
+            kernel=lambda: kernels.decode_attention(*args, window=window),
+            library=lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)), ())
+        # the K/V bytes this run's mask needs (each allowed slot once per
+        # kv head), every kv_pos, q_pos, q and o
+        n_slots = int(allowed.sum())
+        esize = q.element_size()
+        nbytes = (esize * (2 * n_slots * Hkv * hd + 2 * q.numel())
+                  + 4 * (kv_pos.numel() + B))
+        bound_ms, bound_by, terms = attn_bound(nbytes, n_slots, hd, Hq, dtype)
+        row = dict(name=name, B=B, T=T, last=last, q_pos=qp, Hq=Hq, Hkv=Hkv,
+                   hd=hd, window=window, dtype=str(dtype).split(".")[-1],
+                   allowed_slots=n_slots, max_abs_err=err, ms=ms["kernel"],
+                   plain_ms=ms["plain"], library_ms=ms["library"],
+                   bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
+        log("decode_attention", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phases 5 and 6: Qwen2-1.5B at full width
+# --------------------------------------------------------------------------
+
+
+def count_plain_calls():
+    """Patch both plain attention versions, as the wrappers see them, to
+    count their calls; returns (patches, counts)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    counts = dict(attention_ref=0, decode_attention_ref=0)
+
+    def counted(name, fn):
+        def wrap(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return wrap
+
+    patches = [mock.patch.object(fops, "attention_ref",
+                                 counted("attention_ref", fops.attention_ref)),
+               mock.patch.object(dops, "decode_attention_ref",
+                                 counted("decode_attention_ref",
+                                         dops.decode_attention_ref))]
+    return patches, counts
+
+
+def split_phase(kernels, cfg, model):
+    """SplitRunner at several splits against the unsplit forward."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.splitpoint import SplitRunner
+
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (SPLIT_BATCH, SPLIT_SEQ)),
+                             dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(SPLIT_SEQ, dtype=torch.int32, device=DEVICE
+                       ).expand(SPLIT_BATCH, SPLIT_SEQ)
+    runner = SplitRunner(cfg, model, SPLIT_BATCH, SPLIT_SEQ)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        hidden, _, _ = tfm.forward(model, tokens=tokens, positions=pos)
+        full = tfm.logits_fn(model, hidden)
+    want_bytes = SPLIT_BATCH * SPLIT_SEQ * cfg.d_model * 2
+    for l in SPLITS:
+        logits, bb = runner.run(l, tokens=tokens)
+        torch.cuda.synchronize()
+        err = float((logits.float() - full.float()).abs().max())
+        log("split", json.dumps(dict(l=l, boundary_bytes=bb,
+                                     max_abs_diff_vs_unsplit=err,
+                                     finite=bool(logits.isfinite().all()))))
+        if not torch.equal(logits, full):
+            raise AssertionError(f"split at l={l} differs from the unsplit "
+                                 f"forward by up to {err}")
+        if bb != want_bytes:
+            raise AssertionError(f"boundary bytes {bb} at l={l}, expected "
+                                 f"{want_bytes}")
+    counts = kernels.launch_counts()
+    n_fwd = len(SPLITS) + 1
+    if counts["flash_attention"] != cfg.n_layers * n_fwd:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times in {n_fwd} "
+                             f"forwards of {cfg.n_layers} layers")
+
+
+def serve_phase(kernels, cfg):
+    """The port's serving entry point, with counts zeroed before."""
+    from repro_torch.launch import serve
+
+    from repro_torch.runtime.splitpoint import SplitRunner
+
+    forward_s = []
+    run = SplitRunner.run
+
+    def timed_run(self, *a, **k):            # the partitioned forwards
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = run(self, *a, **k)
+        torch.cuda.synchronize()
+        forward_s.append(time.perf_counter() - t1)
+        return out
+
+    patches, plain = count_plain_calls()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patches[0], patches[1], mock.patch.object(SplitRunner, "run",
+                                                   timed_run):
+        res = serve.main(["--arch", ARCH, "--budget", str(SERVE_BUDGET),
+                          "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    pb = serve.build_problem(cfg, SPLIT_SEQ)
+    l, p = pb.denormalize(res.best_a)
+    e, tau = pb.constraint_values(res.best_a)
+    n_fwd = len(forward_s)          # every evaluation + the served batch
+    log("serve", json.dumps(dict(
+        split=l, power_w=p, energy_j=e, delay_s=tau, n_evals=res.n_evals,
+        wall_s=wall, forwards=n_fwd, forward_s=sum(forward_s),
+        forward_ms_median=1e3 * statistics.median(forward_s),
+        rest_s=wall - sum(forward_s), launches=counts, plain_calls=plain)))
+    if n_fwd != res.n_evals + 1:
+        raise AssertionError(f"{n_fwd} partitioned forwards for "
+                             f"{res.n_evals} evaluations")
+    if (l, round(p, 3), res.n_evals) != SERVE_EXPECT:
+        raise AssertionError(f"serving picked (l, P, evals) = "
+                             f"{(l, p, res.n_evals)}, the CPU run "
+                             f"{SERVE_EXPECT}")
+    if counts["flash_attention"] != cfg.n_layers * n_fwd:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times in {n_fwd} "
+                             f"forwards")
+    if counts["matern_score"] == 0 or any(plain.values()):
+        raise AssertionError(f"serving launches {counts}, plain calls "
+                             f"{plain}")
+    return counts, wall
+
+
+def generate_phase(kernels, cfg, model):
+    """Greedy decoding through ``greedy_generate``, counts zeroed before;
+    then prefill and per-token decode times."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve as rserve
+
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (GEN_BATCH, GEN_PROMPT)),
+                             dtype=torch.int32, device=DEVICE)
+    patches, plain = count_plain_calls()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patches[0], patches[1]:
+        out = rserve.greedy_generate(model, cfg, prompt, GEN_NEW, GEN_MAX_SEQ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = GEN_NEW - 1
+    want = dict(flash_attention=cfg.n_layers,
+                decode_attention=cfg.n_layers * steps)
+    # the same run, timed by part: prefill, then each decode step
+    prefill = rserve.make_prefill_step(cfg)
+    decode = rserve.make_decode_step(cfg)
+    times = dict(prefill=[], decode=[])
+    for _ in range(3):
+        cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok, cache = prefill(model, dict(tokens=prompt), cache)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for t in range(GEN_PROMPT, GEN_PROMPT + steps):
+            tok, cache = decode(model, tok, cache, t)
+        torch.cuda.synchronize()
+        times["prefill"].append(1e3 * (t2 - t1))
+        times["decode"].append(1e3 * (time.perf_counter() - t2) / steps)
+    log("generate", json.dumps(dict(
+        tokens_shape=list(out.shape), first_tokens=out[0, :8].tolist(),
+        wall_s=wall, launches=counts, plain_calls=plain,
+        prefill_ms=statistics.median(times["prefill"]),
+        decode_ms_per_token=statistics.median(times["decode"]))))
+    if tuple(out.shape) != (GEN_BATCH, GEN_NEW) or out.dtype != torch.int32:
+        raise AssertionError(f"generated {tuple(out.shape)} {out.dtype}")
+    if ((out < 0) | (out >= cfg.vocab_size)).any():
+        raise AssertionError("a generated token is outside the vocabulary")
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name} launched {counts[name]} times, "
+                                 f"expected {n}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions called on the card: {plain}")
+    return counts, wall
+
+
+def kernel_class(name: str) -> str:
+    if "flash_attention_kernel" in name:
+        return "flash_attention"
+    if "decode_attention_kernel" in name:
+        return "decode_attention"
+    if "matern_score_kernel" in name:
+        return "matern_score"
+    if any(k in name.lower() for k in ("gemm", "gemv", "cutlass", "xmma",
+                                       "cublas", "splitk", "nvjet")):
+        return "matmul"
+    if "memcpy" in name.lower() or "memset" in name.lower():
+        return "copy"
+    return "other"
+
+
+def profile_calls(path, fn, n):
+    """Host ms per call (CUDA-synchronised, no profiler), then the device
+    time per call by kernel class from ``torch.profiler`` over another n
+    calls; the idle share is 1 - device busy / host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, launches, by_name = {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3 / n
+            c = kernel_class(ev.name)
+            busy[c] = busy.get(c, 0.0) + ms
+            launches[c] = launches.get(c, 0) + 1 / n
+            by_name[ev.name[:60]] = by_name.get(ev.name[:60], 0.0) + ms
+    total = sum(busy.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("profile", json.dumps(dict(
+        path=path, calls=n, host_ms_per_call=host_ms,
+        device_busy_ms_per_call=total if total else "not measured",
+        idle_share=1 - total / host_ms if total else "not measured",
+        device_ms_by_class=busy, kernels_per_call=launches,
+        top_kernels_ms=dict(top))))
+
+
+def profile_phase(cfg, model):
+    """Where the time goes: one split-serving forward (an evaluation of
+    the BO), one prefill, one decode step."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve as rserve
+    from repro_torch.runtime.splitpoint import SplitRunner
+
+    runner = SplitRunner(cfg, model, SPLIT_BATCH, SPLIT_SEQ)
+    l = SPLITS[2]
+    profile_calls(f"split_serving_forward_l{l}", lambda: runner.run(l), 10)
+    rng = np.random.default_rng(3)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (GEN_BATCH, GEN_PROMPT)),
+                             dtype=torch.int32, device=DEVICE)
+    prefill = rserve.make_prefill_step(cfg)
+    decode = rserve.make_decode_step(cfg)
+    cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
+                           device=DEVICE)
+    profile_calls("prefill_512", lambda: prefill(model, dict(tokens=prompt),
+                                                 cache), 3)
+    tok = prompt[:, -1:]
+    profile_calls("decode_step", lambda: decode(model, tok, cache,
+                                                GEN_PROMPT), 16)
+
+
+def decode_check(cfg, model, dtype):
+    """Prefill on S - 1 tokens then one decode step against the full
+    forward's last hidden state."""
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(2)
+    S = GEN_PROMPT
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (GEN_BATCH, S)),
+                          dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE
+                       ).expand(GEN_BATCH, S)
+    with torch.inference_mode():
+        full, _, _ = tfm.forward(model, tokens=tok, positions=pos)
+        cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=dtype,
+                               device=DEVICE)
+        tfm.forward(model, tokens=tok[:, :-1], positions=pos[:, :-1],
+                    cache=cache, t=0, mode="prefill")
+        dec, _, _ = tfm.forward(model, tokens=tok[:, -1:],
+                                positions=pos[:, -1:], cache=cache, t=S - 1,
+                                mode="decode")
+    a, b = dec[:, 0].float(), full[:, -1].float()
+    err = float((a - b).abs().max())
+    atol, rtol = HIDDEN_TOL[dtype]
+    ok = bool(torch.allclose(a, b, atol=atol, rtol=rtol))
+    log("decode_vs_forward", json.dumps(dict(
+        dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
+        rtol=rtol, hidden_absmax=float(b.abs().max()), ok=ok)))
+    if not ok or not bool(a.isfinite().all()):
+        raise AssertionError(f"prefill + decode differs from the forward by "
+                             f"{err} in {dtype}")
+
+
+def kernel_entry(name, source, replaces, rows, main, by_path):
+    row = next(r for r in rows if r["name"] == main)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], shape=main)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -251,7 +750,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as core
     import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.matern_score import kernel as ms_kernel
+    from repro_torch.models import transformer as tfm
 
     # phase 1: setup
     card = card_line()
@@ -263,39 +767,84 @@ def main() -> int:
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)))
+    libs = {"matern_score": ms_kernel.LIB, "flash_attention": fa_kernel.LIB,
+            "decode_attention": da_kernel.LIB}
     t0 = time.perf_counter()
-    ms_kernel.load()
-    log("build", json.dumps(dict(kernel="matern_score",
-                                 seconds=time.perf_counter() - t0,
-                                 nvcc_seconds=ms_kernel.build_seconds)))
-    log(ms_kernel.build_log.strip())
+    nvcc.build_all(libs.values())
+    for lib in libs.values():
+        lib.load()
+    log("build", json.dumps(dict(seconds=time.perf_counter() - t0, nvcc_seconds={
+        name: lib.build_seconds for name, lib in libs.items()})))
+    for name, lib in libs.items():
+        log(f"build {name}:")
+        log("\n".join(line for line in lib.build_log.splitlines()
+                      if "registers" in line or "spill" in line
+                      or "Compiling entry" in line or "error" in line))
 
-    # phase 2: kernel against plain (launches here are not counted)
+    # phase 2: kernels against plain (launches here are not counted)
     rows = kernel_phase(kernels.matern_score, kernels.matern_score_ref)
+    flash_rows = flash_phase(kernels)
+    decode_rows = decode_phase(kernels)
 
-    # phases 3 and 4: the main path through both entry points
+    # phases 3 and 4: the BO engines
     seq_counts = sequential_phase(core, kernels)
     bat_counts, _, _ = batched_phase(core, kernels)
-    for name in kernels.WRAPPERS:
-        if seq_counts[name] == 0 or bat_counts[name] == 0:
-            raise AssertionError(f"{name} was not launched on the main path "
-                                 f"(sequential {seq_counts[name]}, batched "
-                                 f"{bat_counts[name]})")
+    if seq_counts["matern_score"] == 0 or bat_counts["matern_score"] == 0:
+        raise AssertionError(f"matern_score was not launched on the main "
+                             f"path (sequential {seq_counts}, batched "
+                             f"{bat_counts})")
     breakdown_phase(core)
+
+    # phases 5 and 6: Qwen2-1.5B at full width, bf16
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    torch.cuda.synchronize()
+    log("model", json.dumps(dict(
+        arch=ARCH, params=sum(p.numel() for p in model.parameters()),
+        param_counts=cfg.param_counts(), dtype=cfg.param_dtype,
+        init_s=time.perf_counter() - t0)))
+    split_phase(kernels, cfg, model)
+    serve_counts, _ = serve_phase(kernels, cfg)
+    gen_counts, _ = generate_phase(kernels, cfg, model)
+    profile_phase(cfg, model)
+    decode_check(cfg, model, torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = tfm.Transformer(cfg32, DEVICE)
+    model32.load_state_dict(model.state_dict())
+    del model
+    decode_check(cfg32, model32, torch.float32)
+    del model32
 
     main_row = next(r for r in rows
                     if (r["S"], r["N"], r["n"], r["d"]) == MAIN_SHAPE)
-    log(json.dumps({"kernels": [dict(
-        name="matern_score", route="cuda",
-        source="src/repro_torch/kernels/matern_score/matern_score.cu",
-        replaces="src/repro/kernels/matern_score/kernel.py:38",
-        launches=seq_counts["matern_score"] + bat_counts["matern_score"],
-        launches_by_path=dict(sequential=seq_counts["matern_score"],
-                              batched=bat_counts["matern_score"]),
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None, shape=list(MAIN_SHAPE))]}))
+    log(json.dumps({"kernels": [
+        dict(name="matern_score", route="cuda",
+             source="src/repro_torch/kernels/matern_score/matern_score.cu",
+             replaces="src/repro/kernels/matern_score/kernel.py:38",
+             launches=(seq_counts["matern_score"]
+                       + bat_counts["matern_score"]
+                       + serve_counts["matern_score"]),
+             launches_by_path=dict(sequential=seq_counts["matern_score"],
+                                   batched=bat_counts["matern_score"],
+                                   serve=serve_counts["matern_score"]),
+             max_abs_err=max(r["max_abs_err"] for r in rows),
+             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+             library_ms=None, shape=list(MAIN_SHAPE)),
+        kernel_entry(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:84", flash_rows,
+            FLASH_MAIN, dict(serve=serve_counts["flash_attention"],
+                             generate=gen_counts["flash_attention"])),
+        kernel_entry(
+            "decode_attention",
+            "src/repro_torch/kernels/decode_attention/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:63", decode_rows,
+            DECODE_MAIN, dict(generate=gen_counts["decode_attention"])),
+    ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,9 @@
 """Model configuration for the assigned architecture pool: the port's
 copy of the ``ModelConfig`` registry of ``repro/configs/base.py``.
 
-Every architecture from the task sheet is expressed as a ``ModelConfig``.
-The port so far reads them only to price LM splits (``core/profiles.py``);
-the shape table, parameter counting and ``reduced()`` smoke variants wait
-for the model layer.
+Every architecture from the task sheet is expressed as a ``ModelConfig``;
+``reduced()`` derives the CPU-test variant of the same family. The
+shape table of the dry-run waits for the mesh tooling.
 """
 from __future__ import annotations
 
@@ -83,9 +82,9 @@ class ModelConfig:
     # x trip-count): attention takes the dense path, CE uses one chunk.
     # Never executed; never the shipped config.
     analysis_mode: bool = False
-    # Route the model hot spots through the hand-written kernels
-    # (kernels/*). Kept for field parity with repro.configs; the port's
-    # model layer, which reads it, is not ported yet.
+    # Kept for field parity with repro.configs, where it routes the model
+    # through the Pallas kernels. The port never reads it: the tensors'
+    # device decides (CPU -> plain version, CUDA -> kernel or raise).
     use_pallas_kernels: bool = False
 
     # -- derived ---------------------------------------------------------
@@ -113,6 +112,49 @@ class ModelConfig:
                 kinds.append(self.pattern_for_layer(i))
         return tuple(kinds)
 
+    # -- parameter counting ------------------------------------------------
+    def param_counts(self) -> dict:
+        """Returns dict(total=..., active=...) parameter counts (no frontend)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        hd = self.hd
+        embed = V * D * (1 if self.tie_embeddings else 2)
+        total = embed
+        active = embed
+        for kind in self.layer_kinds():
+            norms = 2 * D
+            if kind in ("attn", "local", "attn_dense"):
+                attn = D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd \
+                    + self.n_heads * hd * D
+                if self.qkv_bias:
+                    attn += (self.n_heads + 2 * self.n_kv_heads) * hd
+            elif kind == "rglru":
+                R = self.lru_width or D
+                # in/out proj (2 branches in, 1 out), conv1d, gates, decay
+                attn = 2 * D * R + R * D + self.conv1d_width * R + 2 * R * R + R
+            elif kind == "rwkv":
+                H, rhd = self.n_rwkv_heads, self.rwkv_head_dim
+                # r,k,v,g,o projections + lora decay + u + token-shift mus
+                attn = 5 * D * D + 2 * D * 64 + H * rhd + 6 * D
+            else:
+                raise ValueError(kind)
+            if self.mlp_type == "swiglu":
+                dense_mlp = 3 * D * F
+            else:
+                dense_mlp = 2 * D * F
+            if kind == "rwkv":
+                dense_mlp = 2 * D * F + D * F  # channel-mix (r, k, v)
+            if self.moe and kind != "attn_dense" and kind not in ("rglru", "rwkv"):
+                router = D * self.n_experts
+                experts = self.n_experts * 3 * D * F
+                shared = self.n_shared_experts * 3 * D * F
+                mlp_total = router + experts + shared
+                mlp_active = router + self.top_k * 3 * D * F + shared
+            else:
+                mlp_total = mlp_active = dense_mlp
+            total += norms + attn + mlp_total
+            active += norms + attn + mlp_active
+        return dict(total=total, active=active)
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -139,3 +181,42 @@ def list_configs() -> list:
     from repro_torch import configs as _c
     _c.load_all()
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Reduced (smoke-test) variants: same family, tiny dims.
+# ---------------------------------------------------------------------------
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """A tiny config of the same family for CPU smoke tests."""
+    n_layers = max(2, len(cfg.block_pattern))
+    if cfg.moe and cfg.first_k_dense:
+        n_layers = max(n_layers, cfg.first_k_dense + 1)
+    heads = 0 if cfg.n_heads == 0 else 4
+    kv = 0 if cfg.n_kv_heads == 0 else min(cfg.n_kv_heads, 2)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        n_layers=n_layers,
+        d_model=64,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=16 if heads else 0,
+        d_ff=128,
+        vocab_size=512,
+        n_experts=8 if cfg.moe else 0,
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+        top_k=min(cfg.top_k, 2) if cfg.moe else 0,
+        # smoke tests need drop-free dispatch so prefix+decode == full
+        # forward exactly (production keeps the 1.5 default)
+        capacity_factor=4.0,
+        window=min(cfg.window, 16) if cfg.window else 0,
+        lru_width=64 if cfg.lru_width else 0,
+        lru_gate_blocks=4,
+        rwkv_head_dim=16,
+        dtype="float32",
+        param_dtype="float32",
+        remat=False,
+        scan_layers=True,
+    )

@@ -2,19 +2,26 @@
 
 Each kernel subpackage keeps the reference's three files, plus its
 source:
-  kernel.py — builds the CUDA source at first use and launches it
+  kernel.py — builds the CUDA source at first use (``nvcc.py``) and
+              launches it
   ops.py    — the public wrapper: the plain version for CPU tensors, the
               kernel (or an error) for CUDA tensors, and a launch count
   ref.py    — the plain PyTorch version, held against the kernel
 
-Only ``matern_score`` is ported so far; the model-execution kernels
-(flash/decode attention, the RWKV6 and RG-LRU scans) wait for the model
-layer.
+Ported: ``matern_score`` (the BO's candidate scoring), ``flash_attention``
+(full-sequence forward) and ``decode_attention`` (one decode step). The
+RWKV6 and RG-LRU scans wait for their model modules.
 """
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: F401
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: F401
 from repro_torch.kernels.matern_score.ops import matern_score  # noqa: F401
 from repro_torch.kernels.matern_score.ref import matern_score_ref  # noqa: F401
 
-WRAPPERS = {"matern_score": matern_score}
+WRAPPERS = {"matern_score": matern_score,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,297 @@
+"""Decoder-stack assembly for the dense-attention architectures of the
+pool. Counterpart of ``repro/models/transformer.py``.
+
+The model is an ``nn.Module`` (``Transformer``) whose blocks sit in one
+flat ``layers`` list in global layer order; the reference's scan groups
+(``layer_groups``) only decide how weights are drawn and carried across.
+``forward`` covers train/prefill (S tokens, optional cache write) and
+decode (one token against the cache). Full sequences go through
+``kernels/flash_attention``, a decode step through
+``kernels/decode_attention``: on CPU tensors those return their plain
+versions, on CUDA tensors they launch the kernels.
+
+The KV cache is a list of per-layer dicts ``{"k", "v", "pos"}``. Unlike
+the reference, which returns a new cache, prefill and decode write the
+cache in place (and return it), so a decode step moves no more bytes
+than its one token.
+
+Not ported yet, and raising ``NotImplementedError`` rather than falling
+back to anything: the ``rglru`` and ``rwkv`` blocks and MoE layers
+(ROADMAP queue 1: the RecurrentGemma, RWKV6 and MoE slices), and the
+mesh paths (``ShardCtx``, the vocab-sharded embedding lookup, padded
+heads), which wait for the mesh tooling.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (Norm, init_tensor, new_param,
+                                       padded_vocab, torch_dtype)
+from repro_torch.models.mlp import MLP
+
+INT32_MAX = 2 ** 31 - 1
+ATTENTION_KINDS = ("attn", "local", "attn_dense")
+_NOT_PORTED = {
+    "rglru": "RG-LRU blocks wait for the RecurrentGemma slice (ROADMAP "
+             "queue 1, with the rglru_scan kernel)",
+    "rwkv": "RWKV6 blocks wait for the RWKV6 slice (ROADMAP queue 1, with "
+            "the rwkv6_scan kernel)",
+}
+
+
+# ---------------------------------------------------------------------------
+# structure
+# ---------------------------------------------------------------------------
+
+
+def layer_groups(cfg) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(kinds_in_cycle, repeats), ...] covering all n_layers in order."""
+    kinds = list(cfg.layer_kinds())
+    groups: List[Tuple[Tuple[str, ...], int]] = []
+    i = 0
+    if cfg.moe and cfg.first_k_dense:
+        groups.append((("attn_dense",), cfg.first_k_dense))
+        i = cfg.first_k_dense
+    rest = kinds[i:]
+    if not rest:
+        return groups
+    p = tuple(cfg.block_pattern) if len(set(rest)) > 1 else (rest[0],)
+    n_cyc = len(rest) // len(p)
+    if n_cyc:
+        groups.append((p, n_cyc))
+    for k in rest[n_cyc * len(p):]:
+        groups.append(((k,), 1))
+    return groups
+
+
+def group_layers(cfg):
+    """For each group of ``layer_groups``: (gi, kinds, reps, idx) where
+    ``idx[r][i]`` is the global layer index of cycle ``r``, block ``i``."""
+    out, off = [], 0
+    for gi, (kinds, reps) in enumerate(layer_groups(cfg)):
+        idx = [[off + r * len(kinds) + i for i in range(len(kinds))]
+               for r in range(reps)]
+        out.append((gi, kinds, reps, idx))
+        off += len(kinds) * reps
+    return out
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a layer kind the port lacks."""
+    for kind in cfg.layer_kinds():
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+        if kind not in ATTENTION_KINDS:
+            raise ValueError(kind)
+        if cfg.moe and kind == "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers wait for the MoE slice (ROADMAP "
+                "queue 1)")
+
+
+def attention_window(cfg, kind: str) -> int:
+    return cfg.window if (kind == "local" or cfg.attn_type == "swa") else 0
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+class AttentionBlock(nn.Module):
+    """Pre-norm attention + dense MLP, as ``_attention_block`` (kinds
+    ``attn``, ``local`` and ``attn_dense``)."""
+
+    def __init__(self, cfg, kind: str, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.kind = kind
+        self.window = attention_window(cfg, kind)
+        self.ln1 = Norm(cfg, **kw)
+        self.ln2 = Norm(cfg, **kw)
+        self.attn = attn.Attention(cfg, **kw)
+        self.mlp = MLP(cfg, **kw)
+
+    def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
+        cfg = self.cfg
+        h = self.ln1(x)
+        q, k, v = attn.qkv_proj(self.attn, h, cfg, positions)
+        if mode == "decode":
+            o = self._decode(q, k, v, positions, cache, t)
+        else:
+            o = flash_attention(q, k, v, causal=True, window=self.window)
+            if cache is not None:
+                _prefill_write(cache, k, v, positions)
+        x = x + attn.out_proj(self.attn, o)
+        return x + self.mlp(self.ln2(x))
+
+    def _decode(self, q, k, v, positions, cache, t):
+        """Write the token at slot ``t % C``, then attend to the cache."""
+        C = cache["k"].shape[1]
+        slot = int(t) % C
+        q_pos = positions[:, 0].to(torch.int32).contiguous()
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][:, slot] = q_pos
+        B, _, Hq, hd = q.shape
+        o = decode_attention(q.reshape(B, Hq, hd), cache["k"], cache["v"],
+                             cache["pos"], q_pos, window=self.window)
+        return o.reshape(B, 1, Hq, hd)
+
+
+def _prefill_write(cache, k, v, positions) -> None:
+    """Persist a prefill's KV in place. Slots [0, S) when S < C; else the
+    last C tokens, rolled so that position p lands at slot p % C (the
+    reference's ring convention)."""
+    C = cache["k"].shape[1]
+    S = k.shape[1]
+    if S >= C:
+        sh = (S - C) % C
+        for name, val in (("k", k), ("v", v), ("pos", positions)):
+            cache[name].copy_(torch.roll(val[:, -C:], sh, dims=1))
+    else:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        cache["pos"][:, :S] = positions.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+
+class Transformer(nn.Module):
+    """``embed`` (Vp, D), ``final_norm``, ``unembed`` (D, Vp) unless the
+    embeddings are tied, and ``layers`` in global order. Parameters are
+    allocated uninitialized: use ``init_model`` or
+    ``interop.model_from_reference``."""
+
+    def __init__(self, cfg, device="cuda", dtype=None):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        dt = torch_dtype(dtype or cfg.param_dtype)
+        kw = dict(device=dev, dtype=dt)
+        self.cfg = cfg
+        self.embed = new_param((padded_vocab(cfg), cfg.d_model), "embed",
+                               0.02, **kw)
+        self.final_norm = Norm(cfg, **kw)
+        if not cfg.tie_embeddings:
+            self.unembed = new_param((cfg.d_model, padded_vocab(cfg)), **kw)
+        self.layers = nn.ModuleList(
+            AttentionBlock(cfg, kind, **kw) for kind in cfg.layer_kinds())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_model(cfg, generator: Optional[torch.Generator] = None,
+               device="cuda", dtype=None) -> Transformer:
+    """The model with weights drawn under the reference's init rules, in
+    ``cfg.param_dtype`` unless ``dtype`` is given. As in the reference,
+    a group of ``reps > 1`` layers draws each leaf once with its stacked
+    ``(reps, ...)`` shape (so its fan-in counts the layer axis), then
+    hands layer r its slice. ``generator`` defaults to seed 0 on the
+    model's device."""
+    model = Transformer(cfg, device, dtype)
+    if generator is None:
+        generator = torch.Generator(model.device).manual_seed(0)
+    with torch.no_grad():
+        for name in ("embed", "unembed"):
+            if hasattr(model, name):
+                _draw(getattr(model, name), generator)
+        for p in model.final_norm.parameters():
+            _draw(p, generator)
+        for _, kinds, reps, idx in group_layers(cfg):
+            for i in range(len(kinds)):
+                blocks = [model.layers[row[i]] for row in idx]
+                for name, p in blocks[0].named_parameters():
+                    same = [b.get_parameter(name) for b in blocks]
+                    shape = (reps, *p.shape) if reps > 1 else tuple(p.shape)
+                    val = init_tensor(shape, p.init, p.init_scale, generator,
+                                      p.dtype)
+                    for r, q in enumerate(same):
+                        q.copy_(val[r] if reps > 1 else val)
+    return model
+
+
+def _draw(p, generator) -> None:
+    p.copy_(init_tensor(tuple(p.shape), p.init, p.init_scale, generator,
+                        p.dtype))
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+
+def cache_capacity(cfg, kind: str, max_seq: int) -> int:
+    if kind == "local" or (cfg.attn_type == "swa" and cfg.window):
+        return min(max_seq, cfg.window)
+    return max_seq
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda") -> list:
+    """Empty cache, one dict per layer: ``k``/``v`` (B, C, Hkv, hd) in
+    ``dtype`` and ``pos`` (B, C) int32 filled with INT32_MAX, so masks
+    exclude unfilled slots. C = min(max_seq, window) for local/SWA."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    out = []
+    for kind in cfg.layer_kinds():
+        C = cache_capacity(cfg, kind, max_seq)
+        out.append({
+            "k": torch.zeros(batch, C, Hkv, hd, dtype=dt, device=dev),
+            "v": torch.zeros(batch, C, Hkv, hd, dtype=dt, device=dev),
+            "pos": torch.full((batch, C), INT32_MAX, dtype=torch.int32,
+                              device=dev),
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits / forward
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(model: Transformer, tokens):
+    return torch.nn.functional.embedding(tokens.long(), model.embed)
+
+
+def unembed_weight(model: Transformer):
+    if model.cfg.tie_embeddings:
+        return model.embed.t()
+    return model.unembed
+
+
+def logits_fn(model: Transformer, hidden):
+    """Full logits (B,S,Vp) over the padded vocab."""
+    return hidden @ unembed_weight(model)
+
+
+def forward(model: Transformer, *, tokens=None, embeds=None, positions,
+            cache=None, t=None, mode: str = "train"):
+    """Returns (hidden (B,S,D), cache, aux_loss). The cache, when given,
+    is written in place and returned."""
+    dt = torch_dtype(model.cfg.dtype)
+    if embeds is not None:
+        x = embeds.to(dt)
+    else:
+        x = embed_lookup(model, tokens).to(dt)
+    for i, block in enumerate(model.layers):
+        x = block(x, positions, None if cache is None else cache[i], t, mode)
+    x = model.final_norm(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
