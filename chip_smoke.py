@@ -7,39 +7,45 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. setup: the card's name and power limit, torch/CUDA versions, TF32 off,
    and the build of every kernel from the sources in the checkout (one
-   nvcc per source, all at once; seconds, registers and spills logged);
+   nvcc per source, all five at once; seconds, registers and spills
+   logged);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with error and CUDA-event times beside
    its bound and, where one PyTorch call computes the same function, that
    call's time: ``matern_score``, ``flash_attention`` (bf16 at Qwen2-1.5B's
-   heads, and the reference's kernel cases) and ``decode_attention``;
+   heads, and the reference's kernel cases), ``decode_attention``,
+   ``rglru_scan`` (RecurrentGemma-2B's prefill, split-serving and decode
+   shapes, and the reference's cases) and ``rwkv6_scan`` (RWKV6-3B's
+   shapes, the reference's cases, and the state written in place);
 3. the sequential engine, ``BayesSplitEdge(default_vgg19_problem(),
    budget=20).run(seed=0)``, must reach 87.5 % at split layer 7;
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
    offsets 0/-2 dB x budgets 20/28) must match the per-scenario
    accuracies recorded in ``benchmarks/artifacts/BENCH_bo_engine.json``;
-5. split serving of Qwen2-1.5B at full width (bf16, weights from
-   ``torch.Generator`` seed 0): ``SplitRunner`` at l = 0, 1, 14, 28 must
-   equal the unsplit forward bit for bit, then ``launch.serve.main``
-   (budget 15) must pick the split and power the CPU run picks;
-6. greedy decoding at full width (a B 2 x 512 prompt, 32 new tokens,
-   ``max_seq`` 1024); where the time goes (``torch.profiler``: device
-   time by kernel class and the idle share) in one split-serving
-   forward, one prefill and one decode step; and prefill + one decode
-   step against the full forward, in bf16 and on a float32 copy of the
-   model.
+5. for each of Qwen2-1.5B, RecurrentGemma-2B and RWKV6-3B at full width
+   (bf16, weights from ``torch.Generator`` seed 0), one model at a time:
+   split serving, where ``SplitRunner`` at four splits must equal the
+   unsplit forward bit for bit and ``launch.serve.main`` (budget 15) must
+   pick the split and power the CPU run picks; greedy decoding (a
+   B 2 x 512 prompt, 32 new tokens, ``max_seq`` 1024); where the time
+   goes (``torch.profiler``: device time by kernel class and the idle
+   share) in one split-serving forward, one prefill and one decode step;
+   and prefill + one decode step against the full forward, in bf16 and
+   on a float32 copy of the model.
 
-Launch counters are zeroed just before each main path (phases 3, 4, 5's
-serving run and 6's generation) and read just after: each kernel of the
-path must have launched, flash attention 28 times per forward and decode
-attention 28 times per step, and the plain versions never. The last line
-is the JSON ``{"ok": true, "device": {...}}``; a JSON line before it
-lists every kernel with its launches, error, times and bound. Exits
-non-zero without a CUDA device, and outside a checkout (it imports
+Launch counters are zeroed just before each main path (phases 3, 4, and
+each model's split, serving and generation runs) and read just after:
+each kernel of the path must have launched as often as the model's
+layers say (``MODEL_RUNS``: per forward and per decode step), every other
+kernel never, and the plain versions never. The last line is the JSON
+``{"ok": true, "device": {...}}``; a JSON line before it lists every
+kernel with its launches by path, error, times and bound. Exits non-zero
+without a CUDA device, and outside a checkout (it imports
 ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -78,6 +84,8 @@ FLASH_SHAPES = [
     ("hd120", 1, 256, 0, torch.bfloat16, 8, 2, 120),
     ("hd256_window", 1, 512, 128, torch.bfloat16, 10, 1, 256),
     ("hd256_f32", 1, 128, 0, torch.float32, 4, 1, 256),
+    # RecurrentGemma-2B's local layers in prefill
+    ("recurrentgemma_prefill", 2, 512, 2048, torch.bfloat16, 10, 1, 256),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 0, torch.float32, 4, 2, 32),
     ("case1", 1, 256, 0, torch.float32, 8, 8, 64),
@@ -96,6 +104,9 @@ DECODE_SHAPES = [
     ("hd120", 1, 256, 200, 200, 0, torch.bfloat16, 8, 2, 120),
     ("hd256", 1, 512, 300, 300, 0, torch.bfloat16, 10, 1, 256),
     ("hd256_f32", 1, 128, 99, 100, 0, torch.float32, 4, 1, 256),
+    # RecurrentGemma-2B's local layers in decoding (ring of 1024 slots)
+    ("recurrentgemma_decode", 2, 1024, 543, 543, 2048, torch.bfloat16, 10,
+     1, 256),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 99, 100, 0, torch.float32, 4, 2, 32),
     ("case1", 1, 256, 255, 256, 0, torch.float32, 8, 1, 64),
@@ -104,16 +115,70 @@ DECODE_SHAPES = [
 ]
 DECODE_MAIN = "decode"
 DEVICE = "cuda"
-ARCH = "qwen2-1.5b"
-SPLIT_BATCH, SPLIT_SEQ, SPLITS = 2, 32, (0, 1, 14, 28)
+# rglru_scan: (name, B, S, R, dtype); RecurrentGemma-2B's R is 2560
+RGLRU_SHAPES = [
+    ("prefill", 2, 512, 2560, torch.float32),
+    ("split_serving", 2, 32, 2560, torch.float32),
+    ("decode", 2, 1, 2560, torch.float32),
+    ("prefill_bf16", 2, 512, 2560, torch.bfloat16),
+    # the reference's kernel cases (tests/test_kernels.py)
+    ("case0", 2, 64, 32, torch.float32),
+    ("case1", 1, 100, 48, torch.float32),
+    ("case2", 2, 64, 32, torch.bfloat16),
+]
+RGLRU_MAIN = "prefill"
+# rwkv6_scan: (name, B, S, H, hd, dtype); RWKV6-3B has 16 heads of 160
+RWKV_SHAPES = [
+    ("prefill", 2, 512, 16, 160, torch.float32),
+    ("split_serving", 2, 32, 16, 160, torch.float32),
+    ("decode", 2, 1, 16, 160, torch.float32),
+    ("prefill_bf16", 2, 512, 16, 160, torch.bfloat16),
+    # the reference's kernel cases (tests/test_kernels.py)
+    ("case0", 2, 64, 2, 16, torch.float32),
+    ("case1", 1, 100, 4, 32, torch.float32),
+    ("case2", 2, 48, 2, 16, torch.bfloat16),
+]
+RWKV_MAIN = "prefill"
+# scans vs plain: float32 differs by fused multiply-adds and summation
+# order only; bfloat16 takes the reference's kernel-test bar (5 x its
+# atol of 2e-2, rtol 3e-2), since outputs round to bf16 on both sides
+SCAN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-1, 3e-2)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelRun:
+    """One full-width model of phase 5: the splits to check, what the
+    serving driver must pick on the CPU run's word, and the kernel
+    launches of one forward and of one decode step."""
+    arch: str
+    splits: tuple
+    expect: tuple                   # split, power (W), evaluations
+    per_forward: dict
+    per_step: dict
+    bf16_tol: tuple = None          # (atol, rtol) of prefill + decode
+
+
+MODEL_RUNS = [
+    ModelRun("qwen2-1.5b", (0, 1, 14, 28), (1, 0.040, 15),
+             dict(flash_attention=28), dict(decode_attention=28),
+             bf16_tol=(3e-2, 2e-2)),
+    # 26 layers: 18 rglru, 8 local attention (window 2048)
+    ModelRun("recurrentgemma-2b", (0, 1, 13, 26), (1, 0.027, 15),
+             dict(flash_attention=8, rglru_scan=18),
+             dict(decode_attention=8, rglru_scan=18)),
+    ModelRun("rwkv6-3b", (0, 1, 16, 32), (1, 0.143, 15),
+             dict(rwkv6_scan=32), dict(rwkv6_scan=32)),
+]
+SPLIT_BATCH, SPLIT_SEQ = 2, 32
 SERVE_BUDGET = 15
-SERVE_EXPECT = (1, 0.040, 15)       # split, power (W), evaluations: CPU run
 GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 2, 512, 32, 1024
-# prefill + decode vs the full forward's last hidden state: bf16 rounds
-# the residual stream at every layer (a unit of the last place is 2^-8
-# relative, 0.0156 at |h| = 4) and the two routes round at different
-# places; float32 differs only in summation order
-HIDDEN_TOL = {torch.bfloat16: (3e-2, 2e-2), torch.float32: (1e-3, 1e-3)}
+# prefill + decode vs the full forward's last hidden state. Float32
+# differs only in summation order. In bf16 the two routes round at
+# different places (the residual stream at every layer: a unit of the
+# last place is 2^-8 relative, 0.0156 at |h| = 4), so they are held to
+# the bf16 forward's own error against the float32 copy on the same
+# inputs; Qwen2-1.5B also to a fixed (atol, rtol).
+HIDDEN_TOL = (1e-3, 1e-3)
 MAIN_N = 64 * 64 + 37 + 45          # grid + VGG19 boundary + local slots
 SHAPES = ([(16, MAIN_N, n, 2) for n in (16, 32, 48, 64)]
           + [(256, MAIN_N, 64, 2)])            # 256: a serving-pool width
@@ -149,6 +214,19 @@ def score_inputs(S, N, n, d, seed=0):
             t(0.1 + rng.random(S)), t(0.5 + rng.random(S)))
 
 
+def bound(nbytes, flops, sfu=0):
+    """Least time on an H100 for one call, and which term sets it: the
+    larger of the bytes (each input read once, each output written once)
+    at the HBM rate and the float32 operations at the f32 peak (sqrt and
+    exp, ``sfu`` of them, at the special-function units' rate)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(flops / PEAK_F32_FLOPS, sfu / PEAK_SFU_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(bytes_ms=1e3 * t_bytes, f32_ms=1e3 * flops / PEAK_F32_FLOPS,
+                 sfu_ms=1e3 * sfu / PEAK_SFU_PER_S))
+
+
 def matern_bound(S, N, n, d):
     """Least time on an H100 for one call, and which term sets it: the
     larger of the bytes (each input read once, the output written once)
@@ -168,12 +246,7 @@ def matern_bound(S, N, n, d):
     nbytes = 4 * (S * N * d + S * n * d + 2 * S * n + 2 * S + S * N)
     pairs = S * N * n
     flops = pairs * (3 * d + 10) + 2 * S * n + 2 * S
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = max(flops / PEAK_F32_FLOPS, 2 * pairs / PEAK_SFU_PER_S)
-    return (1e3 * max(t_bytes, t_ops),
-            "operations" if t_ops >= t_bytes else "bytes",
-            dict(bytes_ms=1e3 * t_bytes, f32_ms=1e3 * flops / PEAK_F32_FLOPS,
-                 sfu_ms=1e3 * 2 * pairs / PEAK_SFU_PER_S))
+    return bound(nbytes, flops, sfu=2 * pairs)
 
 
 def time_calls(fn, args, inner=20):
@@ -451,17 +524,118 @@ def decode_phase(kernels):
 
 
 # --------------------------------------------------------------------------
-# phases 5 and 6: Qwen2-1.5B at full width
+# phase 2: the recurrent scans against their plain versions
 # --------------------------------------------------------------------------
 
 
-def count_plain_calls():
-    """Patch both plain attention versions, as the wrappers see them, to
-    count their calls; returns (patches, counts)."""
+def check_scan(name, shape, pairs, dtype):
+    """Max abs error over (got, want) pairs; raises outside SCAN_TOL."""
+    atol, rtol = SCAN_TOL[dtype]
+    err = 0.0
+    for got, want in pairs:
+        g, w = got.float(), want.float()
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        if not torch.allclose(g, w, atol=atol, rtol=rtol):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {shape}: max abs err {err}, atol/rtol "
+                                 f"{atol}/{rtol}")
+    return err
+
+
+def rglru_phase(kernels):
+    rows = []
+    for name, B, S, R, dtype in RGLRU_SHAPES:
+        rng = np.random.default_rng(S + R)
+        a = torch.sigmoid(torch.as_tensor(rng.standard_normal((B, S, R)),
+                                          dtype=torch.float32, device=DEVICE))
+        b = torch.as_tensor(rng.standard_normal((B, S, R)),
+                            dtype=torch.float32, device=DEVICE)
+        a, b = a.to(dtype), b.to(dtype)
+        h0 = torch.as_tensor(rng.standard_normal((B, R)), dtype=torch.float32,
+                             device=DEVICE)
+        args = (a, b, h0)
+        got = kernels.rglru_scan(*args)
+        want = kernels.rglru_scan_ref(*args)
+        state = h0.clone()                    # h_last written over h0
+        _, in_place = kernels.rglru_scan(a, b, state, h_out=state)
+        torch.cuda.synchronize()
+        err = check_scan("rglru_scan", name, zip(got, want), dtype)
+        if not torch.equal(in_place, got[1]):
+            raise AssertionError(f"rglru_scan in place differs at {name}")
+        ms = median_ms(dict(plain=lambda: kernels.rglru_scan_ref(*args),
+                            kernel=lambda: kernels.rglru_scan(*args)), ())
+        n = B * S * R
+        nbytes = a.element_size() * 3 * n + 4 * 2 * B * R
+        bound_ms, bound_by, terms = bound(nbytes, 2 * n)
+        row = dict(name=name, B=B, S=S, R=R, dtype=str(dtype).split(".")[-1],
+                   max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_terms=terms)
+        log("rglru_scan", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def rwkv6_phase(kernels):
+    rows = []
+    for name, B, S, H, hd, dtype in RWKV_SHAPES:
+        rng = np.random.default_rng(S + hd)
+
+        def t(x, dt=dtype):
+            return torch.as_tensor(x, dtype=torch.float32,
+                                   device=DEVICE).to(dt)
+
+        r, k, v = (t(rng.standard_normal((B, S, H, hd))) for _ in range(3))
+        logw = t(-np.exp(rng.standard_normal((B, S, H, hd))) * 0.5)
+        u = t(rng.standard_normal((H, hd)) * 0.1, torch.float32)
+        s0 = t(rng.standard_normal((B, H, hd, hd)) * 0.1, torch.float32)
+        args = (r, k, v, logw, u, s0)
+        got = kernels.rwkv6_scan(*args)
+        want = kernels.rwkv6_scan_ref(*args)
+        state = s0.clone()                    # s_last written over s0
+        o_in_place, _ = kernels.rwkv6_scan(r, k, v, logw, u, state,
+                                           s_out=state)
+        torch.cuda.synchronize()
+        err = check_scan("rwkv6_scan", name, zip(got, want), dtype)
+        if not (torch.equal(state, got[1]) and torch.equal(o_in_place,
+                                                           got[0])):
+            raise AssertionError(f"rwkv6_scan in place differs at {name}")
+        ms = median_ms(dict(plain=lambda: kernels.rwkv6_scan_ref(*args),
+                            kernel=lambda: kernels.rwkv6_scan(*args)), ())
+        # per (b, t, h): each state element takes k v (1), w S + k v (2)
+        # and r S + acc (2); r . (u k) 3 hd and its v term 2 hd; one exp
+        # per row
+        steps = B * S * H
+        flops = steps * (5 * hd * hd + 5 * hd)
+        nbytes = (r.element_size() * 5 * steps * hd
+                  + 4 * (H * hd + 2 * B * H * hd * hd))
+        bound_ms, bound_by, terms = bound(nbytes, flops, sfu=steps * hd)
+        row = dict(name=name, B=B, S=S, H=H, hd=hd,
+                   dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
+        log("rwkv6_scan", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 5: the LMs at full width
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_calls_counted():
+    """Count the calls of the model path's plain versions, as their
+    wrappers see them; yields the counts."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as gops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
 
-    counts = dict(attention_ref=0, decode_attention_ref=0)
+    targets = [(fops, "attention_ref"), (dops, "decode_attention_ref"),
+               (gops, "rglru_scan_ref"), (wops, "rwkv6_scan_ref")]
+    counts = {name: 0 for _, name in targets}
 
     def counted(name, fn):
         def wrap(*a, **k):
@@ -469,15 +643,33 @@ def count_plain_calls():
             return fn(*a, **k)
         return wrap
 
-    patches = [mock.patch.object(fops, "attention_ref",
-                                 counted("attention_ref", fops.attention_ref)),
-               mock.patch.object(dops, "decode_attention_ref",
-                                 counted("decode_attention_ref",
-                                         dops.decode_attention_ref))]
-    return patches, counts
+    with contextlib.ExitStack() as stack:
+        for mod, name in targets:
+            stack.enter_context(mock.patch.object(
+                mod, name, counted(name, getattr(mod, name))))
+        yield counts
 
 
-def split_phase(kernels, cfg, model):
+def check_launches(what, counts, want, plain):
+    """Every kernel launched exactly ``want[name]`` times (0 if absent),
+    and no plain version called."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}: {counts}")
+    if any(plain.values()):
+        raise AssertionError(f"{what}: plain versions called on the card: "
+                             f"{plain}")
+
+
+def per(run, forwards=0, steps=0):
+    """Launches of ``forwards`` forwards and ``steps`` decode steps."""
+    names = set(run.per_forward) | set(run.per_step)
+    return {k: forwards * run.per_forward.get(k, 0)
+            + steps * run.per_step.get(k, 0) for k in names}
+
+
+def split_phase(kernels, run, cfg, model):
     """SplitRunner at several splits against the unsplit forward."""
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.splitpoint import SplitRunner
@@ -490,54 +682,54 @@ def split_phase(kernels, cfg, model):
                        ).expand(SPLIT_BATCH, SPLIT_SEQ)
     runner = SplitRunner(cfg, model, SPLIT_BATCH, SPLIT_SEQ)
     kernels.reset_launch_counts()
-    with torch.inference_mode():
-        hidden, _, _ = tfm.forward(model, tokens=tokens, positions=pos)
-        full = tfm.logits_fn(model, hidden)
-    want_bytes = SPLIT_BATCH * SPLIT_SEQ * cfg.d_model * 2
-    for l in SPLITS:
-        logits, bb = runner.run(l, tokens=tokens)
-        torch.cuda.synchronize()
-        err = float((logits.float() - full.float()).abs().max())
-        log("split", json.dumps(dict(l=l, boundary_bytes=bb,
-                                     max_abs_diff_vs_unsplit=err,
-                                     finite=bool(logits.isfinite().all()))))
-        if not torch.equal(logits, full):
-            raise AssertionError(f"split at l={l} differs from the unsplit "
-                                 f"forward by up to {err}")
-        if bb != want_bytes:
-            raise AssertionError(f"boundary bytes {bb} at l={l}, expected "
-                                 f"{want_bytes}")
+    with plain_calls_counted() as plain:
+        with torch.inference_mode():
+            hidden, _, _ = tfm.forward(model, tokens=tokens, positions=pos)
+            full = tfm.logits_fn(model, hidden)
+        want_bytes = (SPLIT_BATCH * SPLIT_SEQ * cfg.d_model
+                      * getattr(torch, cfg.dtype).itemsize)
+        for l in run.splits:
+            logits, bb = runner.run(l, tokens=tokens)
+            torch.cuda.synchronize()
+            err = float((logits.float() - full.float()).abs().max())
+            log("split", json.dumps(dict(
+                arch=run.arch, l=l, boundary_bytes=bb,
+                max_abs_diff_vs_unsplit=err,
+                finite=bool(logits.isfinite().all()))))
+            if not torch.equal(logits, full):
+                raise AssertionError(f"{run.arch}: split at l={l} differs "
+                                     f"from the unsplit forward by up to "
+                                     f"{err}")
+            if bb != want_bytes:
+                raise AssertionError(f"{run.arch}: boundary bytes {bb} at "
+                                     f"l={l}, expected {want_bytes}")
     counts = kernels.launch_counts()
-    n_fwd = len(SPLITS) + 1
-    if counts["flash_attention"] != cfg.n_layers * n_fwd:
-        raise AssertionError(f"flash_attention launched "
-                             f"{counts['flash_attention']} times in {n_fwd} "
-                             f"forwards of {cfg.n_layers} layers")
+    check_launches(f"{run.arch} split", counts,
+                   per(run, forwards=len(run.splits) + 1), plain)
+    return counts
 
 
-def serve_phase(kernels, cfg):
+def serve_phase(kernels, run, cfg):
     """The port's serving entry point, with counts zeroed before."""
     from repro_torch.launch import serve
-
     from repro_torch.runtime.splitpoint import SplitRunner
 
     forward_s = []
-    run = SplitRunner.run
+    run_fn = SplitRunner.run
 
     def timed_run(self, *a, **k):            # the partitioned forwards
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = run(self, *a, **k)
+        out = run_fn(self, *a, **k)
         torch.cuda.synchronize()
         forward_s.append(time.perf_counter() - t1)
         return out
 
-    patches, plain = count_plain_calls()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with patches[0], patches[1], mock.patch.object(SplitRunner, "run",
-                                                   timed_run):
-        res = serve.main(["--arch", ARCH, "--budget", str(SERVE_BUDGET),
+    with plain_calls_counted() as plain, \
+            mock.patch.object(SplitRunner, "run", timed_run):
+        res = serve.main(["--arch", run.arch, "--budget", str(SERVE_BUDGET),
                           "--device", DEVICE])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -547,28 +739,28 @@ def serve_phase(kernels, cfg):
     e, tau = pb.constraint_values(res.best_a)
     n_fwd = len(forward_s)          # every evaluation + the served batch
     log("serve", json.dumps(dict(
-        split=l, power_w=p, energy_j=e, delay_s=tau, n_evals=res.n_evals,
-        wall_s=wall, forwards=n_fwd, forward_s=sum(forward_s),
+        arch=run.arch, split=l, power_w=p, energy_j=e, delay_s=tau,
+        n_evals=res.n_evals, wall_s=wall, forwards=n_fwd,
+        forward_s=sum(forward_s),
         forward_ms_median=1e3 * statistics.median(forward_s),
         rest_s=wall - sum(forward_s), launches=counts, plain_calls=plain)))
     if n_fwd != res.n_evals + 1:
         raise AssertionError(f"{n_fwd} partitioned forwards for "
                              f"{res.n_evals} evaluations")
-    if (l, round(p, 3), res.n_evals) != SERVE_EXPECT:
-        raise AssertionError(f"serving picked (l, P, evals) = "
+    if (l, round(p, 3), res.n_evals) != run.expect:
+        raise AssertionError(f"{run.arch}: serving picked (l, P, evals) = "
                              f"{(l, p, res.n_evals)}, the CPU run "
-                             f"{SERVE_EXPECT}")
-    if counts["flash_attention"] != cfg.n_layers * n_fwd:
-        raise AssertionError(f"flash_attention launched "
-                             f"{counts['flash_attention']} times in {n_fwd} "
-                             f"forwards")
-    if counts["matern_score"] == 0 or any(plain.values()):
-        raise AssertionError(f"serving launches {counts}, plain calls "
-                             f"{plain}")
-    return counts, wall
+                             f"{run.expect}")
+    if counts["matern_score"] == 0:
+        raise AssertionError(f"{run.arch} serve: matern_score never "
+                             "launched")
+    check_launches(f"{run.arch} serve", counts,
+                   dict(per(run, forwards=n_fwd),
+                        matern_score=counts["matern_score"]), plain)
+    return counts
 
 
-def generate_phase(kernels, cfg, model):
+def generate_phase(kernels, run, cfg, model):
     """Greedy decoding through ``greedy_generate``, counts zeroed before;
     then prefill and per-token decode times."""
     from repro_torch.models import transformer as tfm
@@ -578,18 +770,15 @@ def generate_phase(kernels, cfg, model):
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (GEN_BATCH, GEN_PROMPT)),
                              dtype=torch.int32, device=DEVICE)
-    patches, plain = count_plain_calls()
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with patches[0], patches[1]:
+    with plain_calls_counted() as plain:
         out = rserve.greedy_generate(model, cfg, prompt, GEN_NEW, GEN_MAX_SEQ)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     steps = GEN_NEW - 1
-    want = dict(flash_attention=cfg.n_layers,
-                decode_attention=cfg.n_layers * steps)
     # the same run, timed by part: prefill, then each decode step
     prefill = rserve.make_prefill_step(cfg)
     decode = rserve.make_decode_step(cfg)
@@ -608,30 +797,24 @@ def generate_phase(kernels, cfg, model):
         times["prefill"].append(1e3 * (t2 - t1))
         times["decode"].append(1e3 * (time.perf_counter() - t2) / steps)
     log("generate", json.dumps(dict(
-        tokens_shape=list(out.shape), first_tokens=out[0, :8].tolist(),
-        wall_s=wall, launches=counts, plain_calls=plain,
-        prefill_ms=statistics.median(times["prefill"]),
+        arch=run.arch, tokens_shape=list(out.shape),
+        first_tokens=out[0, :8].tolist(), wall_s=wall, launches=counts,
+        plain_calls=plain, prefill_ms=statistics.median(times["prefill"]),
         decode_ms_per_token=statistics.median(times["decode"]))))
     if tuple(out.shape) != (GEN_BATCH, GEN_NEW) or out.dtype != torch.int32:
         raise AssertionError(f"generated {tuple(out.shape)} {out.dtype}")
     if ((out < 0) | (out >= cfg.vocab_size)).any():
         raise AssertionError("a generated token is outside the vocabulary")
-    for name, n in want.items():
-        if counts[name] != n:
-            raise AssertionError(f"{name} launched {counts[name]} times, "
-                                 f"expected {n}")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions called on the card: {plain}")
-    return counts, wall
+    check_launches(f"{run.arch} generate", counts,
+                   per(run, forwards=1, steps=steps), plain)
+    return counts
 
 
 def kernel_class(name: str) -> str:
-    if "flash_attention_kernel" in name:
-        return "flash_attention"
-    if "decode_attention_kernel" in name:
-        return "decode_attention"
-    if "matern_score_kernel" in name:
-        return "matern_score"
+    for kernel in ("flash_attention", "decode_attention", "matern_score",
+                   "rglru_scan", "rwkv6_scan"):
+        if f"{kernel}_kernel" in name:
+            return kernel
     if any(k in name.lower() for k in ("gemm", "gemv", "cutlass", "xmma",
                                        "cublas", "splitk", "nvjet")):
         return "matmul"
@@ -640,7 +823,7 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_calls(path, fn, n):
+def profile_calls(arch, path, fn, n):
     """Host ms per call (CUDA-synchronised, no profiler), then the device
     time per call by kernel class from ``torch.profiler`` over another n
     calls; the idle share is 1 - device busy / host time."""
@@ -669,14 +852,14 @@ def profile_calls(path, fn, n):
     total = sum(busy.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log("profile", json.dumps(dict(
-        path=path, calls=n, host_ms_per_call=host_ms,
+        arch=arch, path=path, calls=n, host_ms_per_call=host_ms,
         device_busy_ms_per_call=total if total else "not measured",
         idle_share=1 - total / host_ms if total else "not measured",
         device_ms_by_class=busy, kernels_per_call=launches,
         top_kernels_ms=dict(top))))
 
 
-def profile_phase(cfg, model):
+def profile_phase(run, cfg, model):
     """Where the time goes: one split-serving forward (an evaluation of
     the BO), one prefill, one decode step."""
     from repro_torch.models import transformer as tfm
@@ -684,8 +867,9 @@ def profile_phase(cfg, model):
     from repro_torch.runtime.splitpoint import SplitRunner
 
     runner = SplitRunner(cfg, model, SPLIT_BATCH, SPLIT_SEQ)
-    l = SPLITS[2]
-    profile_calls(f"split_serving_forward_l{l}", lambda: runner.run(l), 10)
+    l = run.splits[2]
+    profile_calls(run.arch, f"split_serving_forward_l{l}",
+                  lambda: runner.run(l), 10)
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (GEN_BATCH, GEN_PROMPT)),
@@ -694,16 +878,16 @@ def profile_phase(cfg, model):
     decode = rserve.make_decode_step(cfg)
     cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
                            device=DEVICE)
-    profile_calls("prefill_512", lambda: prefill(model, dict(tokens=prompt),
-                                                 cache), 3)
+    profile_calls(run.arch, "prefill_512",
+                  lambda: prefill(model, dict(tokens=prompt), cache), 3)
     tok = prompt[:, -1:]
-    profile_calls("decode_step", lambda: decode(model, tok, cache,
-                                                GEN_PROMPT), 16)
+    profile_calls(run.arch, "decode_step",
+                  lambda: decode(model, tok, cache, GEN_PROMPT), 16)
 
 
-def decode_check(cfg, model, dtype):
-    """Prefill on S - 1 tokens then one decode step against the full
-    forward's last hidden state."""
+def prefill_decode(cfg, model, dtype):
+    """Prefill on S - 1 tokens then one decode step, and the full
+    forward: the last position's hidden state of each, in float32."""
     from repro_torch.models import transformer as tfm
 
     rng = np.random.default_rng(2)
@@ -721,22 +905,80 @@ def decode_check(cfg, model, dtype):
         dec, _, _ = tfm.forward(model, tokens=tok[:, -1:],
                                 positions=pos[:, -1:], cache=cache, t=S - 1,
                                 mode="decode")
-    a, b = dec[:, 0].float(), full[:, -1].float()
-    err = float((a - b).abs().max())
-    atol, rtol = HIDDEN_TOL[dtype]
-    ok = bool(torch.allclose(a, b, atol=atol, rtol=rtol))
+    return dec[:, 0].float(), full[:, -1].float()
+
+
+def decode_check(run, bf16, f32):
+    """Prefill + decode against the full forward. Float32: within
+    HIDDEN_TOL. Bfloat16: the two routes may differ by no more than the
+    bf16 forward differs from the float32 copy on the same inputs (its
+    own rounding error), and within ``run.bf16_tol`` where one is set."""
+    (dec16, full16), (dec32, full32) = bf16, f32
+    atol, rtol = HIDDEN_TOL
+    err32 = float((dec32 - full32).abs().max())
+    ok32 = bool(torch.allclose(dec32, full32, atol=atol, rtol=rtol))
+    err16 = float((dec16 - full16).abs().max())
+    rounding = float((full16 - full32).abs().max())
+    ok16 = err16 <= rounding
+    if run.bf16_tol:
+        ok16 = ok16 and bool(torch.allclose(dec16, full16,
+                                            atol=run.bf16_tol[0],
+                                            rtol=run.bf16_tol[1]))
     log("decode_vs_forward", json.dumps(dict(
-        dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
-        rtol=rtol, hidden_absmax=float(b.abs().max()), ok=ok)))
-    if not ok or not bool(a.isfinite().all()):
-        raise AssertionError(f"prefill + decode differs from the forward by "
-                             f"{err} in {dtype}")
+        arch=run.arch, float32_max_abs_err=err32, float32_atol=atol,
+        float32_rtol=rtol, bf16_max_abs_err=err16,
+        bf16_forward_vs_float32=rounding, bf16_tol=run.bf16_tol,
+        dec_bf16_vs_float32=float((dec16 - full32).abs().max()),
+        hidden_absmax=float(full32.abs().max()), ok=ok32 and ok16)))
+    for name, t in (("bf16", dec16), ("float32", dec32)):
+        if not bool(t.isfinite().all()):
+            raise AssertionError(f"{run.arch}: {name} decode is not finite")
+    if not ok32:
+        raise AssertionError(f"{run.arch}: prefill + decode differs from "
+                             f"the forward by {err32} in float32")
+    if not ok16:
+        raise AssertionError(f"{run.arch}: prefill + decode differs from "
+                             f"the forward by {err16} in bf16 (the bf16 "
+                             f"forward's own error: {rounding})")
 
 
-def kernel_entry(name, source, replaces, rows, main, by_path):
+def model_phase(kernels, run):
+    """Phase 5 for one model: load it, serve, decode, profile, check
+    decoding in bf16 and on a float32 copy, then free it. Returns the
+    launch counts of its split, serving and generation runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(run.arch)
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    torch.cuda.synchronize()
+    log("model", json.dumps(dict(
+        arch=run.arch, params=sum(p.numel() for p in model.parameters()),
+        param_counts=cfg.param_counts(), dtype=cfg.param_dtype,
+        init_s=time.perf_counter() - t0)))
+    counts = dict(split=split_phase(kernels, run, cfg, model),
+                  serve=serve_phase(kernels, run, cfg),
+                  generate=generate_phase(kernels, run, cfg, model))
+    profile_phase(run, cfg, model)
+    bf16 = prefill_decode(cfg, model, torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = tfm.Transformer(cfg32, DEVICE)
+    model32.load_state_dict(model.state_dict())
+    del model
+    decode_check(run, bf16, prefill_decode(cfg32, model32, torch.float32))
+    del model32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kernel_entry(name, replaces, rows, main, by_path):
     row = next(r for r in rows if r["name"] == main)
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=sum(by_path.values()), launches_by_path=by_path,
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/{name}/{name}.cu",
+                replaces=replaces, launches=sum(by_path.values()),
+                launches_by_path=by_path,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -750,12 +992,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as core
     import repro_torch.kernels as kernels
-    from repro_torch.configs import get_config
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.matern_score import kernel as ms_kernel
-    from repro_torch.models import transformer as tfm
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
 
     # phase 1: setup
     card = card_line()
@@ -768,7 +1010,8 @@ def main() -> int:
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)))
     libs = {"matern_score": ms_kernel.LIB, "flash_attention": fa_kernel.LIB,
-            "decode_attention": da_kernel.LIB}
+            "decode_attention": da_kernel.LIB, "rglru_scan": rg_kernel.LIB,
+            "rwkv6_scan": rw_kernel.LIB}
     t0 = time.perf_counter()
     nvcc.build_all(libs.values())
     for lib in libs.values():
@@ -785,6 +1028,8 @@ def main() -> int:
     rows = kernel_phase(kernels.matern_score, kernels.matern_score_ref)
     flash_rows = flash_phase(kernels)
     decode_rows = decode_phase(kernels)
+    rglru_rows = rglru_phase(kernels)
+    rwkv_rows = rwkv6_phase(kernels)
 
     # phases 3 and 4: the BO engines
     seq_counts = sequential_phase(core, kernels)
@@ -795,27 +1040,18 @@ def main() -> int:
                              f"{bat_counts})")
     breakdown_phase(core)
 
-    # phases 5 and 6: Qwen2-1.5B at full width, bf16
-    cfg = get_config(ARCH)
-    t0 = time.perf_counter()
-    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
-                           DEVICE)
-    torch.cuda.synchronize()
-    log("model", json.dumps(dict(
-        arch=ARCH, params=sum(p.numel() for p in model.parameters()),
-        param_counts=cfg.param_counts(), dtype=cfg.param_dtype,
-        init_s=time.perf_counter() - t0)))
-    split_phase(kernels, cfg, model)
-    serve_counts, _ = serve_phase(kernels, cfg)
-    gen_counts, _ = generate_phase(kernels, cfg, model)
-    profile_phase(cfg, model)
-    decode_check(cfg, model, torch.bfloat16)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    model32 = tfm.Transformer(cfg32, DEVICE)
-    model32.load_state_dict(model.state_dict())
-    del model
-    decode_check(cfg32, model32, torch.float32)
-    del model32
+    # phase 5: the LMs at full width, bf16, one at a time
+    by_path = {name: {} for name in libs}
+    by_path["matern_score"].update(sequential=seq_counts["matern_score"],
+                                   batched=bat_counts["matern_score"])
+    for run in MODEL_RUNS:
+        for path, counts in model_phase(kernels, run).items():
+            for name, n in counts.items():
+                if n:
+                    by_path[name][f"{path}:{run.arch}"] = n
+    for name, paths in by_path.items():
+        if not paths:
+            raise AssertionError(f"{name} was launched on no main path")
 
     main_row = next(r for r in rows
                     if (r["S"], r["N"], r["n"], r["d"]) == MAIN_SHAPE)
@@ -823,27 +1059,24 @@ def main() -> int:
         dict(name="matern_score", route="cuda",
              source="src/repro_torch/kernels/matern_score/matern_score.cu",
              replaces="src/repro/kernels/matern_score/kernel.py:38",
-             launches=(seq_counts["matern_score"]
-                       + bat_counts["matern_score"]
-                       + serve_counts["matern_score"]),
-             launches_by_path=dict(sequential=seq_counts["matern_score"],
-                                   batched=bat_counts["matern_score"],
-                                   serve=serve_counts["matern_score"]),
+             launches=sum(by_path["matern_score"].values()),
+             launches_by_path=by_path["matern_score"],
              max_abs_err=max(r["max_abs_err"] for r in rows),
              ms=main_row["ms"], plain_ms=main_row["plain_ms"],
              bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
              library_ms=None, shape=list(MAIN_SHAPE)),
-        kernel_entry(
-            "flash_attention",
-            "src/repro_torch/kernels/flash_attention/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:84", flash_rows,
-            FLASH_MAIN, dict(serve=serve_counts["flash_attention"],
-                             generate=gen_counts["flash_attention"])),
-        kernel_entry(
-            "decode_attention",
-            "src/repro_torch/kernels/decode_attention/decode_attention.cu",
-            "src/repro/kernels/decode_attention/kernel.py:63", decode_rows,
-            DECODE_MAIN, dict(generate=gen_counts["decode_attention"])),
+        kernel_entry("flash_attention",
+                     "src/repro/kernels/flash_attention/kernel.py:84",
+                     flash_rows, FLASH_MAIN, by_path["flash_attention"]),
+        kernel_entry("decode_attention",
+                     "src/repro/kernels/decode_attention/kernel.py:63",
+                     decode_rows, DECODE_MAIN, by_path["decode_attention"]),
+        kernel_entry("rglru_scan",
+                     "src/repro/kernels/rglru_scan/kernel.py:46",
+                     rglru_rows, RGLRU_MAIN, by_path["rglru_scan"]),
+        kernel_entry("rwkv6_scan",
+                     "src/repro/kernels/rwkv6_scan/kernel.py:57",
+                     rwkv_rows, RWKV_MAIN, by_path["rwkv6_scan"]),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ source:
               kernel (or an error) for CUDA tensors, and a launch count
   ref.py    — the plain PyTorch version, held against the kernel
 
-Ported: ``matern_score`` (the BO's candidate scoring), ``flash_attention``
-(full-sequence forward) and ``decode_attention`` (one decode step). The
-RWKV6 and RG-LRU scans wait for their model modules.
+Ported, one for each TPU kernel of the reference: ``matern_score`` (the
+BO's candidate scoring), ``flash_attention`` (full-sequence forward),
+``decode_attention`` (one decode step), ``rglru_scan`` (RecurrentGemma's
+RG-LRU recurrence) and ``rwkv6_scan`` (RWKV6's wkv recurrence).
 """
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: F401
@@ -18,10 +19,16 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F40
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: F401
 from repro_torch.kernels.matern_score.ops import matern_score  # noqa: F401
 from repro_torch.kernels.matern_score.ref import matern_score_ref  # noqa: F401
+from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: F401
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: F401
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: F401
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: F401
 
 WRAPPERS = {"matern_score": matern_score,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "rglru_scan": rglru_scan,
+            "rwkv6_scan": rwkv6_scan}
 
 
 def launch_counts() -> dict:

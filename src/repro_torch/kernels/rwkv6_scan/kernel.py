@@ -1,0 +1,43 @@
+"""Build and launch the Hopper CUDA ``rwkv6_scan`` kernel.
+
+Counterpart of ``repro/kernels/rwkv6_scan/kernel.py`` (the Pallas TPU
+kernel); the design note is at the top of ``rwkv6_scan.cu``. The build
+(``nvcc -shared`` at first use, loaded with ``ctypes``) is
+``kernels/nvcc.py``'s.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+from repro_torch.kernels.nvcc import (DTYPE_BFLOAT16, DTYPE_FLOAT32,
+                                      CudaLibrary)
+
+MAX_HEAD_DIM = 256        # the largest instance: 8 warps x 32 rows
+
+
+def _declare(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rwkv6_scan_launch.argtypes = [p] * 8 + [ll] * 12 + [i] * 5 + [p]
+    lib.rwkv6_scan_launch.restype = i
+
+
+LIB = CudaLibrary(Path(__file__).with_name("rwkv6_scan.cu"), _declare)
+
+
+def launch(r, k, v, logw, u, s0, o, s_out) -> None:
+    """Launch on the current stream of ``o``'s device. The tensors are
+    checked by the caller (``ops.rwkv6_scan``)."""
+    import torch
+
+    lib = LIB.load()
+    B, S, H, hd = r.shape
+    strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]
+    dtype = DTYPE_BFLOAT16 if r.dtype == torch.bfloat16 else DTYPE_FLOAT32
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = lib.rwkv6_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_out.data_ptr(),
+            *strides, B, S, H, hd, dtype, stream)
+    LIB.check(err, "rwkv6_scan")

@@ -1,23 +1,27 @@
-"""Decoder-stack assembly for the dense-attention architectures of the
-pool. Counterpart of ``repro/models/transformer.py``.
+"""Decoder-stack assembly for every architecture of the pool but the
+MoE ones. Counterpart of ``repro/models/transformer.py``.
 
 The model is an ``nn.Module`` (``Transformer``) whose blocks sit in one
 flat ``layers`` list in global layer order; the reference's scan groups
 (``layer_groups``) only decide how weights are drawn and carried across.
-``forward`` covers train/prefill (S tokens, optional cache write) and
-decode (one token against the cache). Full sequences go through
-``kernels/flash_attention``, a decode step through
-``kernels/decode_attention``: on CPU tensors those return their plain
-versions, on CUDA tensors they launch the kernels.
+Blocks come in three kinds: attention (``attn``, ``local``,
+``attn_dense``), RG-LRU (``rglru``, RecurrentGemma) and RWKV6
+(``rwkv``). ``forward`` covers train/prefill (S tokens, optional cache
+write) and decode (one token against the cache). Full sequences go
+through ``kernels/flash_attention``, a decode step through
+``kernels/decode_attention``, and the recurrences at every S through
+``kernels/rglru_scan`` and ``kernels/rwkv6_scan``: on CPU tensors those
+return their plain versions, on CUDA tensors they launch the kernels.
 
-The KV cache is a list of per-layer dicts ``{"k", "v", "pos"}``. Unlike
-the reference, which returns a new cache, prefill and decode write the
-cache in place (and return it), so a decode step moves no more bytes
-than its one token.
+The cache is a list of per-layer dicts: ``{"k", "v", "pos"}`` for an
+attention layer, the recurrent state ``{"h", "conv"}`` for an RG-LRU
+layer and ``{"s", "x_prev_tm", "x_prev_cm"}`` for an RWKV6 layer.
+Unlike the reference, which returns a new cache, prefill and decode
+write the cache in place (and return it), so a decode step moves no more
+bytes than its one token and the recurrent states.
 
 Not ported yet, and raising ``NotImplementedError`` rather than falling
-back to anything: the ``rglru`` and ``rwkv`` blocks and MoE layers
-(ROADMAP queue 1: the RecurrentGemma, RWKV6 and MoE slices), and the
+back to anything: MoE layers (ROADMAP queue 1, the MoE slice), and the
 mesh paths (``ShardCtx``, the vocab-sharded embedding lookup, padded
 heads), which wait for the mesh tooling.
 """
@@ -35,15 +39,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (Norm, init_tensor, new_param,
                                        padded_vocab, torch_dtype)
 from repro_torch.models.mlp import MLP
+from repro_torch.models.rglru import RGLRU, rglru_apply
+from repro_torch.models.rwkv6 import RWKVMix, rwkv_channel_mix, rwkv_time_mix
 
 INT32_MAX = 2 ** 31 - 1
 ATTENTION_KINDS = ("attn", "local", "attn_dense")
-_NOT_PORTED = {
-    "rglru": "RG-LRU blocks wait for the RecurrentGemma slice (ROADMAP "
-             "queue 1, with the rglru_scan kernel)",
-    "rwkv": "RWKV6 blocks wait for the RWKV6 slice (ROADMAP queue 1, with "
-            "the rwkv6_scan kernel)",
-}
+RECURRENT_KINDS = ("rglru", "rwkv")
 
 
 # ---------------------------------------------------------------------------
@@ -86,9 +87,7 @@ def group_layers(cfg):
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a layer kind the port lacks."""
     for kind in cfg.layer_kinds():
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if kind not in ATTENTION_KINDS:
+        if kind not in ATTENTION_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
         if cfg.moe and kind == "attn":
             raise NotImplementedError(
@@ -163,6 +162,57 @@ def _prefill_write(cache, k, v, positions) -> None:
         cache["pos"][:, :S] = positions.to(torch.int32)
 
 
+class RGLRUBlock(nn.Module):
+    """Pre-norm RG-LRU + dense MLP, as ``_rglru_block`` (kind
+    ``rglru``). The cache is the layer's recurrent state, written in
+    place; positions, t and mode play no part."""
+
+    kind = "rglru"
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = Norm(cfg, **kw)
+        self.lru = RGLRU(cfg, **kw)
+        self.ln2 = Norm(cfg, **kw)
+        self.mlp = MLP(cfg, **kw)
+
+    def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
+        o, _ = rglru_apply(self.lru, self.ln1(x), cache)
+        x = x + o
+        return x + self.mlp(self.ln2(x))
+
+
+class RWKVBlock(nn.Module):
+    """Pre-norm RWKV6 time mix, then channel mix, as ``_rwkv_block``
+    (kind ``rwkv``). The cache is the layer's recurrent state, written
+    in place; positions, t and mode play no part."""
+
+    kind = "rwkv"
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.ln1 = Norm(cfg, **kw)
+        self.mix = RWKVMix(cfg, **kw)
+        self.ln2 = Norm(cfg, **kw)
+
+    def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
+        o, _ = rwkv_time_mix(self.mix, self.ln1(x), self.cfg, cache)
+        x = x + o
+        o2, _ = rwkv_channel_mix(self.mix, self.ln2(x), self.cfg, cache)
+        return x + o2
+
+
+def make_block(cfg, kind: str, *, device, dtype) -> nn.Module:
+    if kind == "rglru":
+        return RGLRUBlock(cfg, device=device, dtype=dtype)
+    if kind == "rwkv":
+        return RWKVBlock(cfg, device=device, dtype=dtype)
+    return AttentionBlock(cfg, kind, device=device, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------
@@ -187,7 +237,7 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = new_param((cfg.d_model, padded_vocab(cfg)), **kw)
         self.layers = nn.ModuleList(
-            AttentionBlock(cfg, kind, **kw) for kind in cfg.layer_kinds())
+            make_block(cfg, kind, **kw) for kind in cfg.layer_kinds())
 
     @property
     def device(self) -> torch.device:
@@ -242,15 +292,35 @@ def cache_capacity(cfg, kind: str, max_seq: int) -> int:
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device="cuda") -> list:
-    """Empty cache, one dict per layer: ``k``/``v`` (B, C, Hkv, hd) in
-    ``dtype`` and ``pos`` (B, C) int32 filled with INT32_MAX, so masks
-    exclude unfilled slots. C = min(max_seq, window) for local/SWA."""
+    """Empty cache, one dict per layer. Attention layers: ``k``/``v``
+    (B, C, Hkv, hd) in ``dtype`` and ``pos`` (B, C) int32 filled with
+    INT32_MAX, so masks exclude unfilled slots; C = min(max_seq, window)
+    for local/SWA. Recurrent layers: their zeroed float32 state, as the
+    reference's ``init_cache`` keeps it: ``h`` (B, R) and ``conv``
+    (B, cw-1, R) for ``rglru``; ``s`` (B, H, hd, hd), ``x_prev_tm`` and
+    ``x_prev_cm`` (B, D) for ``rwkv``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
     Hkv, hd = cfg.n_kv_heads, cfg.hd
     out = []
     for kind in cfg.layer_kinds():
+        if kind == "rglru":
+            R = cfg.lru_width or cfg.d_model
+            out.append({
+                "h": torch.zeros(batch, R, **f32),
+                "conv": torch.zeros(batch, cfg.conv1d_width - 1, R, **f32),
+            })
+            continue
+        if kind == "rwkv":
+            H, rhd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+            out.append({
+                "s": torch.zeros(batch, H, rhd, rhd, **f32),
+                "x_prev_tm": torch.zeros(batch, cfg.d_model, **f32),
+                "x_prev_cm": torch.zeros(batch, cfg.d_model, **f32),
+            })
+            continue
         C = cache_capacity(cfg, kind, max_seq)
         out.append({
             "k": torch.zeros(batch, C, Hkv, hd, dtype=dt, device=dev),

@@ -1,9 +1,12 @@
 """The port's model layer (``repro_torch.models``) against the reference
 (``repro.models``) on the CPU: norms, RoPE, the MLP types and the QKV
 projection on the same numpy-seeded inputs, and the whole ``forward``
-(mode ``train``) of every registered dense-attention arch in reduced form
-with the reference's initialized parameters carried across
-(``interop.model_from_reference``).
+(mode ``train``) of every registered arch but the MoE ones in reduced
+form (RecurrentGemma also at 8 layers, which adds its trailing
+single-block groups) with the reference's initialized parameters carried
+across (``interop.model_from_reference``), the weight carry-over, the
+init rules and the cache layout. The recurrent layers' own functions are
+held in ``tests/test_torch_recurrent_layers.py``.
 
 Tolerances: functions atol 1e-5, rtol 1e-5 (float32, the same
 operations in another order); the model forward atol 1e-4, rtol 1e-3
@@ -39,8 +42,11 @@ PALLAS_ATOL, PALLAS_RTOL = 5e-4, 1e-2
 B, S = 2, 64
 DENSE_ARCHS = ["qwen2-1.5b", "deepseek-7b", "h2o-danube-3-4b",
                "starcoder2-15b", "musicgen-large", "internvl2-26b"]
-NOT_PORTED = ["recurrentgemma-2b", "rwkv6-3b", "qwen2-moe-a2.7b",
-              "kimi-k2-1t-a32b"]
+RECURRENT = [("recurrentgemma-2b", {}), ("recurrentgemma-2b",
+                                         dict(n_layers=8)),
+             ("rwkv6-3b", {})]
+RECURRENT_IDS = ["recurrentgemma", "recurrentgemma_8_layers", "rwkv6"]
+NOT_PORTED = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b"]
 
 
 def np_tree(tree):
@@ -311,3 +317,115 @@ def test_param_counts_and_reduced_match_reference():
         assert (dataclasses.asdict(reduced(pc))
                 == dataclasses.asdict(ref_reduced(rc))), arch
     assert get_config("qwen2-1.5b").param_counts()["total"] == 1_543_712_768
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers: RG-LRU and RWKV6
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch, replace", RECURRENT, ids=RECURRENT_IDS)
+def test_recurrent_forward_matches_reference_jnp_path(arch, replace):
+    cfg, params = ref_model(arch, **replace)
+    model = model_from_reference(port_cfg(arch, **replace), np_tree(params),
+                                 "cpu")
+    assert [b.kind for b in model.layers] == list(cfg.layer_kinds())
+    jin, tin = inputs(cfg)
+    jp, tp = positions()
+    want, _, _ = ref_tfm.forward(params, cfg, None, positions=jp,
+                                 mode="train", **jin)
+    got, _, aux = port_tfm.forward(model, positions=tp, mode="train", **tin)
+    assert got.shape == (B, S, cfg.d_model) and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=JNP_ATOL,
+                               rtol=JNP_RTOL)
+
+
+@pytest.mark.parametrize("arch, replace", RECURRENT, ids=RECURRENT_IDS)
+def test_recurrent_forward_matches_reference_pallas_kernels(arch, replace):
+    """``use_pallas_kernels=True``: the reference's scans (and
+    RecurrentGemma's flash attention) run their Pallas kernels in
+    interpret mode."""
+    cfg, params = ref_model(arch, use_pallas_kernels=True, **replace)
+    model = model_from_reference(port_cfg(arch, **replace), np_tree(params),
+                                 "cpu")
+    jin, tin = inputs(cfg)
+    jp, tp = positions()
+    want, _, _ = ref_tfm.forward(params, cfg, None, positions=jp,
+                                 mode="train", **jin)
+    got, _, _ = port_tfm.forward(model, positions=tp, mode="train", **tin)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=PALLAS_ATOL, rtol=PALLAS_RTOL)
+
+
+@pytest.mark.parametrize("arch, replace", RECURRENT, ids=RECURRENT_IDS)
+def test_recurrent_weights_round_trip(arch, replace):
+    """Every bfloat16 reference leaf lands, unstacked, on its layer, bit
+    for bit, under the reference's names."""
+    cfg, params = ref_model(arch, param_dtype="bfloat16", **replace)
+    model = model_from_reference(port_cfg(arch, **replace), np_tree(params),
+                                 "cpu")
+    n_ref = 0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+        keys = [p.key for p in path]
+        a = np.asarray(leaf.astype(jnp.float32))
+        if keys[0] != "groups":
+            continue
+        gi, bi = int(keys[1][1:]), int(keys[2][1:])
+        _, kinds, reps, idx = port_tfm.group_layers(cfg)[gi]
+        for r in range(reps):
+            p = model.layers[idx[r][bi]].get_parameter(".".join(keys[3:]))
+            assert p.dtype == torch.bfloat16
+            np.testing.assert_array_equal(p.float().numpy(),
+                                          a[r] if reps > 1 else a)
+            n_ref += 1
+    n_port = sum(1 for n, _ in model.named_parameters()
+                 if n.startswith("layers."))
+    assert n_ref == n_port
+
+
+def test_recurrent_init_follows_the_reference_rules():
+    """``lam`` and ``gn_w`` ones, biases zero, ``small`` leaves at std
+    0.02, projections at 1/sqrt(fan-in) with a stacked group's layer
+    axis counted."""
+    cfg = port_cfg("recurrentgemma-2b", n_layers=6, d_model=256,
+                   lru_width=256, d_ff=512, vocab_size=1024)
+    m = port_tfm.init_model(cfg, torch.Generator().manual_seed(5), "cpu")
+    lru = m.layers[0].lru
+    assert bool((lru.lam == 1).all()) and not lru.conv_b.any()
+    assert not lru.ba.any() and not lru.bx.any()
+    assert abs(float(lru.gate_a.std()) - 0.02) < 0.002
+    reps = 2                                      # two cycles of 3 blocks
+    wx = torch.stack([m.layers[i].lru.wx for i in (0, 3)])
+    assert abs(float(wx.std()) * np.sqrt(reps * 256) - 1) < 0.05
+    cfg = port_cfg("rwkv6-3b", n_layers=4, d_model=256, d_ff=512,
+                   vocab_size=1024, rwkv_head_dim=32)
+    m = port_tfm.init_model(cfg, torch.Generator().manual_seed(6), "cpu")
+    mix = m.layers[1].mix
+    assert bool((mix.gn_w == 1).all()) and not mix.gn_b.any()
+    assert abs(float(mix.mu.std()) - 0.02) < 0.003
+    wr = torch.stack([layer.mix.wr for layer in m.layers])  # (L, D, H, hd)
+    want = 1 / np.sqrt(4 * 256 * 8)
+    assert abs(float(wr.std()) / want - 1) < 0.02
+
+
+def test_recurrent_cache_layout():
+    """Per-layer state dicts in float32, as the reference's ``init_cache``
+    keeps ``h``, ``conv``, ``s`` and the shifts; local layers get a ring of
+    min(max_seq, window) slots."""
+    for arch in ("recurrentgemma-2b", "rwkv6-3b"):
+        pcfg = port_cfg(arch)
+        cfg = ref_reduced(ref_get_config(arch))
+        cache = port_tfm.init_cache(pcfg, 2, 40, dtype=torch.bfloat16,
+                                    device="cpu")
+        rc = ref_tfm.init_cache(cfg, 2, 40, dtype=jnp.bfloat16)
+        for gi, _, reps, idx in port_tfm.group_layers(pcfg):
+            g = rc["groups"][f"g{gi}"]
+            for r, row in enumerate(idx):
+                for i, li in enumerate(row):
+                    want = g[f"b{i}"]
+                    assert sorted(cache[li]) == sorted(want)
+                    for name, t in cache[li].items():
+                        w = np.asarray(want[name])
+                        w = w[r] if reps > 1 else w
+                        assert tuple(t.shape) == w.shape, (arch, name)
+                        assert str(t.dtype).split(".")[-1] == str(w.dtype)
