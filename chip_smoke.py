@@ -7,13 +7,17 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. setup: the card's name and power limit, torch/CUDA versions, TF32 off,
    and the build of every kernel from the sources in the checkout (one
-   nvcc per source, all five at once; seconds, registers and spills
-   logged);
+   nvcc per source, all five at once; seconds, and each instance's
+   registers and spills, logged); ``flash_attention``'s SASS must hold
+   tensor-core instructions (``cuobjdump``, where the toolkit has it);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with error and CUDA-event times beside
    its bound and, where one PyTorch call computes the same function, that
    call's time: ``matern_score``, ``flash_attention`` (bf16 at Qwen2-1.5B's
-   heads, and the reference's kernel cases), ``decode_attention``,
+   and RecurrentGemma-2B's heads, and the reference's kernel cases; bf16
+   also against the plain emulation of its tiles), ``decode_attention``
+   (also against the plain emulation of its splits, a row with no allowed
+   slot among the shapes, and twice, bit for bit),
    ``rglru_scan`` (RecurrentGemma-2B's prefill, split-serving and decode
    shapes, and the reference's cases) and ``rwkv6_scan`` (RWKV6-3B's
    shapes, the reference's cases, and the state written in place);
@@ -48,6 +52,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -112,6 +118,9 @@ DECODE_SHAPES = [
     ("case1", 1, 256, 255, 256, 0, torch.float32, 8, 1, 64),
     ("case2", 2, 96, 59, 60, 32, torch.float32, 4, 4, 32),
     ("case3", 1, 128, 76, 77, 0, torch.bfloat16, 8, 2, 128),
+    # a row with no allowed slot (every position is after q_pos): the
+    # uniform mean over all T slots, as the plain version gives
+    ("no_allowed_slot", 1, 256, 100, -1, 0, torch.bfloat16, 12, 2, 128),
 ]
 DECODE_MAIN = "decode"
 DEVICE = "cuda"
@@ -188,6 +197,40 @@ SLEEP_CYCLES = 50_000_000           # keeps the queue full while timing
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_summary(build_log: str) -> list:
+    """Registers, spill stores and spill loads of each kernel instance,
+    from nvcc's ``-Xptxas -v`` output."""
+    rows = []
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            rows.append(dict(entry=m.group(1)))
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
+def sass_counts(library: Path) -> dict | None:
+    """Tensor-core (HMMA, HGMMA) and ldmatrix (LDSM) instructions in a
+    built library, from ``cuobjdump -sass``; None where it is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", out))
+            for op in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
 
 
 def card_line() -> str:
@@ -435,6 +478,8 @@ def check_close(name, shape, got, ref, dtype):
 
 
 def flash_phase(kernels):
+    from repro_torch.kernels.flash_attention.ref import attention_tiled_ref
+
     F = torch.nn.functional
     rows = []
     for name, B, S, window, dtype, Hq, Hkv, hd in FLASH_SHAPES:
@@ -444,8 +489,11 @@ def flash_phase(kernels):
                    for s in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
         got = kernels.flash_attention(q, k, v, causal=True, window=window)
         ref = kernels.attention_ref(q, k, v, causal=True, window=window)
+        emu = (attention_tiled_ref(q, k, v, window=window)
+               if dtype == torch.bfloat16 else ref)
         torch.cuda.synchronize()
         err = check_close("flash_attention", name, got, ref, dtype)
+        emu_err = float((got.float() - emu.float()).abs().max())
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if window:
             i = torch.arange(S, device=DEVICE)
@@ -466,9 +514,10 @@ def flash_phase(kernels):
         bound_ms, bound_by, terms = attn_bound(nbytes, pairs, hd, Hq, dtype)
         row = dict(name=name, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window,
                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                   ms=ms["kernel"], plain_ms=ms["plain"],
-                   library_ms=ms["library"], bound_ms=bound_ms,
-                   bound_by=bound_by, bound_terms=terms)
+                   emulation_max_abs_err=emu_err,
+                   blocks=-(-S // 64) * Hq * B, ms=ms["kernel"],
+                   plain_ms=ms["plain"], library_ms=ms["library"],
+                   bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("flash_attention", json.dumps(row))
         rows.append(row)
     return rows
@@ -488,15 +537,27 @@ def decode_inputs(B, T, last, q_pos, Hq, Hkv, hd, dtype, seed):
 
 
 def decode_phase(kernels):
+    from repro_torch.kernels.decode_attention.ops import decode_splits
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_split_ref)
+
     F = torch.nn.functional
     rows = []
     for name, B, T, last, qp, window, dtype, Hq, Hkv, hd in DECODE_SHAPES:
         args = decode_inputs(B, T, last, qp, Hq, Hkv, hd, dtype, seed=T + hd)
         q, k, v, kv_pos, q_pos = args
         got = kernels.decode_attention(*args, window=window)
+        again = kernels.decode_attention(*args, window=window)
         ref = kernels.decode_attention_ref(*args, window=window)
+        n_split, chunk = decode_splits(B, Hkv, T)
+        emu = decode_attention_split_ref(*args, window=window,
+                                         n_split=n_split, chunk=chunk)
         torch.cuda.synchronize()
         err = check_close("decode_attention", name, got, ref, dtype)
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attention at {name} does not "
+                                 "repeat bit for bit")
+        emu_err = float((got.float() - emu.float()).abs().max())
         kp, qpl = kv_pos.long(), q_pos.long()[:, None]
         allowed = (kp <= qpl) & ((qpl - kp < window) if window else True)
         mask = allowed[:, None, None, :]                 # (B, 1, 1, T)
@@ -515,7 +576,10 @@ def decode_phase(kernels):
         bound_ms, bound_by, terms = attn_bound(nbytes, n_slots, hd, Hq, dtype)
         row = dict(name=name, B=B, T=T, last=last, q_pos=qp, Hq=Hq, Hkv=Hkv,
                    hd=hd, window=window, dtype=str(dtype).split(".")[-1],
-                   allowed_slots=n_slots, max_abs_err=err, ms=ms["kernel"],
+                   allowed_slots=n_slots, splits=n_split,
+                   slots_per_split=chunk, blocks=B * Hkv * n_split,
+                   max_abs_err=err, emulation_max_abs_err=emu_err,
+                   ms=ms["kernel"],
                    plain_ms=ms["plain"], library_ms=ms["library"],
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("decode_attention", json.dumps(row))
@@ -1019,10 +1083,16 @@ def main() -> int:
     log("build", json.dumps(dict(seconds=time.perf_counter() - t0, nvcc_seconds={
         name: lib.build_seconds for name, lib in libs.items()})))
     for name, lib in libs.items():
-        log(f"build {name}:")
-        log("\n".join(line for line in lib.build_log.splitlines()
-                      if "registers" in line or "spill" in line
-                      or "Compiling entry" in line or "error" in line))
+        instances = ptxas_summary(lib.build_log)
+        log(f"build {name}", json.dumps(dict(instances=instances)))
+        if any(r.get("spill_stores") or r.get("spill_loads")
+               for r in instances):
+            log(f"build {name}: an instance spills registers")
+    sass = sass_counts(fa_kernel.LIB.library_path())
+    log("sass flash_attention", json.dumps(sass))
+    if sass is not None and sass["HMMA"] + sass["HGMMA"] == 0:
+        raise AssertionError("flash_attention has no tensor-core "
+                             "instruction in its SASS")
 
     # phase 2: kernels against plain (launches here are not counted)
     rows = kernel_phase(kernels.matern_score, kernels.matern_score_ref)

@@ -4,8 +4,9 @@
 For tensors on the CPU it returns the plain PyTorch version
 (``ref.py``). For CUDA tensors it launches the hand-written kernel
 (``kernel.py``) or raises: there is no fallback. Unlike the TPU wrapper
-it pads nothing; the kernel walks any cache length T itself.
-``decode_attention.launches`` counts the kernel's launches.
+it pads nothing; the kernel walks any cache length T itself, cut into
+``decode_splits`` splits that run in parallel and that a second small
+kernel merges. ``decode_attention.launches`` counts one launch per call.
 """
 from __future__ import annotations
 
@@ -15,6 +16,31 @@ from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+MIN_SPLIT_SLOTS = kernel.SUB_TILE
+
+
+def decode_splits(B: int, Hkv: int, T: int) -> tuple[int, int]:
+    """(splits, slots per split) of a cache of T slots, from the shapes
+    alone, so that a result never depends on the data: enough splits that
+    the B x Hkv x splits blocks make about one wave over the card's SMs,
+    but at least ``MIN_SPLIT_SLOTS`` slots each. The slots per split are
+    a multiple of the kernel's 32-slot sub-tile; no split is empty."""
+    most = max(1, T // MIN_SPLIT_SLOTS)
+    want = -(-SMS // max(1, B * Hkv))
+    n = min(most, want)
+    sub = kernel.SUB_TILE
+    chunk = -(-max(T, 1) // n)
+    chunk = -(-chunk // sub) * sub
+    return -(-max(T, 1) // chunk), chunk
+
+
+def _aligned(t) -> bool:
+    """16-byte base pointer and strides (but the head dim's) in 16-byte
+    steps: what the kernel's 16-byte copies need."""
+    step = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(s % step == 0 for s in t.stride()[:-1]))
 
 
 def _check(q, k, v, kv_pos, q_pos, window):
@@ -50,12 +76,18 @@ def _check(q, k, v, kv_pos, q_pos, window):
     if hd % 8 or not 0 < hd <= 256:
         raise ValueError(f"decode_attention: head dim {hd} is not a "
                          "multiple of 8 up to 256")
-    if kernel.smem_bytes(hd, Hq // Hkv) > kernel.SMEM_LIMIT:
+    if (kernel.smem_bytes(hd, Hq // Hkv, q.element_size())
+            > kernel.SMEM_LIMIT):
         raise ValueError(f"decode_attention: {Hq // Hkv} q heads per kv "
                          f"head at hd {hd} exceed a block's shared memory")
-    if window < 0 or B > 65535 or Hkv > 65535:
+    if window < 0 or B * Hkv > 65535 or T < 1:
         raise ValueError("decode_attention: window must be >= 0, batch "
-                         "and kv heads at most 65535")
+                         "times kv heads at most 65535, the cache at "
+                         "least one slot")
+    for name, t in dict(k=k, v=v).items():
+        if not _aligned(t):
+            raise ValueError(f"decode_attention: {name} must be 16-byte "
+                             "aligned with strides in 16-byte steps")
 
 
 def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0):
@@ -68,7 +100,8 @@ def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0):
                          f"{q.device}")
     _check(q, k, v, kv_pos, q_pos, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernel.launch(q, k, v, kv_pos, q_pos, out, window)
+    n_split, chunk = decode_splits(q.shape[0], k.shape[2], k.shape[1])
+    kernel.launch(q, k, v, kv_pos, q_pos, out, window, n_split, chunk)
     decode_attention.launches += 1
     return out
 

@@ -17,6 +17,7 @@ import torch
 
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
+SUB_TILE = 32             # slots per sub-tile of the kernel
 
 
 def decode_attention_ref(q, k, v, kv_pos, q_pos, window: int = 0):
@@ -38,4 +39,54 @@ def decode_attention_ref(q, k, v, kv_pos, q_pos, window: int = 0):
     p = torch.exp(s - m)
     o = torch.einsum("bhgt,bthd->bhgd", p / p.sum(-1, keepdim=True),
                      v.float())
+    return o.reshape(B, Hq, hd).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k, v, kv_pos, q_pos, window: int = 0,
+                               n_split: int = 1, chunk: int | None = None):
+    """The kernel's split-T arithmetic in plain PyTorch: the T slots cut
+    into ``n_split`` splits of ``chunk`` slots; a 32-slot sub-tile with
+    no allowed slot is left out of its split, unless the row has no
+    allowed slot at all, when every slot enters, scored -1e30. Each split
+    gives float32 partials (m, l, acc); they merge in split order with
+    weights exp(m - max m), a split that saw no slot weighing 0. Used by
+    the tests and the card check, never by the model. Output in q's
+    dtype."""
+    B, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    sub = SUB_TILE
+    if chunk is None:
+        per_split = -(-T // n_split)
+        chunk = -(-per_split // sub) * sub
+    if chunk % sub or not (n_split - 1) * chunk < T <= n_split * chunk:
+        raise ValueError(f"{n_split} splits of {chunk} slots do not cut "
+                         f"{T} slots")
+    pad = n_split * chunk - T
+    qf = q.reshape(B, Hkv, G, hd).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k.float())
+    kp = kv_pos.long()
+    qp = q_pos.long()[:, None]
+    allowed = kp <= qp
+    if window:
+        allowed = allowed & (qp - kp < window)
+    live_sub = torch.nn.functional.pad(allowed, (0, pad)).reshape(
+        B, -1, sub).any(-1).repeat_interleave(sub, dim=1)[:, :T]
+    used = live_sub | ~allowed.any(-1, keepdim=True)
+    s = s.masked_fill(~allowed[:, None, None], NEG_INF)
+    s = s.masked_fill(~used[:, None, None], float("-inf"))
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    s = s.reshape(B, Hkv, G, n_split, chunk)
+    vv = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    vv = vv.reshape(B, n_split, chunk, Hkv, hd)
+    m = s.amax(-1)                                    # (B,Hkv,G,n_split)
+    seen = m > float("-inf")
+    p = torch.exp(s - torch.where(seen, m, torch.zeros_like(m))[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bhgnc,bnchd->bhgnd", p, vv)
+    w = torch.where(seen, torch.exp(m - m.amax(-1, keepdim=True)),
+                    torch.zeros_like(m))
+    den = (w * l).sum(-1)
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    o = (w[..., None] * acc).sum(-2) / den[..., None]
     return o.reshape(B, Hq, hd).to(q.dtype)

@@ -4,7 +4,10 @@
 For tensors on the CPU it returns the plain PyTorch version
 (``ref.py``). For CUDA tensors it launches the hand-written kernel
 (``kernel.py``) or raises: there is no fallback. Unlike the TPU wrapper
-it pads nothing; the kernel masks ragged Sq and Skv itself.
+it pads nothing; the kernel masks ragged Sq and Skv itself. bfloat16
+runs on the tensor cores with 16-byte copies, so its tensors must be
+16-byte aligned with strides in 16-byte steps; a tensor that is not
+raises, it never takes a slower path.
 ``flash_attention.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -43,6 +46,12 @@ def _check(q, k, v, window):
     if B > 65535 or Hq > 65535:
         raise ValueError("flash_attention: batch and heads must each be "
                          "at most 65535")
+    if q.dtype == torch.bfloat16:
+        for name, t in dict(q=q, k=k, v=v).items():
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(f"flash_attention: bfloat16 {name} must "
+                                 "be 16-byte aligned with strides in "
+                                 "16-byte steps")
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):

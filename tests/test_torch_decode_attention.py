@@ -147,7 +147,7 @@ def _with(i, value, **kw):
     (_with(3, torch.zeros(2, 16, dtype=torch.int64)), "int32"),
     (_with(4, torch.zeros(3, dtype=torch.int32)), "do not fit"),
     (_with(1, torch.zeros(2, 16, 2, 16, dtype=torch.bfloat16)), "dtype"),
-    (_args(Hq=256, Hkv=1, hd=256), "shared memory"),
+    (_args(Hq=77, Hkv=1, hd=256), "shared memory"),  # the first too big
 ], ids=["hd12", "groups", "pos_dtype", "qpos_shape", "mixed_dtype",
         "smem"])
 def test_kernel_path_rejects_what_the_kernel_does_not_take(bad, err):
