@@ -20,7 +20,9 @@ Phases, each of which raises on failure (non-zero exit):
    slot among the shapes, and twice, bit for bit),
    ``rglru_scan`` (RecurrentGemma-2B's prefill, split-serving and decode
    shapes, and the reference's cases) and ``rwkv6_scan`` (RWKV6-3B's
-   shapes, the reference's cases, and the state written in place);
+   shapes in f32 and bf16, the reference's cases and a ragged hd 100,
+   the state written in place, twice bit for bit, with its plan, blocks
+   an SM and waves; its hd-160 build must not spill);
 3. the sequential engine, ``BayesSplitEdge(default_vgg19_problem(),
    budget=20).run(seed=0)``, must reach 87.5 % at split layer 7;
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
@@ -33,7 +35,10 @@ Phases, each of which raises on failure (non-zero exit):
    pick the split and power the CPU run picks; greedy decoding (a
    B 2 x 512 prompt, 32 new tokens, ``max_seq`` 1024); where the time
    goes (``torch.profiler``: device time by kernel class and the idle
-   share) in one split-serving forward, one prefill and one decode step;
+   share) in one split-serving forward, one prefill and one decode step,
+   each line holding exactly the port's CUDA kernels ``MODEL_RUNS`` says
+   (a line that lost events is profiled again over fewer calls, at most
+   twice, and then fails);
    and prefill + one decode step against the full forward, in bf16 and
    on a float32 copy of the model.
 
@@ -146,6 +151,9 @@ RWKV_SHAPES = [
     ("case0", 2, 64, 2, 16, torch.float32),
     ("case1", 1, 100, 4, 32, torch.float32),
     ("case2", 2, 48, 2, 16, torch.bfloat16),
+    # a partial column tile, row group and chunk; split serving in bf16
+    ("hd100_ragged", 1, 77, 3, 100, torch.float32),
+    ("split_serving_bf16", 2, 32, 16, 160, torch.bfloat16),
 ]
 RWKV_MAIN = "prefill"
 # scans vs plain: float32 differs by fused multiply-adds and summation
@@ -231,6 +239,32 @@ def sass_counts(library: Path) -> dict | None:
                          text=True, check=True, timeout=300).stdout
     return {op: len(re.findall(rf"\b{op}\b", out))
             for op in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
+
+
+def check_rwkv6_build(instances: list) -> None:
+    """The premise of ``rwkv6_scan``'s design: the instances RWKV6-3B
+    runs (hd 160: chains of 5 rows, float32 and bf16) keep their state
+    in registers, spilling nothing, with few enough registers that two
+    blocks of ``THREADS`` fit an SM's 65,536. Checked where this process
+    built the library."""
+    from repro_torch.kernels.rwkv6_scan.ops import THREADS
+
+    if not instances:
+        log("build rwkv6_scan: already built, registers not checked")
+        return
+    model = [r for r in instances
+             if re.search(r"rwkv6_scan_kernelI(f|13__nv_bfloat16)Li5E",
+                          r["entry"])]
+    if len(model) != 2:
+        raise AssertionError(f"rwkv6_scan: {len(model)} instances of "
+                             "5-row chains in the build log, expected 2")
+    most = 65536 // (2 * THREADS)
+    for r in model:
+        if (r.get("registers", 255) > most or r.get("spill_stores")
+                or r.get("spill_loads")):
+            raise AssertionError(f"rwkv6_scan instance {r['entry']}: "
+                                 f"{r}; the design needs <= {most} "
+                                 "registers and no spill")
 
 
 def card_line() -> str:
@@ -641,6 +675,13 @@ def rglru_phase(kernels):
 
 
 def rwkv6_phase(kernels):
+    """Each RWKV_SHAPES row against the plain version, twice bit for bit,
+    in place as out of place, with the kernel's plan (``scan_plan``), the
+    blocks an SM holds and the waves its grid needs on this card."""
+    from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
+    from repro_torch.kernels.rwkv6_scan.ops import scan_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, B, S, H, hd, dtype in RWKV_SHAPES:
         rng = np.random.default_rng(S + hd)
@@ -655,6 +696,7 @@ def rwkv6_phase(kernels):
         s0 = t(rng.standard_normal((B, H, hd, hd)) * 0.1, torch.float32)
         args = (r, k, v, logw, u, s0)
         got = kernels.rwkv6_scan(*args)
+        again = kernels.rwkv6_scan(*args)
         want = kernels.rwkv6_scan_ref(*args)
         state = s0.clone()                    # s_last written over s0
         o_in_place, _ = kernels.rwkv6_scan(r, k, v, logw, u, state,
@@ -664,6 +706,17 @@ def rwkv6_phase(kernels):
         if not (torch.equal(state, got[1]) and torch.equal(o_in_place,
                                                            got[0])):
             raise AssertionError(f"rwkv6_scan in place differs at {name}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"rwkv6_scan at {name} does not repeat "
+                                 "bit for bit")
+        plan = scan_plan(B, H, hd, S, dtype)
+        if rw_kernel.smem_bytes(hd, dtype) != plan.smem_bytes:
+            raise AssertionError(
+                f"rwkv6_scan at {name}: the kernel takes "
+                f"{rw_kernel.smem_bytes(hd, dtype)} bytes of shared memory, "
+                f"scan_plan says {plan.smem_bytes}")
+        per_sm = rw_kernel.blocks_per_sm(hd, dtype)
+        waves = -(-plan.blocks // (per_sm * sms))
         ms = median_ms(dict(plain=lambda: kernels.rwkv6_scan_ref(*args),
                             kernel=lambda: kernels.rwkv6_scan(*args)), ())
         # per (b, t, h): each state element takes k v (1), w S + k v (2)
@@ -676,9 +729,17 @@ def rwkv6_phase(kernels):
         bound_ms, bound_by, terms = bound(nbytes, flops, sfu=steps * hd)
         row = dict(name=name, B=B, S=S, H=H, hd=hd,
                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                   rows_per_chain=plan.chain, chunk=plan.chunk,
+                   grid=list(plan.grid), smem_bytes=plan.smem_bytes,
+                   blocks_per_sm=per_sm, sms=sms, waves=waves,
                    ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("rwkv6_scan", json.dumps(row))
+        if (B, H, hd) == (2, 16, 160) and (per_sm < 2 or waves != 1):
+            raise AssertionError(
+                f"rwkv6_scan at {name}: {per_sm} blocks an SM and {waves} "
+                "waves; the design needs two blocks an SM and one wave at "
+                "RWKV6-3B's heads")
         rows.append(row)
     return rows
 
@@ -874,9 +935,12 @@ def generate_phase(kernels, run, cfg, model):
     return counts
 
 
+PORT_KERNELS = ("flash_attention", "decode_attention", "matern_score",
+                "rglru_scan", "rwkv6_scan")
+
+
 def kernel_class(name: str) -> str:
-    for kernel in ("flash_attention", "decode_attention", "matern_score",
-                   "rglru_scan", "rwkv6_scan"):
+    for kernel in PORT_KERNELS:
         if f"{kernel}_kernel" in name:
             return kernel
     if any(k in name.lower() for k in ("gemm", "gemv", "cutlass", "xmma",
@@ -887,12 +951,42 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_calls(arch, path, fn, n):
-    """Host ms per call (CUDA-synchronised, no profiler), then the device
-    time per call by kernel class from ``torch.profiler`` over another n
-    calls; the idle share is 1 - device busy / host time."""
+# CUDA kernels one launch of a wrapper runs: a decode_attention call is
+# its splits and their merge (both names match kernel_class)
+CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2)
+PROFILE_RETRIES = 2
+
+
+def profiled(fn, n):
+    """Device ms per call by kernel class and by name, and the CUDA
+    kernels of each class over ``n`` calls, from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, counts, by_name = {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3 / n
+            c = kernel_class(ev.name)
+            busy[c] = busy.get(c, 0.0) + ms
+            counts[c] = counts.get(c, 0) + 1
+            by_name[ev.name[:60]] = by_name.get(ev.name[:60], 0.0) + ms
+    return busy, counts, by_name
+
+
+def profile_calls(arch, path, fn, n, launches):
+    """Host ms per call (CUDA-synchronised, no profiler), then the device
+    time per call by kernel class from ``torch.profiler`` over another n
+    calls; the idle share is 1 - device busy / host time. ``launches``
+    is the port's kernel launches of one call (``MODEL_RUNS``): the
+    profile must hold exactly that many CUDA kernels of each port kernel
+    a call. Where the profiler dropped events, the path is profiled again
+    with half the calls, at most PROFILE_RETRIES times; a line that is
+    still short raises."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -900,26 +994,34 @@ def profile_calls(arch, path, fn, n):
         fn()
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    busy, launches, by_name = {}, {}, {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms = ev.time_range.elapsed_us() / 1e3 / n
-            c = kernel_class(ev.name)
-            busy[c] = busy.get(c, 0.0) + ms
-            launches[c] = launches.get(c, 0) + 1 / n
-            by_name[ev.name[:60]] = by_name.get(ev.name[:60], 0.0) + ms
+    want = {c: launches.get(c, 0) * CUDA_KERNELS_PER_LAUNCH.get(c, 1)
+            for c in PORT_KERNELS}
+    short = []
+    for attempt in range(PROFILE_RETRIES + 1):
+        busy, counts, by_name = profiled(fn, n)
+        got = {c: counts.get(c, 0) for c in PORT_KERNELS}
+        if got == {c: w * n for c, w in want.items()}:
+            break
+        if any(got[c] > want[c] * n for c in PORT_KERNELS):
+            raise AssertionError(f"{arch} {path}: the profile holds more "
+                                 f"port kernels than launched: {got} over "
+                                 f"{n} calls, {want} a call")
+        short.append(dict(calls=n, port_kernels=got))
+        log(f"profile {arch} {path}: events dropped over {n} calls "
+            f"({got}, {want} a call)")
+        n = max(1, n // 2)
+    else:
+        raise AssertionError(f"{arch} {path}: the profiler dropped events "
+                             f"in {len(short)} tries: {short}")
     total = sum(busy.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log("profile", json.dumps(dict(
         arch=arch, path=path, calls=n, host_ms_per_call=host_ms,
         device_busy_ms_per_call=total if total else "not measured",
         idle_share=1 - total / host_ms if total else "not measured",
-        device_ms_by_class=busy, kernels_per_call=launches,
+        device_ms_by_class=busy,
+        kernels_per_call={c: k / n for c, k in counts.items()},
+        port_kernels_per_call=want, short_tries=short,
         top_kernels_ms=dict(top))))
 
 
@@ -933,7 +1035,7 @@ def profile_phase(run, cfg, model):
     runner = SplitRunner(cfg, model, SPLIT_BATCH, SPLIT_SEQ)
     l = run.splits[2]
     profile_calls(run.arch, f"split_serving_forward_l{l}",
-                  lambda: runner.run(l), 10)
+                  lambda: runner.run(l), 10, per(run, forwards=1))
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (GEN_BATCH, GEN_PROMPT)),
@@ -943,10 +1045,12 @@ def profile_phase(run, cfg, model):
     cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
                            device=DEVICE)
     profile_calls(run.arch, "prefill_512",
-                  lambda: prefill(model, dict(tokens=prompt), cache), 3)
+                  lambda: prefill(model, dict(tokens=prompt), cache), 3,
+                  per(run, forwards=1))
     tok = prompt[:, -1:]
     profile_calls(run.arch, "decode_step",
-                  lambda: decode(model, tok, cache, GEN_PROMPT), 16)
+                  lambda: decode(model, tok, cache, GEN_PROMPT), 16,
+                  per(run, steps=1))
 
 
 def prefill_decode(cfg, model, dtype):
@@ -1088,6 +1192,7 @@ def main() -> int:
         if any(r.get("spill_stores") or r.get("spill_loads")
                for r in instances):
             log(f"build {name}: an instance spills registers")
+    check_rwkv6_build(ptxas_summary(rw_kernel.LIB.build_log))
     sass = sass_counts(fa_kernel.LIB.library_path())
     log("sass flash_attention", json.dumps(sass))
     if sass is not None and sass["HMMA"] + sass["HGMMA"] == 0:

@@ -8,16 +8,89 @@ it pads nothing; the kernel walks any S and any head dim up to 256.
 ``s_out``, when given, receives the final state (it may be ``s0``
 itself, so a recurrent state is updated in place: each block of the
 kernel reads its tile of the state before it writes it).
-``rwkv6_scan.launches`` counts the kernel's launches.
+``rwkv6_scan.launches`` counts the kernel's launches. ``scan_plan``
+gives, from shapes alone, the kernel's instance, tiles, chunk, grid and
+shared memory, as ``rwkv6_scan.cu`` chooses them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.kernels.rwkv6_scan import kernel
+from repro_torch.kernels.rwkv6_scan.kernel import MAX_HEAD_DIM
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+COLS = 20                       # state columns a block
+CHAINS = 32                     # 8 groups of rows, 4 chains each
+THREADS = CHAINS * COLS // 4    # 160: a chain x 4 columns a thread
+CHAIN_ROWS = (1, 2, 5, 8)       # the kernel's instances: rows a chain (L)
+SMEM_LIMIT = 113 * 1024         # bytes a block, so that two fit an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One launch of the kernel. Block (tile, h, b) owns state columns
+    ``columns(tile)`` of head h, batch row b. The rows form 8 groups of
+    ``4 chain`` rows; row 4q + e of group g feeds chain e. Thread t of a
+    block holds one chain's rows ``thread_rows(t)`` for four columns
+    ``thread_columns(tile, t)``. Steps are staged ``chunk`` at a
+    time."""
+    hd: int
+    chain: int                  # rows a chain (L): a thread's rows
+    col_tiles: int
+    chunk: int
+    n_chunks: int
+    grid: tuple                 # (col_tiles, H, B)
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def columns(self, tile: int) -> range:
+        return range(tile * COLS, min((tile + 1) * COLS, self.hd))
+
+    def thread_rows(self, t: int) -> list:
+        """In the order the thread's chain takes them."""
+        g, e = (t // 4) // (COLS // 4), t % 4
+        row0 = g * 4 * self.chain + e
+        return [row for q in range(self.chain)
+                if (row := row0 + 4 * q) < self.hd]
+
+    def thread_columns(self, tile: int, t: int) -> list:
+        col0 = tile * COLS + 4 * ((t // 4) % (COLS // 4))
+        return [c for c in range(col0, col0 + 4) if c < self.hd]
+
+
+def smem_bytes(chain: int, chunk: int, dtype) -> int:
+    """Shared memory of one block: the double-buffered ring of r, k, logw
+    rows and v columns in the inputs' dtype, for bf16 r, k and exp(logw)
+    widened to float32, the chain sums (33 rows of COLS a step, one of
+    them padding), r . (u k) and u."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    rows = 32 * chain
+    work = 0 if dtype == torch.float32 else 3 * chunk * rows * 4
+    return (2 * chunk * (3 * rows + COLS) * esize + work
+            + chunk * (CHAINS + 1) * COLS * 4 + chunk * 4 + rows * 4)
+
+
+def scan_plan(B: int, H: int, hd: int, S: int,
+              dtype=torch.float32) -> ScanPlan:
+    """The smallest instance whose 8 groups of 4 L rows cover hd, and
+    chunks of 16 steps, or 8 where 16 would not leave room for two
+    blocks an SM."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_scan: head dim {hd} is not in 1.."
+                         f"{MAX_HEAD_DIM}")
+    chain = next(n for n in CHAIN_ROWS if 32 * n >= hd)
+    chunk = 16 if smem_bytes(chain, 16, dtype) <= SMEM_LIMIT else 8
+    tiles = -(-hd // COLS)
+    return ScanPlan(hd=hd, chain=chain, col_tiles=tiles, chunk=chunk,
+                    n_chunks=-(-S // chunk), grid=(tiles, H, B),
+                    smem_bytes=smem_bytes(chain, chunk, dtype))
 
 
 def _check(r, k, v, logw, u, s0, s_out):
@@ -45,9 +118,9 @@ def _check(r, k, v, logw, u, s0, s_out):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"rwkv6_scan: {name} {tuple(t.shape)} is not "
                              f"{want[name]}")
-    if not 0 < hd <= kernel.MAX_HEAD_DIM:
+    if not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"rwkv6_scan: head dim {hd} is not in 1.."
-                         f"{kernel.MAX_HEAD_DIM}")
+                         f"{MAX_HEAD_DIM}")
     if B > 65535 or H > 65535:
         raise ValueError("rwkv6_scan: batch and heads must each be at most "
                          "65535")
