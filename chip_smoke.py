@@ -19,7 +19,11 @@ Phases, each of which raises on failure (non-zero exit):
    (also against the plain emulation of its splits, a row with no allowed
    slot among the shapes, and twice, bit for bit),
    ``rglru_scan`` (RecurrentGemma-2B's prefill, split-serving and decode
-   shapes, and the reference's cases) and ``rwkv6_scan`` (RWKV6-3B's
+   shapes, its 2048-step window, and the reference's cases; also against
+   the plain emulation of its chunks, in place, twice bit for bit, with
+   its plan, blocks an SM and waves, and timed cold as well as warm: the
+   calls rotate over copies of the inputs that together pass twice the
+   L2 size) and ``rwkv6_scan`` (RWKV6-3B's
    shapes in f32 and bf16, the reference's cases and a ragged hd 100,
    the state written in place, twice bit for bit, with its plan, blocks
    an SM and waves; its hd-160 build must not spill);
@@ -56,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import shutil
@@ -135,6 +140,8 @@ RGLRU_SHAPES = [
     ("split_serving", 2, 32, 2560, torch.float32),
     ("decode", 2, 1, 2560, torch.float32),
     ("prefill_bf16", 2, 512, 2560, torch.bfloat16),
+    # RecurrentGemma-2B's window: the kernel runs S in 16 pieces
+    ("prefill_2k", 1, 2048, 2560, torch.float32),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 64, 32, torch.float32),
     ("case1", 1, 100, 48, torch.float32),
@@ -640,33 +647,98 @@ def check_scan(name, shape, pairs, dtype):
     return err
 
 
+def rglru_inputs(B, S, R, dtype, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.sigmoid(torch.as_tensor(rng.standard_normal((B, S, R)),
+                                      dtype=torch.float32, device=DEVICE))
+    b = torch.as_tensor(rng.standard_normal((B, S, R)), dtype=torch.float32,
+                        device=DEVICE)
+    h0 = torch.as_tensor(rng.standard_normal((B, R)), dtype=torch.float32,
+                         device=DEVICE)
+    return a.to(dtype), b.to(dtype), h0
+
+
+def cold_copies(args):
+    """Copies of a call's inputs, enough that between two uses of one
+    copy the calls on the others read more than twice the L2 size."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    return [tuple(t.clone() for t in args)
+            for _ in range(2 * l2 // nbytes + 2)]
+
+
+def cold_ms(fn, copies, samples=5, inner=20):
+    """Median device ms per call, timed as ``time_calls`` times, with the
+    calls rotating over ``copies`` (``cold_copies``): no call finds its
+    inputs in the L2. One pass over the copies first."""
+    turn = itertools.count()
+
+    def calls():
+        fn(*copies[next(turn) % len(copies)])
+
+    for _ in copies:
+        calls()
+    return statistics.median(time_calls(calls, (), inner)
+                             for _ in range(samples))
+
+
 def rglru_phase(kernels):
+    """Each RGLRU_SHAPES row against the plain version and the plain
+    emulation of the kernel's order (``rglru_scan_chunked_ref``), twice
+    bit for bit, in place as out of place, hs[:, -1] as h_last rounded,
+    with the kernel's plan (``scan_plan``, held to what the built kernel
+    launches), blocks an SM and waves; timed warm (back-to-back calls on
+    one set of inputs, as before) and cold (``cold_ms``)."""
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_chunked_ref
+    from repro_torch.kernels.rglru_scan.ops import scan_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, B, S, R, dtype in RGLRU_SHAPES:
-        rng = np.random.default_rng(S + R)
-        a = torch.sigmoid(torch.as_tensor(rng.standard_normal((B, S, R)),
-                                          dtype=torch.float32, device=DEVICE))
-        b = torch.as_tensor(rng.standard_normal((B, S, R)),
-                            dtype=torch.float32, device=DEVICE)
-        a, b = a.to(dtype), b.to(dtype)
-        h0 = torch.as_tensor(rng.standard_normal((B, R)), dtype=torch.float32,
-                             device=DEVICE)
-        args = (a, b, h0)
+        args = rglru_inputs(B, S, R, dtype, seed=S + R)
+        a, b, h0 = args
         got = kernels.rglru_scan(*args)
+        again = kernels.rglru_scan(*args)
         want = kernels.rglru_scan_ref(*args)
+        emulated = rglru_scan_chunked_ref(*args)
         state = h0.clone()                    # h_last written over h0
-        _, in_place = kernels.rglru_scan(a, b, state, h_out=state)
+        in_place = kernels.rglru_scan(a, b, state, h_out=state)
         torch.cuda.synchronize()
         err = check_scan("rglru_scan", name, zip(got, want), dtype)
-        if not torch.equal(in_place, got[1]):
+        emu_err = check_scan("rglru_scan (against its emulation)", name,
+                             zip(got, emulated), dtype)
+        if not (torch.equal(state, got[1]) and torch.equal(in_place[0],
+                                                           got[0])):
             raise AssertionError(f"rglru_scan in place differs at {name}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"rglru_scan at {name} does not repeat "
+                                 "bit for bit")
+        if not torch.equal(got[0][:, -1], got[1].to(dtype)):
+            raise AssertionError(f"rglru_scan at {name}: hs[:, -1] is not "
+                                 "h_last rounded")
+        plan = scan_plan(B, S, R, dtype)
+        built = rg_kernel.launch_plan(S, dtype)
+        if ((built["chunk"], built["chunks"], built["smem_bytes"])
+                != (plan.chunk, plan.chunks, plan.smem_bytes)
+                or built["blocks_per_sm"] < plan.blocks_per_sm):
+            raise AssertionError(f"rglru_scan at {name}: the kernel "
+                                 f"launches {built}, scan_plan says {plan}")
+        per_sm = built["blocks_per_sm"]
         ms = median_ms(dict(plain=lambda: kernels.rglru_scan_ref(*args),
                             kernel=lambda: kernels.rglru_scan(*args)), ())
+        ms_cold = cold_ms(kernels.rglru_scan, cold_copies(args))
         n = B * S * R
         nbytes = a.element_size() * 3 * n + 4 * 2 * B * R
         bound_ms, bound_by, terms = bound(nbytes, 2 * n)
         row = dict(name=name, B=B, S=S, R=R, dtype=str(dtype).split(".")[-1],
-                   max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                   max_abs_err=err, emulation_max_abs_err=emu_err,
+                   chunk=plan.chunk, chunks=plan.chunks, pieces=plan.pieces,
+                   threads=plan.threads, grid=list(plan.grid),
+                   smem_bytes=plan.smem_bytes, blocks_per_sm=per_sm,
+                   plan_blocks_per_sm=plan.blocks_per_sm, sms=sms,
+                   waves=-(-plan.blocks // (per_sm * sms)),
+                   ms=ms["kernel"], ms_cold=ms_cold, plain_ms=ms["plain"],
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                    bound_terms=terms)
         log("rglru_scan", json.dumps(row))
@@ -1142,13 +1214,17 @@ def model_phase(kernels, run):
 
 
 def kernel_entry(name, replaces, rows, main, by_path):
+    """A kernel's item of the ``kernels`` line; ``ms`` is the cold time
+    where the phase took one (``ms_warm`` then beside it)."""
     row = next(r for r in rows if r["name"] == main)
+    warm = {"ms_warm": row["ms"]} if "ms_cold" in row else {}
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/kernels/{name}/{name}.cu",
                 replaces=replaces, launches=sum(by_path.values()),
                 launches_by_path=by_path,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=row["ms"], plain_ms=row["plain_ms"],
+                ms=row.get("ms_cold", row["ms"]), **warm,
+                plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], shape=main)
 

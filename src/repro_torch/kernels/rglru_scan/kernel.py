@@ -18,6 +18,12 @@ def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rglru_scan_launch.argtypes = [p] * 5 + [ll] * 4 + [i] * 4 + [p]
     lib.rglru_scan_launch.restype = i
+    for name in ("rglru_scan_chunk_steps", "rglru_scan_chunks"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
+    for name in ("rglru_scan_smem_bytes", "rglru_scan_blocks_per_sm"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = i
 
 
 LIB = CudaLibrary(Path(__file__).with_name("rglru_scan.cu"), _declare)
@@ -30,7 +36,7 @@ def launch(a, b, h0, hs, h_last) -> None:
 
     lib = LIB.load()
     B, S, R = a.shape
-    dtype = DTYPE_BFLOAT16 if a.dtype == torch.bfloat16 else DTYPE_FLOAT32
+    dtype = _dtype_code(a.dtype)
     with torch.cuda.device(hs.device):
         stream = torch.cuda.current_stream(hs.device).cuda_stream
         err = lib.rglru_scan_launch(
@@ -38,3 +44,27 @@ def launch(a, b, h0, hs, h_last) -> None:
             h_last.data_ptr(), a.stride(0), a.stride(1), b.stride(0),
             b.stride(1), B, S, R, dtype, stream)
     LIB.check(err, "rglru_scan")
+
+
+def _dtype_code(dtype) -> int:
+    import torch
+
+    return DTYPE_BFLOAT16 if dtype == torch.bfloat16 else DTYPE_FLOAT32
+
+
+def _query(name: str, *args) -> int:
+    n = getattr(LIB.load(), f"rglru_scan_{name}")(*args)
+    if n < 0:
+        LIB.check(-n, f"rglru_scan {name} query")
+    return n
+
+
+def launch_plan(S: int, dtype) -> dict:
+    """What the built kernel launches for S steps: steps a chunk, chunks
+    a piece, shared memory a block, and the blocks one SM of the current
+    device holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    code = _dtype_code(dtype)
+    return dict(chunk=_query("chunk_steps", S), chunks=_query("chunks", S),
+                smem_bytes=_query("smem_bytes", S, code),
+                blocks_per_sm=_query("blocks_per_sm", S, code))

@@ -7,9 +7,13 @@ For tensors on the CPU it returns the plain PyTorch version
 it pads nothing; the kernel walks any S and masks ragged R itself.
 ``h_out``, when given, receives ``h_last`` (it may be ``h0`` itself, so
 a recurrent state is updated in place). ``rglru_scan.launches`` counts
-the kernel's launches.
+the kernel's launches. ``scan_plan`` gives, from shapes alone, the
+kernel's chunks, pieces, grid, shared memory, blocks an SM and waves, as
+``rglru_scan.cu`` chooses them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -17,6 +21,75 @@ from repro_torch.kernels.rglru_scan import kernel
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+CHANNELS = 16               # channels a block with more than one chunk
+ONE_CHUNK_CHANNELS = 64     # channels a block with one chunk (S <= 8)
+MAX_CHUNKS = 16             # chunks a channel in one piece
+CHUNK_STEPS = 8             # steps a chunk (L) past S = 1
+REGISTERS = 80              # a thread at most: __launch_bounds__(256, 3)
+SMEM_LIMIT = 227 * 1024     # shared memory an H100 SM gives its blocks
+SMS = 132                   # an H100 SXM's SMs
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One launch. Block (x, b) owns channels ``channels(x)`` of batch
+    row b; its thread (j, c) owns the j-th of them and chunk c of every
+    piece of ``chunks x chunk`` steps: ``steps(piece, c)``. Pieces run
+    one after the other, the next one's loads issued before this one's
+    walks; with one chunk there is no walk 1, no carry and no barrier."""
+    B: int
+    S: int
+    R: int
+    chunk: int                  # steps a chunk (L)
+    chunks: int                 # chunks a piece (C)
+    pieces: int
+    block_channels: int
+    grid: tuple                 # (channel tiles, B)
+    threads: int                # a block: block_channels x chunks
+    smem_bytes: int
+    blocks_per_sm: int
+    waves: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def channels(self, x: int) -> range:
+        w = self.block_channels
+        return range(x * w, min((x + 1) * w, self.R))
+
+    def steps(self, piece: int, c: int) -> range:
+        t0 = (piece * self.chunks + c) * self.chunk
+        return range(min(t0, self.S), min(t0 + self.chunk, self.S))
+
+
+def smem_bytes() -> int:
+    """Shared memory of a block: each chunk's A and Bc and its carry,
+    for MAX_CHUNKS chunks of CHANNELS channels, and the h handed from
+    one piece to the next, all float32."""
+    return 4 * (3 * MAX_CHUNKS * CHANNELS + CHANNELS)
+
+
+def scan_plan(B: int, S: int, R: int, dtype=torch.float32) -> ScanPlan:
+    """What ``rglru_scan.cu`` launches for a (B, S, R) scan: chunks of
+    CHUNK_STEPS steps (one step at S = 1), ceil(S / L) of them a piece
+    up to MAX_CHUNKS. The dtype changes neither; it is taken for the
+    symmetry with the built kernel's query."""
+    if dtype not in DTYPES:
+        raise TypeError(f"rglru_scan: no instance for {dtype}")
+    L = 1 if S <= 1 else CHUNK_STEPS
+    C = min(MAX_CHUNKS, max(1, -(-S // L)))
+    w = ONE_CHUNK_CHANNELS if C == 1 else CHANNELS
+    threads = w * C
+    warps = -(-threads // 32)
+    per_sm = min(32, 64 // warps, 65536 // (32 * warps * REGISTERS),
+                 SMEM_LIMIT // smem_bytes())
+    grid = (-(-R // w), B)
+    return ScanPlan(B=B, S=S, R=R, chunk=L, chunks=C,
+                    pieces=-(-S // (C * L)), block_channels=w, grid=grid,
+                    threads=threads, smem_bytes=smem_bytes(),
+                    blocks_per_sm=per_sm,
+                    waves=-(-grid[0] * grid[1] // (per_sm * SMS)))
 
 
 def _check(a, b, h0, h_out):

@@ -7,6 +7,13 @@ the CUDA kernel is held against on the card. A loop over t in float32,
 the kernel's arithmetic (the reference's oracle is an associative scan:
 the same products, associated in another order). ``hs`` comes back in
 ``a``'s dtype and ``h_last`` in float32.
+
+``rglru_scan_chunked_ref`` is a plain emulation of the CUDA kernel's
+order of operations (``rglru_scan.cu``): S in pieces of ``chunks`` chunks
+of ``chunk`` steps, each chunk folded into its map h -> A h + Bc, h0
+carried through the maps in chunk order, then each chunk walked again
+from its carry. Its fused multiply-adds are taken in float64 and rounded
+to float32, as ``fmaf`` rounds them.
 """
 from __future__ import annotations
 
@@ -22,4 +29,63 @@ def rglru_scan_ref(a, b, h0):
     for t in range(a.shape[1]):
         h = af[:, t] * h + bf[:, t]
         hs[:, t] = h
+    return hs.to(a.dtype), h
+
+
+def _fma(x, y, z):
+    """``fmaf(x, y, z)`` on float32 tensors: the product is exact in
+    float64, and the sum rounds there and then to float32 (one rounding
+    but where the float64 sum lands on a float32 tie)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def rglru_scan_chunked_ref(a, b, h0, chunks=None, chunk=None):
+    """As ``rglru_scan_ref``, in the kernel's order: pieces of ``chunks``
+    chunks of ``chunk`` steps (defaults: ``ops.scan_plan``'s; with only
+    ``chunks``, one piece of chunks of ceil(S / chunks) steps). Steps
+    past S are a = 1, b = 0. Walk 1 folds each chunk into (A, Bc) with
+    Bc <- fma(a, Bc, b), A <- a A; the carry runs
+    carry_{c+1} = fma(A_c, carry_c, Bc_c) from h0, or from the last h of
+    the piece before; walk 2 is h <- fma(a, h, b) from each carry. One
+    chunk skips walk 1 and the carry. ``h_last`` is walk 2's h in the
+    chunk that holds step S - 1."""
+    B, S, R = a.shape
+    if chunks is None:
+        from repro_torch.kernels.rglru_scan.ops import scan_plan
+        plan = scan_plan(B, S, R, a.dtype)
+        chunks, chunk = plan.chunks, plan.chunk
+    elif chunk is None:
+        chunk = max(1, -(-S // chunks))
+    piece = chunks * chunk
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = torch.empty(B, S, R, dtype=torch.float32, device=a.device)
+    for p0 in range(0, S, piece):
+        n = min(piece, S - p0)
+        pa = torch.ones(B, piece, R, dtype=torch.float32, device=a.device)
+        pb = torch.zeros(B, piece, R, dtype=torch.float32, device=a.device)
+        pa[:, :n], pb[:, :n] = af[:, p0:p0 + n], bf[:, p0:p0 + n]
+        pa = pa.view(B, chunks, chunk, R)
+        pb = pb.view(B, chunks, chunk, R)
+        if chunks == 1:
+            walk = h[:, None]
+        else:
+            A = torch.ones(B, chunks, R, dtype=torch.float32,
+                           device=a.device)
+            Bc = torch.zeros_like(A)
+            for i in range(chunk):                        # walk 1
+                Bc = _fma(pa[:, :, i], Bc, pb[:, :, i])
+                A = pa[:, :, i] * A
+            walk = torch.empty_like(A)
+            for k in range(chunks):                       # carry
+                walk[:, k] = h
+                h = _fma(A[:, k], h, Bc[:, k])
+        out = torch.empty(B, chunks, chunk, R, dtype=torch.float32,
+                          device=a.device)
+        for i in range(chunk):                            # walk 2
+            walk = _fma(pa[:, :, i], walk, pb[:, :, i])
+            out[:, :, i] = walk
+        hs[:, p0:p0 + n] = out.view(B, piece, R)[:, :n]
+        h = walk[:, ((S - 1) % piece) // chunk if p0 + piece >= S
+                 else chunks - 1]
     return hs.to(a.dtype), h

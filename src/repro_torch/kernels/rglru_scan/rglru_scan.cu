@@ -14,25 +14,53 @@
 // and writes 2 B R values and h: a few tens of KB.
 //
 // Design. The TPU grid is (batch, channel blocks, chunks) with the state
-// carried in VMEM across the sequential chunk axis. Here the loop over t
-// lives inside the thread: one thread per (b, r) channel keeps h in a
-// register, and neighbouring threads hold neighbouring channels, so each
-// step's loads and stores coalesce. To keep loads in flight, a thread
-// first loads kUnroll steps of a and b into registers, then runs the
-// kUnroll dependent multiply-adds and stores their results. Blocks are
-// small (64 threads), so the B R threads spread over as many SMs as they
-// can fill (80 blocks at the prefill shape): only B R threads exist, so
-// the scan is bound by memory latency, not by the card's bandwidth;
-// splitting S across blocks with a carry pass is later work. Ragged R is
-// masked in the kernel and S needs no padding. Each thread reads its h0
-// before it writes h_last, so h_last may be the h0 buffer (in place).
+// carried in VMEM across the sequential chunk axis. One thread per
+// channel walking all of S leaves only B R threads (5,120 at the prefill
+// shape), each with a few loads in flight: far fewer bytes than HBM's
+// latency needs, so such a kernel is bound by latency, not bandwidth.
+// Here S is split into chunks across threads, joined by a carry in the
+// block:
+//  - A block is 16 neighbouring channels x C <= 16 chunks of L = 8
+//    steps: thread (j, c) owns channel j and steps [c L, c L + L) of each
+//    piece of C L steps (C = ceil(S / 8), at most 16: pieces of 128
+//    steps, one after the other, each from the last h of the one
+//    before). A warp's loads are two 64 B rows (float32).
+//  - Loads: a thread's L steps of a and b go into registers, all issued
+//    before the first is used, and the next piece's are issued before
+//    this piece's walks, so they fly during its barriers and walks.
+//  - Walk 1 folds the chunk into its map h -> A h + Bc: A = prod a_t and
+//    Bc = the chunk's h from 0, in step order. Steps past S are a = 1,
+//    b = 0, the identity, as the reference's wrapper pads them.
+//  - Carry: one thread per channel folds h0 (or the last piece's h)
+//    through the chunks in order, carry_{c+1} = A_c carry_c + Bc_c, into
+//    shared memory. A fixed order: no look-back, no atomics, so a call
+//    repeats bit for bit.
+//  - Walk 2: each thread reruns its chunk from its carry, h = a h + b in
+//    the plain version's step order, and writes hs. The thread whose
+//    chunk holds step S - 1 writes that h as h_last, so hs[:, -1] is
+//    h_last rounded.
+//  - One chunk (S <= 8, the decode step at S = 1 with L = 1): a block of
+//    64 channels, each thread walks its channel from h0 with no walk 1,
+//    no carry and no barrier, and h0's load flies with a's and b's.
+// So a and b are read from HBM once and hs written once. At the prefill
+// shape the grid is (R / 16, B) = 320 blocks of 256 threads, four pieces
+// each; at most 80 registers a thread (__launch_bounds__, no spills) keep
+// three blocks an SM, so all are resident in one wave on 132 SMs. Larger
+// chunks held in registers spilled. Ragged R is masked in the kernel and
+// S needs no padding. h0 is read before the first barrier and h_last
+// written after it (with one chunk, by the same thread), so h_last may be
+// the h0 buffer (in place).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kUnroll = 8;
+constexpr int kChannels = 16;           // a block's channels, chunks > 1
+constexpr int kOneChunkChannels = 64;   // a block's channels, one chunk
+constexpr int kMaxChunks = 16;          // chunks in a piece
+constexpr int kChunkSteps = 8;          // steps a chunk (L), S > 1
+constexpr int kMaxThreads = kChannels * kMaxChunks;
+constexpr int kMinBlocks = 3;           // blocks an SM
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -47,49 +75,192 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+int chunk_steps(int S) { return S <= 1 ? 1 : kChunkSteps; }
+
+int chunks(int S) {
+  const int n = (S + chunk_steps(S) - 1) / chunk_steps(S);
+  return n < 1 ? 1 : n > kMaxChunks ? kMaxChunks : n;
+}
+
+int block_channels(int S) {
+  return chunks(S) == 1 ? kOneChunkChannels : kChannels;
+}
+
+// L steps of a chunk into registers, as float: a from ap, b from bp, the
+// steps past the n that exist as the identity (a = 1, b = 0)
+template <typename T, int L>
+__device__ __forceinline__ void load_chunk(const T* ap, long long ass,
+                                           const T* bp, long long bss, int n,
+                                           float (&av)[L], float (&bv)[L]) {
+  if (n == L) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      av[i] = to_f32(ap[i * ass]);
+      bv[i] = to_f32(bp[i * bss]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      av[i] = i < n ? to_f32(ap[i * ass]) : 1.f;
+      bv[i] = i < n ? to_f32(bp[i * bss]) : 0.f;
+    }
+  }
+}
+
+// steps of a chunk that starts at t0 and exist (0 in a dead lane)
+template <int L>
+__device__ __forceinline__ int steps_in(bool live, int t0, int S) {
+  return live ? max(0, min(L, S - t0)) : 0;
+}
+
+// walk 2 of a chunk: h <- a h + b from the given h, each step's h into
+// out (a step apart by `stride`) for the n steps that exist
+template <typename T, int L>
+__device__ __forceinline__ float walk_chunk(const float (&av)[L],
+                                            const float (&bv)[L], float h,
+                                            T* out, long long stride, int n) {
+  if (n == L) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      h = fmaf(av[i], h, bv[i]);
+      out[i * stride] = from_f32<T>(h);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      h = fmaf(av[i], h, bv[i]);
+      if (i < n) out[i * stride] = from_f32<T>(h);
+    }
+  }
+  return h;
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
                   const float* h0, T* __restrict__ hs, float* h_last,
                   long long asb, long long ass, long long bsb, long long bss,
                   int S, int R) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= R) return;
+  __shared__ float agg_a[kMaxChunks][kChannels];
+  __shared__ float agg_b[kMaxChunks][kChannels];
+  __shared__ float carry[kMaxChunks][kChannels];
+  __shared__ float piece_h[kChannels];
+  const int j = threadIdx.x, c = threadIdx.y, C = blockDim.y;
+  const int r = blockIdx.x * blockDim.x + j;
+  const bool live = r < R;
   const long long bi = blockIdx.y;
   const T* ap = a + bi * asb + r;
   const T* bp = b + bi * bsb + r;
   T* hp = hs + bi * (long long)S * R + r;
-  float h = h0[bi * R + r];
-  int t = 0;
-  for (; t + kUnroll <= S; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      av[i] = to_f32(ap[(long long)(t + i) * ass]);
-      bv[i] = to_f32(bp[(long long)(t + i) * bss]);
-    }
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      h = av[i] * h + bv[i];
-      hp[(long long)(t + i) * R] = from_f32<T>(h);
-    }
+  // h0 first, so that its load flies with the first chunk's
+  const float h_first = live && c == 0 ? h0[bi * R + r] : 0.f;
+  if (C == 1) {            // S <= L: one chunk from h0, no carry, no barrier
+    float av[L], bv[L];
+    load_chunk<T, L>(ap, ass, bp, bss, live ? S : 0, av, bv);
+    const float h = walk_chunk<T, L>(av, bv, h_first, hp, R, live ? S : 0);
+    if (live) h_last[bi * R + r] = S > 0 ? h : h_first;
+    return;
   }
-  for (; t < S; ++t) {
-    h = to_f32(ap[(long long)t * ass]) * h + to_f32(bp[(long long)t * bss]);
-    hp[(long long)t * R] = from_f32<T>(h);
+  const int piece = C * L;
+  const bool writes_last = live && ((S - 1) % piece) / L == c;
+  float na[L], nb[L];                     // the next piece's chunk
+  load_chunk<T, L>(ap + c * L * ass, ass, bp + c * L * bss, bss,
+                   steps_in<L>(live, c * L, S), na, nb);
+  float h = h_first;
+  for (int p0 = 0; p0 < S; p0 += piece) {
+    const int t0 = p0 + c * L;
+    float av[L], bv[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      av[i] = na[i];
+      bv[i] = nb[i];
+    }
+    if (p0 + piece < S)                   // in flight during this piece
+      load_chunk<T, L>(ap + (t0 + piece) * ass, ass, bp + (t0 + piece) * bss,
+                       bss, steps_in<L>(live, t0 + piece, S), na, nb);
+    float A = 1.f, Bc = 0.f;              // walk 1: the chunk's map
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      Bc = fmaf(av[i], Bc, bv[i]);
+      A = av[i] * A;
+    }
+    agg_a[c][j] = A;
+    agg_b[c][j] = Bc;
+    __syncthreads();
+    if (c == 0) {                         // carry, in chunk order
+      float x = p0 == 0 ? h : piece_h[j];
+#pragma unroll
+      for (int k = 0; k < kMaxChunks; ++k) {
+        if (k < C) {
+          carry[k][j] = x;
+          x = fmaf(agg_a[k][j], x, agg_b[k][j]);
+        }
+      }
+    }
+    __syncthreads();
+    h = walk_chunk<T, L>(av, bv, carry[c][j], hp + (long long)t0 * R, R,
+                         steps_in<L>(live, t0, S));
+    // the next piece starts from this one's last h; its first barrier
+    // orders this write before the carry reads it
+    if (c == C - 1 && p0 + piece < S) piece_h[j] = h;
   }
-  h_last[bi * R + r] = h;
+  if (writes_last) h_last[bi * R + r] = h;
+}
+
+struct Call {
+  const void *a, *b;
+  const float* h0;
+  void* hs;
+  float* h_last;
+  long long asb, ass, bsb, bss;
+  int B, S, R;
+  cudaStream_t stream;
+};
+
+enum Op { kLaunch, kSmem, kBlocksPerSm };
+
+// one instance: launch it, or report its shared memory or occupancy
+template <typename T, int L>
+int act(Op op, const Call& x) {
+  const dim3 block(block_channels(x.S), chunks(x.S));
+  if (op == kSmem) {
+    cudaFuncAttributes attr;
+    const cudaError_t err =
+        cudaFuncGetAttributes(&attr, rglru_scan_kernel<T, L>);
+    return err == cudaSuccess ? static_cast<int>(attr.sharedSizeBytes)
+                              : -static_cast<int>(err);
+  }
+  if (op == kBlocksPerSm) {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, rglru_scan_kernel<T, L>, block.x * block.y, 0);
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  }
+  const dim3 grid((x.R + block.x - 1) / block.x, x.B);
+  rglru_scan_kernel<T, L><<<grid, block, 0, x.stream>>>(
+      static_cast<const T*>(x.a), static_cast<const T*>(x.b), x.h0,
+      static_cast<T*>(x.hs), x.h_last, x.asb, x.ass, x.bsb, x.bss, x.S,
+      x.R);
+  return -static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_typed(const void* a, const void* b, const float* h0, void* hs,
-                 float* h_last, long long asb, long long ass, long long bsb,
-                 long long bss, int B, int S, int R, cudaStream_t stream) {
-  const dim3 grid((R + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), h0,
-      static_cast<T*>(hs), h_last, asb, ass, bsb, bss, S, R);
-  return static_cast<int>(cudaGetLastError());
+int act_typed(Op op, const Call& x) {
+  return chunk_steps(x.S) == 1 ? act<T, 1>(op, x)
+                                : act<T, kChunkSteps>(op, x);
+}
+
+int dispatch(Op op, int dtype, const Call& x) {
+  return dtype == 0 ? act_typed<float>(op, x)
+                    : act_typed<__nv_bfloat16>(op, x);
+}
+
+int query(Op op, int S, int dtype) {
+  if (S < 0 || (dtype != 0 && dtype != 1))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  Call x{};
+  x.S = S;
+  return dispatch(op, dtype, x);
 }
 
 }  // namespace
@@ -107,12 +278,24 @@ int rglru_scan_launch(const void* a, const void* b, const float* h0,
   if (B > 65535 || S < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || R <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_typed<float>(a, b, h0, hs, h_last, asb, ass, bsb, bss, B,
-                               S, R, st);
-  return launch_typed<__nv_bfloat16>(a, b, h0, hs, h_last, asb, ass, bsb,
-                                     bss, B, S, R, st);
+  const Call x{a, b, h0, hs, h_last, asb, ass, bsb, bss, B, S, R,
+               static_cast<cudaStream_t>(stream)};
+  return -dispatch(kLaunch, dtype, x);
+}
+
+// Steps a chunk (L) and chunks a piece (C) for S steps, as launched.
+int rglru_scan_chunk_steps(int S) { return chunk_steps(S); }
+int rglru_scan_chunks(int S) { return chunks(S); }
+
+// Shared memory of a block of the instance that takes S steps, in bytes,
+// and the blocks of it that one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); each a negative
+// cudaError_t on failure.
+int rglru_scan_smem_bytes(int S, int dtype) {
+  return query(kSmem, S, dtype);
+}
+int rglru_scan_blocks_per_sm(int S, int dtype) {
+  return query(kBlocksPerSm, S, dtype);
 }
 
 const char* rglru_scan_error_string(int code) {
