@@ -13,7 +13,15 @@ Phases, each of which raises on failure (non-zero exit):
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with error and CUDA-event times beside
    its bound and, where one PyTorch call computes the same function, that
-   call's time: ``matern_score``, ``flash_attention`` (bf16 at Qwen2-1.5B's
+   call's time: ``matern_score`` (both entries at the (S, N, n) the
+   batched grid, the sequential run and Qwen2-1.5B's serving run launch
+   and at ceiling rows, timed cold as well as warm; the posterior entry
+   also at a ragged N for every instance, at padded n, and on a real fit
+   with a failed lane and candidates on training points, its mean equal
+   to the mean entry's bit for bit, its shared memory equal to
+   ``posterior_plan``'s and, at the main path's rows, enough blocks an
+   SM for one wave; its build must not spill),
+   ``flash_attention`` (bf16 at Qwen2-1.5B's
    and RecurrentGemma-2B's heads, and the reference's kernel cases; bf16
    also against the plain emulation of its tiles), ``decode_attention``
    (also against the plain emulation of its splits, a row with no allowed
@@ -50,11 +58,14 @@ Launch counters are zeroed just before each main path (phases 3, 4, and
 each model's split, serving and generation runs) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
-kernel never, and the plain versions never. The last line is the JSON
-``{"ok": true, "device": {...}}``; a JSON line before it lists every
-kernel with its launches by path, error, times and bound. Exits non-zero
-without a CUDA device, and outside a checkout (it imports
-``src/repro_torch``).
+kernel never, and the plain versions never. In phases 3 and 4 and the
+serving runs every block scoring is one posterior launch, whose
+(S, N, n) is logged, with no triangular solve beside it; every main-path
+row of phase 2 must be among the (S, N, n) so logged. The last line
+is the JSON ``{"ok": true, "device": {...}}``; a JSON line before it
+lists every kernel with its launches by path, error, times and bound.
+Exits non-zero without a CUDA device, and outside a checkout (it
+imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
@@ -76,6 +87,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 RTOL = ATOL = 1e-5        # kernel vs plain: the summation order differs
+SQRT5 = 2.23606797749979
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -204,9 +216,30 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 2, 512, 32, 1024
 # inputs; Qwen2-1.5B also to a fixed (atol, rtol).
 HIDDEN_TOL = (1e-3, 1e-3)
 MAIN_N = 64 * 64 + 37 + 45          # grid + VGG19 boundary + local slots
-SHAPES = ([(16, MAIN_N, n, 2) for n in (16, 32, 48, 64)]
-          + [(256, MAIN_N, 64, 2)])            # 256: a serving-pool width
-MAIN_SHAPE = (16, MAIN_N, 64, 2)
+# (S, N, n, d) of the matern rows. The main path's, as its block scorings
+# log them: the batched grid at n 16 (S 16 -> 12 live lanes), then at
+# n 32 (S 10 -> 3, most often 6), the sequential run (S 1, n 16) and the
+# serving run of SERVE_ARCH (S 1, n 16, N = 4096 + its layers + 45;
+# ``main_rows``). Ceiling rows: S 16 at n 32, 48 and 64, which no run
+# reaches, and S 256 (a serving-pool width)
+MAIN_ROWS = [(16, MAIN_N, 16, 2), (6, MAIN_N, 32, 2), (1, MAIN_N, 16, 2)]
+CEILING_ROWS = [(16, MAIN_N, 32, 2), (16, MAIN_N, 48, 2),
+                (16, MAIN_N, 64, 2), (256, MAIN_N, 64, 2)]
+SERVE_ARCH = "qwen2-1.5b"
+MAIN_SHAPE = (16, MAIN_N, 16, 2)
+CEILING_SHAPE = (16, MAIN_N, 64, 2)
+# (S, N, n) -> posterior launches, over every block scoring watched
+LAUNCHED_SHAPES = {}
+# posterior rows off the main path: a ragged N at every instance, and n
+# that are padded to their instance in shared memory
+RAGGED_N = 203
+RAGGED_POINTS = (16, 32, 48, 64, 5, 20, 37)
+# posterior vs plain: mu and dmu within rtol 1e-5 and an atol of 1e-5
+# plus 1e-6 of the sum of their summands' magnitudes (sums of n float32
+# terms taken in another order; a fitted GP's alpha makes the terms far
+# larger than their sum); sigma^2 within 1e-5 sv y_sigma^2 (the
+# cancellation in sv - |L^-1 ks|^2)
+POST_RTOL, POST_ATOL, POST_TERMS = 1e-5, 1e-5, 1e-6
 SLEEP_CYCLES = 50_000_000           # keeps the queue full while timing
 
 
@@ -274,6 +307,24 @@ def check_rwkv6_build(instances: list) -> None:
                                  "registers and no spill")
 
 
+def check_matern_build(instances: list) -> None:
+    """The premise of the posterior kernel's design: each instance
+    (NMAX 16, 32, 48, 64) keeps ks[NMAX] in registers, spilling
+    nothing. Checked where this process built the library."""
+    if not instances:
+        log("build matern_score: already built, spills not checked")
+        return
+    post = [r for r in instances
+            if "matern_posterior_kernel" in r["entry"]]
+    if len(post) != 4:
+        raise AssertionError(f"matern_score: {len(post)} posterior "
+                             "instances in the build log, expected 4")
+    for r in post:
+        if r.get("spill_stores") or r.get("spill_loads"):
+            raise AssertionError(f"matern_posterior instance {r['entry']} "
+                                 f"spills: {r}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -287,15 +338,77 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
+def main_rows():
+    """MAIN_ROWS with the serving row of SERVE_ARCH: N is the 64 x 64
+    grid, one boundary slot a layer of the problem ``launch/serve.py``
+    builds for it, and the local slots."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.acquisition import N_LOCAL
+    from repro_torch.launch import serve
+
+    L = serve.build_problem(get_config(SERVE_ARCH), SPLIT_SEQ).L
+    return MAIN_ROWS + [(1, 64 * 64 + L + N_LOCAL, 16, 2)]
+
+
 def score_inputs(S, N, n, d, seed=0):
     rng = np.random.default_rng(seed)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
 
     return (t(rng.random((S, N, d))), t(rng.random((S, n, d))),
             t(rng.standard_normal((S, n))), t(rng.random((S, n)) < 0.8),
             t(0.1 + rng.random(S)), t(0.5 + rng.random(S)))
+
+
+def posterior_inputs(S, N, n, seed=0):
+    """``score_inputs`` (d = 2) and what the posterior takes besides: L,
+    the Cholesky factor of the masked training kernel as the GP builds
+    it (noise 1e-3; column-major, as the main path hands it over), y_mu
+    and y_sigma."""
+    from repro_torch.core import gp
+
+    cand, x, alpha, mask, ls, sv = score_inputs(S, N, n, 2, seed)
+    theta = dict(log_ls=torch.log(ls), log_sv=torch.log(sv),
+                 log_nv=torch.full_like(ls, float(np.log(1e-3))))
+    L = gp.cholesky(gp._masked_kernel(x, mask.bool(), theta,
+                                      gp.GPConfig().jitter))
+    rng = np.random.default_rng(seed + 1)
+    y_mu = torch.as_tensor(80 + rng.standard_normal(S), dtype=torch.float32,
+                           device=DEVICE)
+    y_sigma = torch.as_tensor(0.5 + rng.random(S), dtype=torch.float32,
+                              device=DEVICE)
+    return cand, x, alpha, mask, L, ls, sv, y_mu, y_sigma
+
+
+def fitted_inputs():
+    """A real fit: ``gp.fit_batch`` on seeded data (S 4, 32 points, lane
+    s with 32 - 5 s of them active), the batched grid's N of random
+    candidates, two of which sit on training points, and lane 3's factor
+    NaN on and below the diagonal, as ``gp.cholesky`` leaves a lane whose
+    kernel is not positive definite."""
+    from repro_torch.core import gp
+
+    rng = np.random.default_rng(7)
+    S, m = 4, 32
+    x = rng.random((S, m, 2))
+    y = (80 + 5 * np.sin(4 * x[..., 0]) + 3 * x[..., 1]
+         + 0.1 * rng.standard_normal((S, m)))
+    mask = np.arange(m)[None] < (32 - 5 * np.arange(S))[:, None]
+    cache = gp.fit_batch(gp.as_dataset(dict(
+        x=np.where(mask[..., None], x, 0), y=np.where(mask, y, 0),
+        mask=mask), DEVICE), gp.GPConfig())
+    cand = torch.as_tensor(rng.random((S, MAIN_N, 2)), dtype=torch.float32,
+                           device=DEVICE)
+    cand[0, 0] = cache["x"][0, 0]
+    cand[1, 7] = cache["x"][1, 3]
+    tril = torch.ones(m, m, dtype=torch.bool, device=DEVICE).tril()
+    L = cache["L"].clone()
+    L[3] += torch.where(tril, float("nan"), 0.0)
+    th = cache["theta"]
+    return (cand, cache["x"].contiguous(), cache["alpha"].contiguous(),
+            cache["mask"].float(), L, torch.exp(th["log_ls"]),
+            torch.exp(th["log_sv"]), cache["y_mu"], cache["y_sigma"])
 
 
 def bound(nbytes, flops, sfu=0):
@@ -333,6 +446,29 @@ def matern_bound(S, N, n, d):
     return bound(nbytes, flops, sfu=2 * pairs)
 
 
+def posterior_bound(S, N, n):
+    """Least time on an H100 for one posterior call (d = 2), as
+    ``matern_bound`` prices the mean.
+
+    Per (candidate, point) pair 25 f32 operations: the mean's 3d + 10 =
+    16; ks_i = mask_i k (1); 1 + sqrt5 r as an FMA (2), times e (1),
+    times the point's gradient factor (1); the two gradient accumulates
+    as FMAs (4). The reference's r / max(r, 1e-12) is 1 on these inputs
+    (ls <= 5000) and is not counted. The solve L v = ks: for each j,
+    v = ks_j (1/L_jj) (1) and s += v^2 (2), then one FMA (2) for each
+    i > j: n^2 + 2n. Per candidate at the end 7: sv - s, its clamp,
+    sqrt(var) y_sigma, mu y_sigma + y_mu (2), dmu y_sigma (2). So
+    n^2 + 27 n + 7 a candidate, with 2n + 1 sqrt and exp. Once a point:
+    w_i, its gradient factor and 1/L_ii (3); once a scenario: 1/ls,
+    1/ls^2, sqrt5 sv, (5/3) sv and (-5/3) sv / ls^2 (6). Bytes: cand,
+    x, alpha, mask, L and four scalars a scenario read; mu, sigma and
+    dmu written."""
+    nbytes = 4 * (2 * S * N + 2 * S * n + 2 * S * n + S * n * n + 4 * S
+                  + 4 * S * N)
+    flops = S * N * (n * n + 27 * n + 7) + 3 * S * n + 6 * S
+    return bound(nbytes, flops, sfu=S * N * (2 * n + 1))
+
+
 def time_calls(fn, args, inner=20):
     """Device ms per call: CUDA events around ``inner`` back-to-back calls
     queued behind a sleep kernel, so host launch cost leaves no gaps."""
@@ -347,9 +483,12 @@ def time_calls(fn, args, inner=20):
     return start.elapsed_time(end) / inner
 
 
-def kernel_phase(matern_score, matern_score_ref):
+def kernel_phase(matern_score, matern_score_ref, shapes):
+    """The mean entry at each row of ``shapes`` against its plain
+    version; timed warm (back-to-back calls on one set of inputs) and
+    cold (``cold_ms``)."""
     rows = []
-    for S, N, n, d in SHAPES:
+    for S, N, n, d in shapes:
         args = score_inputs(S, N, n, d, seed=S + n)
         got = matern_score(*args)
         ref = matern_score_ref(*args)
@@ -367,7 +506,9 @@ def kernel_phase(matern_score, matern_score_ref):
         bound_ms, bound_by, terms = matern_bound(S, N, n, d)
         row = dict(S=S, N=N, n=n, d=d, max_abs_err=abs_err,
                    max_rel_err=rel_err, allclose=ok,
-                   ms=statistics.median(ms), plain_ms=statistics.median(plain),
+                   ms=cold_ms(matern_score, cold_copies(args)),
+                   ms_warm=statistics.median(ms),
+                   plain_ms=statistics.median(plain),
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("matern_score", json.dumps(row))
         if not ok:
@@ -378,26 +519,195 @@ def kernel_phase(matern_score, matern_score_ref):
     return rows
 
 
+def posterior_terms(cand, x, alpha, mask, L, ls, sv, y_mu, y_sigma):
+    """Per candidate, the sum of the magnitudes of the terms that make mu
+    (S, N) and each component of dmu (S, N, 2), raw scale, in float64."""
+    c, xs = cand.double(), x.double()
+    lsd, svd = ls.double()[:, None, None], sv.double()[:, None, None]
+    diff = xs[:, :, None, :] - c[:, None, :, :]              # (S, n, N, 2)
+    r = torch.sqrt(torch.sum(diff * diff, -1).clamp(min=1e-16)) / lsd
+    e = torch.exp(-SQRT5 * r)
+    w = (alpha * mask).double().abs()[:, :, None]
+    ys = y_sigma.double()[:, None]
+    t_mu = ys * torch.sum(w * svd * (1 + SQRT5 * r + 5 * r * r / 3) * e, 1)
+    g = w * (5 / 3) * svd * (1 + SQRT5 * r) * e / (lsd * lsd)
+    t_dmu = ys[..., None] * torch.sum(g[..., None] * diff.abs(), 1)
+    return t_mu, t_dmu
+
+
+def check_posterior(name, got, want, args):
+    """The posterior entry against its plain version: NaN in the same
+    places; mu and dmu within POST_RTOL, POST_ATOL and POST_TERMS of the
+    terms' magnitudes; sigma^2 within 1e-5 sv y_sigma^2. Returns the
+    errors."""
+    t_mu, t_dmu = posterior_terms(*args)
+    sv, ys = args[6].double(), args[8].double()
+    out = dict(nan_positions_equal=all(
+        torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in
+        zip(got, want)))
+    ok = out["nan_positions_equal"]
+    for key, a, b, t in (("mu", got[0], want[0], t_mu),
+                         ("dmu", got[2], want[2], t_dmu)):
+        live = torch.isfinite(b)
+        err = (a.double() - b.double()).abs()[live]
+        allowed = (POST_RTOL * b.double().abs() + POST_ATOL
+                   + POST_TERMS * t)[live]
+        out[f"{key}_max_abs_err"] = float(err.max()) if err.numel() else 0.0
+        out[f"{key}_err_over_terms"] = (float((err / t[live]).max())
+                                        if err.numel() else 0.0)
+        ok = ok and bool((err <= allowed).all())
+    live = torch.isfinite(want[1])
+    var_err = ((got[1].double() ** 2 - want[1].double() ** 2).abs()
+               / (sv * ys * ys)[:, None])[live]
+    out["var_max_err_over_sv"] = (float(var_err.max()) if var_err.numel()
+                                  else 0.0)
+    ok = ok and bool((var_err <= 1e-5).all())
+    if not ok:
+        raise AssertionError(f"matern_posterior disagrees with its plain "
+                             f"version at {name}: {out}")
+    return out
+
+
+def posterior_row(kernels, name, args, timed=True, main=False):
+    """One posterior row: against the plain version (``check_posterior``),
+    its mu against the mean entry's on the raw scale bit for bit, the
+    built kernel against the plan (``posterior_plan``): its shared memory,
+    and at a ``main`` row blocks enough an SM for the grid to run in one
+    wave; timed cold and warm, beside the plain version and the bound,
+    where ``timed``."""
+    from repro_torch.kernels.matern_score import kernel as ms_kernel
+    from repro_torch.kernels.matern_score.ops import SMS, posterior_plan
+
+    cand, x, alpha, mask, L, ls, sv, y_mu, y_sigma = args
+    S, N, _ = cand.shape
+    n = x.shape[1]
+    got = kernels.matern_posterior(*args)
+    want = kernels.matern_posterior_ref(*args)
+    mean = kernels.matern_score(cand, x, alpha, mask, ls, sv)
+    torch.cuda.synchronize()
+    row = dict(name=name, S=S, N=N, n=n,
+               **check_posterior(name, got, want, args))
+    if not torch.equal(got[0], mean * y_sigma[:, None] + y_mu[:, None]):
+        raise AssertionError(f"matern_posterior at {name}: mu differs from "
+                             "the mean entry's on the raw scale")
+    plan = posterior_plan(S, N, n)
+    built = ms_kernel.posterior_build(plan.instance, plan.threads)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = plan.waves(built["blocks_per_sm"])
+    row.update(main=main, instance=plan.instance, threads=plan.threads,
+               grid=list(plan.grid), sms=sms, waves=waves, **built)
+    if (sms != SMS or built["smem_bytes"] != plan.smem_bytes
+            or (main and waves != 1)):
+        raise AssertionError(f"matern_posterior at {name}: the built "
+                             f"kernel has {built} on {sms} SMs, "
+                             f"{waves} waves; posterior_plan is {plan}")
+    if timed:
+        ms = median_ms(dict(
+            plain=lambda: kernels.matern_posterior_ref(*args),
+            kernel=lambda: kernels.matern_posterior(*args)), ())
+        bound_ms, bound_by, terms = posterior_bound(S, N, n)
+        row.update(ms=cold_ms(kernels.matern_posterior, cold_copies(args)),
+                   ms_warm=ms["kernel"], plain_ms=ms["plain"],
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_terms=terms)
+    log("matern_posterior", json.dumps(row))
+    return row
+
+
+def posterior_phase(kernels, shapes, main):
+    """The posterior entry at each row of ``shapes`` (timed; those in
+    ``main`` are the main path's), at a ragged N for every instance and
+    for n padded to one, and on a real fit with a failed lane and
+    candidates on training points."""
+    rows = [posterior_row(kernels, f"S{S}_N{N}_n{n}",
+                          posterior_inputs(S, N, n, seed=S + n),
+                          main=(S, N, n, d) in main)
+            for S, N, n, d in shapes]
+    rows += [posterior_row(kernels, f"ragged_n{n}",
+                           posterior_inputs(3, RAGGED_N, n, seed=n),
+                           timed=False) for n in RAGGED_POINTS]
+    rows.append(posterior_row(kernels, "fitted", fitted_inputs(),
+                              timed=False))
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def block_scoring_watched():
+    """Watch the block scoring of a BO run: the calls of
+    ``acquisition.block_scores``, the (S, N, n) of each posterior launch,
+    and the ``torch.linalg.solve_triangular`` calls made inside block
+    scoring; yields them."""
+    from repro_torch.core import acquisition
+
+    seen = dict(block_scores=0, shapes={}, solves_in_block_scoring=0)
+    inside = [False]
+    scores_fn = acquisition.block_scores
+    posterior_fn = acquisition.matern_posterior
+    solve_fn = torch.linalg.solve_triangular
+
+    def block_scores(*a, **k):
+        seen["block_scores"] += 1
+        inside[0] = True
+        try:
+            return scores_fn(*a, **k)
+        finally:
+            inside[0] = False
+
+    def posterior(cand, x, *a):
+        shape = (*cand.shape[:2], x.shape[1])
+        key = "x".join(map(str, shape))
+        seen["shapes"][key] = seen["shapes"].get(key, 0) + 1
+        LAUNCHED_SHAPES[shape] = LAUNCHED_SHAPES.get(shape, 0) + 1
+        return posterior_fn(cand, x, *a)
+
+    def solve(*a, **k):
+        seen["solves_in_block_scoring"] += inside[0]
+        return solve_fn(*a, **k)
+
+    with mock.patch.object(acquisition, "block_scores", block_scores), \
+            mock.patch.object(acquisition, "matern_posterior", posterior), \
+            mock.patch.object(torch.linalg, "solve_triangular", solve):
+        yield seen
+
+
+def check_block_scoring(what, seen, counts, plain, kernels):
+    """One posterior launch, and nothing else of the kernel, a block
+    scoring; no plain version and no triangular solve in it."""
+    posterior = kernels.matern_posterior.launches
+    if not (seen["block_scores"] == posterior == counts["matern_score"]
+            == sum(seen["shapes"].values())):
+        raise AssertionError(f"{what}: {seen['block_scores']} block "
+                             f"scorings, {posterior} posterior launches, "
+                             f"{counts['matern_score']} matern_score "
+                             f"launches ({seen['shapes']})")
+    if seen["solves_in_block_scoring"] or any(plain.values()):
+        raise AssertionError(f"{what}: block scoring ran "
+                             f"{seen['solves_in_block_scoring']} triangular "
+                             f"solves; plain versions called: {plain}")
 
 
 def sequential_phase(core, kernels):
     pb = core.default_vgg19_problem()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = core.BayesSplitEdge(pb, budget=20).run(seed=0)
+    with plain_calls_counted() as plain, block_scoring_watched() as seen:
+        res = core.BayesSplitEdge(pb, budget=20).run(seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     layer, p_w = pb.denormalize(res.best_a)
     log("sequential", json.dumps(dict(
         wall_s=wall, best_accuracy=res.best_accuracy, layer=layer, p_w=p_w,
-        n_evals=res.n_evals, launches=counts)))
+        n_evals=res.n_evals, launches=counts, block_scoring=seen)))
     if res.best_accuracy < 87.5 - 1e-6 or layer != 7:
         raise AssertionError(f"sequential run missed the optimum: "
                              f"{res.best_accuracy} at layer {layer}")
+    check_block_scoring("sequential", seen, counts, plain, kernels)
     return counts
 
 
@@ -415,8 +725,9 @@ def batched_phase(core, kernels):
     iters = []
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = core.BatchedBayesSplitEdge(scs).run(
-        on_iteration=lambda i, c: iters.append(i))
+    with plain_calls_counted() as plain, block_scoring_watched() as seen:
+        res = core.BatchedBayesSplitEdge(scs).run(
+            on_iteration=lambda i, c: iters.append(i))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -425,13 +736,15 @@ def batched_phase(core, kernels):
     log("batched", json.dumps(dict(wall_s=wall, iterations=len(iters),
                                    launches=counts, accuracies=accs,
                                    feasible=feas,
-                                   n_evals=[r.n_evals for r in res])))
+                                   n_evals=[r.n_evals for r in res],
+                                   block_scoring=seen)))
     if accs != expect or feas != [a > 0 for a in expect]:
         raise AssertionError(f"batched accuracies {accs} (feasible {feas}) "
                              f"!= recorded {expect}")
     if counts["matern_score"] != len(iters):
         raise AssertionError(f"matern_score launched {counts} times in "
                              f"{len(iters)} batched iterations")
+    check_block_scoring("batched", seen, counts, plain, kernels)
     return counts, wall, len(iters)
 
 
@@ -823,14 +1136,16 @@ def rwkv6_phase(kernels):
 
 @contextlib.contextmanager
 def plain_calls_counted():
-    """Count the calls of the model path's plain versions, as their
-    wrappers see them; yields the counts."""
+    """Count the calls of the plain versions of the port's kernels, as
+    their wrappers see them; yields the counts."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.matern_score import ops as mops
     from repro_torch.kernels.rglru_scan import ops as gops
     from repro_torch.kernels.rwkv6_scan import ops as wops
 
-    targets = [(fops, "attention_ref"), (dops, "decode_attention_ref"),
+    targets = [(mops, "matern_score_ref"), (mops, "matern_posterior_ref"),
+               (fops, "attention_ref"), (dops, "decode_attention_ref"),
                (gops, "rglru_scan_ref"), (wops, "rwkv6_scan_ref")]
     counts = {name: 0 for _, name in targets}
 
@@ -924,7 +1239,7 @@ def serve_phase(kernels, run, cfg):
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with plain_calls_counted() as plain, \
+    with plain_calls_counted() as plain, block_scoring_watched() as seen, \
             mock.patch.object(SplitRunner, "run", timed_run):
         res = serve.main(["--arch", run.arch, "--budget", str(SERVE_BUDGET),
                           "--device", DEVICE])
@@ -940,7 +1255,8 @@ def serve_phase(kernels, run, cfg):
         n_evals=res.n_evals, wall_s=wall, forwards=n_fwd,
         forward_s=sum(forward_s),
         forward_ms_median=1e3 * statistics.median(forward_s),
-        rest_s=wall - sum(forward_s), launches=counts, plain_calls=plain)))
+        rest_s=wall - sum(forward_s), launches=counts, plain_calls=plain,
+        block_scoring=seen)))
     if n_fwd != res.n_evals + 1:
         raise AssertionError(f"{n_fwd} partitioned forwards for "
                              f"{res.n_evals} evaluations")
@@ -954,6 +1270,7 @@ def serve_phase(kernels, run, cfg):
     check_launches(f"{run.arch} serve", counts,
                    dict(per(run, forwards=n_fwd),
                         matern_score=counts["matern_score"]), plain)
+    check_block_scoring(f"{run.arch} serve", seen, counts, plain, kernels)
     return counts
 
 
@@ -1213,6 +1530,42 @@ def model_phase(kernels, run):
     return counts
 
 
+def matern_entry(rows, post_rows, by_path, main):
+    """``matern_score``'s item of the ``kernels`` line. The main path
+    launches the posterior entry, so the item's times are its cold and
+    warm times at MAIN_SHAPE, with its other rows of ``main`` and the
+    CEILING_ROWS beside them, the mean entry's rows at MAIN_SHAPE and
+    CEILING_SHAPE, and the launches by (S, N, n) over the main paths."""
+    def at(rows_, shape):
+        return next(r for r in rows_ if (r["S"], r["N"], r["n"], 2) == shape
+                    and "ms" in r)
+
+    main_row = at(post_rows, MAIN_SHAPE)
+    times = ("ms", "ms_warm", "plain_ms", "bound_ms", "bound_by")
+    return dict(
+        name="matern_score", route="cuda",
+        source="src/repro_torch/kernels/matern_score/matern_score.cu",
+        replaces="src/repro/kernels/matern_score/kernel.py:38",
+        entry="matern_posterior_launch", launches=sum(by_path.values()),
+        launches_by_path=by_path,
+        max_abs_err=max([r["max_abs_err"] for r in rows]
+                        + [max(r["mu_max_abs_err"], r["dmu_max_abs_err"])
+                           for r in post_rows]),
+        **{k: main_row[k] for k in times}, library_ms=None,
+        shape=list(MAIN_SHAPE),
+        launches_by_shape={"x".join(map(str, k)): v for k, v in
+                           sorted(LAUNCHED_SHAPES.items())},
+        main_rows=[dict(shape=list(s), **{k: at(post_rows, s)[k]
+                                          for k in times})
+                   for s in main if s != MAIN_SHAPE],
+        ceiling=[dict(shape=list(s), **{k: at(post_rows, s)[k]
+                                        for k in times})
+                 for s in CEILING_ROWS],
+        mean_entry={"x".join(map(str, s[:3])): {k: at(rows, s)[k]
+                                                for k in times}
+                    for s in (MAIN_SHAPE, CEILING_SHAPE)})
+
+
 def kernel_entry(name, replaces, rows, main, by_path):
     """A kernel's item of the ``kernels`` line; ``ms`` is the cold time
     where the phase took one (``ms_warm`` then beside it)."""
@@ -1269,6 +1622,7 @@ def main() -> int:
                for r in instances):
             log(f"build {name}: an instance spills registers")
     check_rwkv6_build(ptxas_summary(rw_kernel.LIB.build_log))
+    check_matern_build(ptxas_summary(ms_kernel.LIB.build_log))
     sass = sass_counts(fa_kernel.LIB.library_path())
     log("sass flash_attention", json.dumps(sass))
     if sass is not None and sass["HMMA"] + sass["HGMMA"] == 0:
@@ -1276,7 +1630,11 @@ def main() -> int:
                              "instruction in its SASS")
 
     # phase 2: kernels against plain (launches here are not counted)
-    rows = kernel_phase(kernels.matern_score, kernels.matern_score_ref)
+    main_shapes = main_rows()
+    shapes = main_shapes + CEILING_ROWS
+    rows = kernel_phase(kernels.matern_score, kernels.matern_score_ref,
+                        shapes)
+    post_rows = posterior_phase(kernels, shapes, main_shapes)
     flash_rows = flash_phase(kernels)
     decode_rows = decode_phase(kernels)
     rglru_rows = rglru_phase(kernels)
@@ -1303,19 +1661,15 @@ def main() -> int:
     for name, paths in by_path.items():
         if not paths:
             raise AssertionError(f"{name} was launched on no main path")
+    unseen = [s for s in main_shapes if s[:3] not in LAUNCHED_SHAPES]
+    if unseen:
+        raise AssertionError(f"matern rows {unseen} are not among the "
+                             "(S, N, n) the main paths launched: "
+                             f"{LAUNCHED_SHAPES}")
 
-    main_row = next(r for r in rows
-                    if (r["S"], r["N"], r["n"], r["d"]) == MAIN_SHAPE)
     log(json.dumps({"kernels": [
-        dict(name="matern_score", route="cuda",
-             source="src/repro_torch/kernels/matern_score/matern_score.cu",
-             replaces="src/repro/kernels/matern_score/kernel.py:38",
-             launches=sum(by_path["matern_score"].values()),
-             launches_by_path=by_path["matern_score"],
-             max_abs_err=max(r["max_abs_err"] for r in rows),
-             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-             library_ms=None, shape=list(MAIN_SHAPE)),
+        matern_entry(rows, post_rows, by_path["matern_score"],
+                     main_shapes),
         kernel_entry("flash_attention",
                      "src/repro/kernels/flash_attention/kernel.py:84",
                      flash_rows, FLASH_MAIN, by_path["flash_attention"]),

@@ -8,11 +8,11 @@ constant over the run, lam_base/lam_g decay exponentially.)
 One call scores a fixed-shape candidate block (dense grid +
 feasibility-boundary + incumbent-local slots) for every scenario at once,
 then runs the projected-gradient refinement as a Python loop. The block
-scoring takes the standardized posterior mean from the ``matern_score``
-kernel; sigma and the mean gradient come from torch ops. The refinement
-moves one point per scenario and differentiates through sigma and the
-mean gradient, so it stays the differentiable torch expression of
-``gp.posterior_with_grad_batch``, as in the reference.
+scoring takes the block's whole posterior (mean, sigma and mean
+gradient) from one launch of the ``matern_posterior`` kernel. The
+refinement moves one point per scenario and differentiates through
+sigma and the mean gradient, so it stays the differentiable torch
+expression of ``gp.posterior_with_grad_batch``, as in the reference.
 
 Every array here carries a leading scenario axis ``S`` (the reference's
 ``vmap``); the single-scenario :func:`maximize` runs with ``S = 1``.
@@ -29,7 +29,7 @@ import torch
 from repro_torch.core import gp as gpm
 from repro_torch.core import torch_cost
 from repro_torch.core.surrogate import GPSurrogate
-from repro_torch.kernels.matern_score.ops import matern_score
+from repro_torch.kernels.matern_score.ops import matern_posterior
 
 F32 = torch.float32
 SIGMA_FLOOR = 1e-9      # EI guard: sigma -> 0 must not NaN/Inf the argmax
@@ -110,25 +110,25 @@ def hybrid_scores(gp, cand, best_feasible, penalties, lam_base, lam_g,
 
 
 def block_posterior(gp, cand, surrogate=None):
-    """Posterior of a candidate block ``cand (S, N, 2)`` for an exact GP:
-    the standardized mean from the ``matern_score`` kernel (its plain
-    version for CPU tensors), sigma and the mean gradient from torch.
-    Not differentiable in ``cand``. Other surrogates use their own
-    posterior."""
+    """Posterior ``(mu, sigma, dmu)`` of a candidate block
+    ``cand (S, N, 2)`` for an exact GP: one ``matern_posterior`` launch
+    (its plain version for CPU tensors). Not differentiable in ``cand``.
+    Other surrogates use their own posterior."""
     if surrogate is not None and not isinstance(surrogate, GPSurrogate):
         return surrogate.posterior_with_grad(gp, cand)
-    mu_std = matern_score(cand.contiguous(), gp["x"].contiguous(),
-                          gp["alpha"].contiguous(),
-                          gp["mask"].to(F32).contiguous(),
-                          torch.exp(gp["theta"]["log_ls"]).contiguous(),
-                          torch.exp(gp["theta"]["log_sv"]).contiguous())
-    return gpm.posterior_with_grad_batch(gp, cand, mu_std=mu_std)
+    theta = gp["theta"]
+    return matern_posterior(
+        cand.contiguous(), gp["x"].contiguous(), gp["alpha"].contiguous(),
+        gp["mask"].to(F32).contiguous(), gp["L"],
+        torch.exp(theta["log_ls"]).contiguous(),
+        torch.exp(theta["log_sv"]).contiguous(), gp["y_mu"].contiguous(),
+        gp["y_sigma"].contiguous())
 
 
 def block_scores(gp, cand, best_feasible, penalties, lam_base, lam_g, lam_p,
                  beta, y_scale, surrogate=None):
-    """:func:`hybrid_scores` of a whole candidate block, its mean from the
-    kernel (:func:`block_posterior`)."""
+    """:func:`hybrid_scores` of a whole candidate block, its posterior
+    from the kernel (:func:`block_posterior`)."""
     return _combine(block_posterior(gp, cand, surrogate), best_feasible,
                     penalties, lam_base, lam_g, lam_p, beta, y_scale)
 

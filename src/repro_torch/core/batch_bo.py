@@ -4,7 +4,7 @@ together on one device. Counterpart of ``repro/core/batch_bo.py``.
 Per iteration the engine makes two batched device calls regardless of S:
 ``gp.fit_batch`` (GP refits over the ``(S, m, d)`` dataset layout) and
 ``acquisition.maximize_batch`` (block scoring through the
-``matern_score`` kernel, one launch, then the refinement). Host
+``matern_posterior`` kernel, one launch, then the refinement). Host
 bookkeeping is the same ``bo.ScenarioState`` object that drives the
 sequential loop, so each scenario's incumbent trace matches a sequential
 ``BayesSplitEdge.run`` of the same seed structurally.

@@ -340,16 +340,15 @@ def posterior(gp, a):
     return mu[0], sigma[0]
 
 
-def posterior_with_grad_batch(gp, A, mu_std=None):
+def posterior_with_grad_batch(gp, A):
     """Fused posterior mean/std + analytic mean-gradient:
     A (*B, N, d) -> (mu, sigma (*B, N), dmu (*B, N, d)), raw scale.
 
     ``dk/dr = -(5/3) sv r (1 + sqrt5 r) e^{-sqrt5 r}`` and
     ``dr/da = (a - x_i) / (ls^2 r)`` reuse the mean's exp/sqrt values.
-    ``mu_std`` takes the standardized mean when it was computed elsewhere
-    (the candidate block takes it from the ``matern_score`` kernel);
-    None computes it here as ``ks^T alpha``. The expression is
-    differentiable in ``A``, which the acquisition refinement needs.
+    The expression is differentiable in ``A``, which the acquisition
+    refinement needs; a candidate block takes its posterior from the
+    ``matern_posterior`` kernel instead (``acquisition.block_posterior``).
     """
     ls = torch.exp(gp["theta"]["log_ls"])[..., None, None]
     sv = torch.exp(gp["theta"]["log_sv"])[..., None, None]
@@ -359,8 +358,7 @@ def posterior_with_grad_batch(gp, A, mu_std=None):
     e = torch.exp(-SQRT5 * r)
     k = sv * (1.0 + SQRT5 * r + 5.0 * r * r / 3.0) * e
     ks = k * gp["mask"][..., :, None]                          # (*B, n, N)
-    if mu_std is None:
-        mu_std = (ks.transpose(-1, -2) @ gp["alpha"][..., None])[..., 0]
+    mu_std = (ks.transpose(-1, -2) @ gp["alpha"][..., None])[..., 0]
     v = torch.linalg.solve_triangular(gp["L"], ks, upper=False)
     var = (sv[..., 0] - torch.sum(torch.square(v), dim=-2)).clamp(min=1e-12)
     # d mu_std / d a = sum_i alpha_i mask_i dk/dr * (a - x_i) / (ls^2 r)

@@ -3,7 +3,7 @@
 
 * :class:`GPSurrogate` — the exact zero-mean Matérn-5/2 GP of
   ``core/gp.py``; the default. The acquisition scores candidate blocks of
-  an exact GP through the ``matern_score`` kernel.
+  an exact GP through the ``matern_posterior`` kernel.
 * :class:`RandomFeatureSurrogate` — Matérn-5/2 random Fourier features +
   closed-form Bayesian linear regression: no Adam/MLL optimization at all
   (``fit`` is one D x D Cholesky). Its basis is drawn by host numpy from

@@ -9,7 +9,8 @@ source:
   ref.py    — the plain PyTorch version, held against the kernel
 
 Ported, one for each TPU kernel of the reference: ``matern_score`` (the
-BO's candidate scoring), ``flash_attention`` (full-sequence forward),
+BO's candidate scoring; its source also gives a candidate block's whole
+posterior, ``matern_posterior``), ``flash_attention`` (full-sequence forward),
 ``decode_attention`` (one decode step), ``rglru_scan`` (RecurrentGemma's
 RG-LRU recurrence) and ``rwkv6_scan`` (RWKV6's wkv recurrence).
 """
@@ -17,8 +18,10 @@ from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: F401
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: F401
-from repro_torch.kernels.matern_score.ops import matern_score  # noqa: F401
-from repro_torch.kernels.matern_score.ref import matern_score_ref  # noqa: F401
+from repro_torch.kernels.matern_score.ops import (  # noqa: F401
+    matern_posterior, matern_score)
+from repro_torch.kernels.matern_score.ref import (  # noqa: F401
+    matern_posterior_ref, matern_score_ref)
 from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: F401
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: F401
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: F401
@@ -32,10 +35,12 @@ WRAPPERS = {"matern_score": matern_score,
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
+    """Kernel launches per wrapper since the last reset (a
+    ``matern_posterior`` launch counts under ``matern_score``, and alone
+    in ``matern_posterior.launches``)."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
+    for fn in (*WRAPPERS.values(), matern_posterior):
         fn.launches = 0

@@ -1,4 +1,6 @@
-"""Batched masked Matérn-5/2 candidate scoring (CUDA kernel + plain
-PyTorch version)."""
-from repro_torch.kernels.matern_score.ops import matern_score  # noqa: F401
-from repro_torch.kernels.matern_score.ref import matern_score_ref  # noqa: F401
+"""Batched masked Matérn-5/2 candidate scoring and candidate-block
+posterior (CUDA kernels + plain PyTorch versions)."""
+from repro_torch.kernels.matern_score.ops import (  # noqa: F401
+    matern_posterior, matern_score)
+from repro_torch.kernels.matern_score.ref import (  # noqa: F401
+    matern_posterior_ref, matern_score_ref)

@@ -11,7 +11,8 @@ import torch
 from repro.kernels.matern_score.ops import matern_score as ref_op
 from repro.kernels.matern_score.ref import matern_score_ref as ref_oracle
 from repro_torch.core import gp as port_gp
-from repro_torch.kernels.matern_score import matern_score, matern_score_ref
+from repro_torch.kernels.matern_score import (matern_posterior,
+                                              matern_score, matern_score_ref)
 
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 1e-6
@@ -46,7 +47,8 @@ def test_plain_version_matches_reference(n, against):
 
 def test_plain_version_is_the_posterior_mean():
     """The score of a fitted GP is its standardized posterior mean, as
-    ``gp.posterior_with_grad_batch`` computes it (ks^T alpha)."""
+    ``gp.posterior_with_grad_batch`` computes it (ks^T alpha), and on the
+    raw scale it is the posterior entry's mean, bit for bit."""
     rng = np.random.default_rng(3)
     S, m = 2, 16
     x = rng.random((S, m, 2)).astype(np.float32)
@@ -58,13 +60,16 @@ def test_plain_version_is_the_posterior_mean():
     cand = torch.as_tensor(rng.random((S, 57, 2)), dtype=torch.float32)
     mu, _, _ = port_gp.posterior_with_grad_batch(gp, cand)
     mu_std = (mu - gp["y_mu"][:, None]) / gp["y_sigma"][:, None]
-    score = matern_score(cand, gp["x"], gp["alpha"], gp["mask"].float(),
-                         torch.exp(gp["theta"]["log_ls"]),
-                         torch.exp(gp["theta"]["log_sv"]))
+    ls = torch.exp(gp["theta"]["log_ls"])
+    sv = torch.exp(gp["theta"]["log_sv"])
+    score = matern_score(cand, gp["x"], gp["alpha"], gp["mask"].float(), ls,
+                         sv)
     np.testing.assert_allclose(score.numpy(), mu_std.numpy(), rtol=1e-4,
                                atol=1e-5)
-    # and the fused path that takes the kernel's mean agrees exactly
-    mu_k, _, _ = port_gp.posterior_with_grad_batch(gp, cand, mu_std=score)
+    # the posterior entry's mean is the score on the raw scale
+    mu_k, _, _ = matern_posterior(cand, gp["x"], gp["alpha"],
+                                  gp["mask"].float(), gp["L"], ls, sv,
+                                  gp["y_mu"], gp["y_sigma"])
     assert torch.equal(mu_k, score * gp["y_sigma"][:, None]
                        + gp["y_mu"][:, None])
 
