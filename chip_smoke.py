@@ -40,6 +40,19 @@ Phases, each of which raises on failure (non-zero exit):
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
    offsets 0/-2 dB x budgets 20/28) must match the per-scenario
    accuracies recorded in ``benchmarks/artifacts/BENCH_bo_engine.json``;
+4b. the whole-run engine (``WholeRunBayesSplitEdge``): the same grid,
+   warm and compacted, must match ``accuracies.wholerun`` there (its
+   wall time, iterations, lane log, mean warm-fit steps, host reads and
+   synchronisations logged); the grid cold, compacted and uncompacted,
+   equal in every output leaf; the hetero mix (16 lanes, budgets 6-20,
+   VGG19 + ResNet101) and the LM request mix (12 scenarios, L 24-61)
+   with the reference's answers and lane logs
+   (``tests/data/torch_wholerun_expected.json``), packed and in two
+   shards (``run_packed_shards``) equal to unpacked bit for bit; the
+   prior bank: an empty and a never-hitting bank equal no bank, a warmed
+   bank hits every scenario and never does worse, and ``save``/``load``
+   keeps its state; and a ``lane_independence`` line (whether the fit's
+   library calls give a lane the same bits at 1, 4, 8 and 16 lanes);
 5. for each of Qwen2-1.5B, RecurrentGemma-2B and RWKV6-3B at full width
    (bf16, weights from ``torch.Generator`` seed 0), one model at a time:
    split serving, where ``SplitRunner`` at four splits must equal the
@@ -54,12 +67,13 @@ Phases, each of which raises on failure (non-zero exit):
    and prefill + one decode step against the full forward, in bf16 and
    on a float32 copy of the model.
 
-Launch counters are zeroed just before each main path (phases 3, 4, and
-each model's split, serving and generation runs) and read just after:
+Launch counters are zeroed just before each main path (phases 3, 4, each
+whole run of 4b, and each model's split, serving and generation runs)
+and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
-kernel never, and the plain versions never. In phases 3 and 4 and the
-serving runs every block scoring is one posterior launch, whose
+kernel never, and the plain versions never. In phases 3, 4 and 4b and
+the serving runs every block scoring is one posterior launch, whose
 (S, N, n) is logged, with no triangular solve beside it; every main-path
 row of phase 2 must be among the (S, N, n) so logged. The last line
 is the JSON ``{"ok": true, "device": {...}}``; a JSON line before it
@@ -78,7 +92,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -218,13 +234,15 @@ HIDDEN_TOL = (1e-3, 1e-3)
 MAIN_N = 64 * 64 + 37 + 45          # grid + VGG19 boundary + local slots
 # (S, N, n, d) of the matern rows. The main path's, as its block scorings
 # log them: the batched grid at n 16 (S 16 -> 12 live lanes), then at
-# n 32 (S 10 -> 3, most often 6), the sequential run (S 1, n 16) and the
-# serving run of SERVE_ARCH (S 1, n 16, N = 4096 + its layers + 45;
-# ``main_rows``). Ceiling rows: S 16 at n 32, 48 and 64, which no run
-# reaches, and S 256 (a serving-pool width)
-MAIN_ROWS = [(16, MAIN_N, 16, 2), (6, MAIN_N, 32, 2), (1, MAIN_N, 16, 2)]
-CEILING_ROWS = [(16, MAIN_N, 32, 2), (16, MAIN_N, 48, 2),
-                (16, MAIN_N, 64, 2), (256, MAIN_N, 64, 2)]
+# n 32 (S 10 -> 3, most often 6), the sequential run (S 1, n 16), the
+# whole-run grid's 16-lane chunks at n 32 (and n 16, as the batched
+# grid) and the serving run of SERVE_ARCH (S 1, n 16, N = 4096 + its
+# layers + 45; ``main_rows``). Ceiling rows: S 16 at n 48 and 64, which
+# no run reaches, and S 256 (a serving-pool width)
+MAIN_ROWS = [(16, MAIN_N, 16, 2), (6, MAIN_N, 32, 2), (1, MAIN_N, 16, 2),
+             (16, MAIN_N, 32, 2)]
+CEILING_ROWS = [(16, MAIN_N, 48, 2), (16, MAIN_N, 64, 2),
+                (256, MAIN_N, 64, 2)]
 SERVE_ARCH = "qwen2-1.5b"
 MAIN_SHAPE = (16, MAIN_N, 16, 2)
 CEILING_SHAPE = (16, MAIN_N, 64, 2)
@@ -781,6 +799,283 @@ def breakdown_phase(core):
     log("batched_breakdown", json.dumps(dict(wall_s=total, seconds=parts,
                                              share=share)))
     return share
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the whole-run engine
+# --------------------------------------------------------------------------
+
+# the reference's MIXED_TRACE_ARCHS (src/repro/wireless/traces.py:70),
+# spelled out here: the port has no traces module yet
+LM_MIX_ARCHS = ("vgg19", "resnet101", "qwen2-moe-a2.7b",
+                "recurrentgemma-2b", "rwkv6-3b", "kimi-k2-1t-a32b")
+# the reference's cold answers and lane logs on the hetero and LM mixes,
+# written and held to the reference by tests/test_torch_wholerun_answers.py
+WHOLERUN_EXPECTED = ROOT / "tests" / "data" / "torch_wholerun_expected.json"
+ANSWER_KEYS = ("best_accuracy", "feasible", "n_evals")
+
+
+@contextlib.contextmanager
+def syncs_counted():
+    """Count the host-device synchronisations in the block (torch's sync
+    debug mode warns on each one); yields a dict whose ``n`` is set on
+    exit."""
+    seen = dict(n=0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            seen["n"] = sum("synchroniz" in str(w.message) for w in caught)
+
+
+def answers(results) -> dict:
+    return dict(best_accuracy=[r.best_accuracy for r in results],
+                feasible=[r.best_a is not None for r in results],
+                n_evals=[r.n_evals for r in results])
+
+
+def results_differ(what, a, b):
+    """Raise unless two result lists are equal bit for bit."""
+    keys = ("n_evals", "utilities", "accuracies", "feasible",
+            "incumbent_trace", "best_utility")
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        bad = [k for k in keys if getattr(ra, k) != getattr(rb, k)]
+        if not np.array_equal(ra.best_a, rb.best_a):
+            bad.append("best_a")
+        if bad:
+            raise AssertionError(f"{what}: scenario {i} differs in {bad}")
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} results against {len(b)}")
+
+
+def raw_differ(what, a, b, rows, path=""):
+    """Raise unless two engines' raw output leaves (``_last_raw``) are
+    equal bit for bit in their first ``rows`` rows."""
+    for k, v in a.items():
+        if isinstance(v, dict):
+            raw_differ(what, v, b[k], rows, f"{path}{k}/")
+        elif v[:rows].tobytes() != b[k][:rows].tobytes():
+            lanes = np.flatnonzero([x.tobytes() != y.tobytes() for x, y
+                                    in zip(v[:rows], b[k][:rows])])
+            raise AssertionError(f"{what}: leaf {path}{k} differs in "
+                                 f"lanes {lanes.tolist()}")
+
+
+def wholerun_run(core, kernels, what, scs, config):
+    """One whole run, launch counts zeroed just before and read just
+    after: logs its wall time, iterations, lane log, fit cost, host reads
+    and synchronisations, and checks that every block scoring was one
+    posterior launch (one an acquisition iteration: every run here has
+    at most LANE_WIDTH lanes), that no other kernel and no plain version
+    ran."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plain, block_scoring_watched() as seen, \
+            syncs_counted() as syncs:
+        eng = core.WholeRunBayesSplitEdge(scs, config)
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    lane = eng.lane_stats()
+    log("wholerun", json.dumps(dict(
+        what=what, wall_s=wall, scenarios=len(scs),
+        iterations=sum(e["iters"] for e in lane["lane_log"]),
+        acq_iters=lane["acq_iters"], lane_log=lane["lane_log"],
+        occupancy_mean=lane["occupancy_mean"],
+        host_reads=lane["host_reads"], syncs=syncs["n"],
+        fit=eng.fit_cost_stats(), launches=counts, block_scoring=seen,
+        **answers(res))))
+    if counts["matern_score"] != lane["acq_iters"]:
+        raise AssertionError(f"{what}: {counts['matern_score']} "
+                             f"matern_score launches in {lane['acq_iters']}"
+                             " acquisition iterations")
+    others = {k: n for k, n in counts.items() if k != "matern_score" and n}
+    if others:
+        raise AssertionError(f"{what}: other kernels launched: {others}")
+    check_block_scoring(what, seen, counts, plain, kernels)
+    return eng, res, counts
+
+
+def lane_independence():
+    """Whether the GP fit's library calls give a lane the same bits at
+    every lane count: each op at 16 lanes against the same op on the
+    first 1, 4 and 8 lanes. Logged, never failing: the engine runs the
+    fit and the acquisition on chunks of exactly LANE_WIDTH lanes
+    whatever these calls do (``core/wholerun.py``)."""
+    from repro_torch.core import gp
+    rng = np.random.default_rng(0)
+    S, m = 16, 32
+    x = torch.as_tensor(rng.random((S, m, 2)), dtype=torch.float32,
+                        device=DEVICE)
+    y = torch.as_tensor(rng.random((S, m)), dtype=torch.float32,
+                        device=DEVICE)
+    mask = torch.ones((S, m), dtype=torch.bool, device=DEVICE)
+    theta = gp.init_theta(gp.GPConfig(), (S,), DEVICE)
+    K = gp._masked_kernel(x, mask, theta, 1e-3)
+    L = torch.linalg.cholesky_ex(K)[0]
+    b = y[..., None]
+    ops = dict(
+        cholesky_ex=lambda k: torch.linalg.cholesky_ex(K[:k])[0],
+        cholesky_solve=lambda k: torch.cholesky_solve(b[:k], L[:k]),
+        solve_triangular=lambda k: torch.linalg.solve_triangular(
+            L[:k], b[:k], upper=False),
+        matmul=lambda k: K[:k] @ b[:k],
+        mll_grad=lambda k: gp._mll_grad({n: v[:k] for n, v in theta.items()},
+                                        x[:k], y[:k], mask[:k], 1e-3
+                                        )["log_ls"],
+        fit_batch=lambda k: gp.fit_batch(
+            dict(x=x[:k], y=y[:k], mask=mask[:k]),
+            gp.GPConfig())["theta"]["log_ls"])
+    same = {}
+    for name, op in ops.items():
+        full = op(S)
+        same[name] = {k: bool(torch.equal(op(k), full[:k]))
+                      for k in (1, 4, 8)}
+    log("lane_independence", json.dumps(dict(
+        lanes=S, points=m, equal_to_16_lanes=same)))
+
+
+def wholerun_phase(core, kernels):
+    """The whole-run engine: the 16-scenario grid warm (the main path)
+    and cold, compacted against uncompacted; the hetero and LM mixes
+    against the reference's answers, compacted, packed and in shards; and
+    the prior bank's contracts."""
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.core.priorbank import PriorBank
+
+    t_phase = time.perf_counter()
+    bench = json.loads((ROOT / "benchmarks" / "artifacts"
+                        / "BENCH_bo_engine.json").read_text())
+    expect = bench["accuracies"]["wholerun"]
+    want = json.loads(WHOLERUN_EXPECTED.read_text())
+    if tuple(want["lm"]["archs"]) != LM_MIX_ARCHS:
+        raise AssertionError(f"LM mix {want['lm']['archs']} is not "
+                             f"{LM_MIX_ARCHS}")
+    if list(map(dict, want["hetero"]["lane_log"])) != bench["hetero"][
+            "compaction_lane_log"]:
+        raise AssertionError("the hetero lane log of the expected answers "
+                             "is not BENCH_bo_engine.json's")
+    cold = EngineConfig(warm_start=False)
+    cold_u = EngineConfig(warm_start=False, compact=False)
+    lane_independence()
+
+    # the grid, warm and compacted (the defaults): the main path
+    scs = batched_scenarios(core)
+    _, res, counts = wholerun_run(core, kernels, "grid", scs, None)
+    accs = [r.best_accuracy for r in res]
+    feas = [r.best_a is not None for r in res]
+    if accs != expect or feas != [a > 0 for a in expect]:
+        raise AssertionError(f"whole-run accuracies {accs} (feasible "
+                             f"{feas}) != recorded {expect}")
+
+    # the grid, cold: compacted against uncompacted, every output leaf
+    e_c, r_c, _ = wholerun_run(core, kernels, "grid cold", scs, cold)
+    e_u, r_u, _ = wholerun_run(core, kernels, "grid cold uncompacted", scs,
+                               cold_u)
+    raw_differ("grid cold compacted vs uncompacted", e_c._last_raw,
+               e_u._last_raw, len(scs))
+    results_differ("grid cold compacted vs uncompacted", r_c, r_u)
+
+    # the hetero and LM mixes against the reference's answers
+    for name in ("hetero", "lm"):
+        mix = want[name]
+
+        def mk(mix=mix):
+            return core.make_hetero_scenarios(
+                seeds=mix["seeds"], budgets=mix["budgets"],
+                archs=mix["archs"])
+        runs = dict(compacted=wholerun_run(core, kernels, f"{name} cold",
+                                           mk(), cold))
+        if name == "hetero":
+            runs["uncompacted"] = wholerun_run(
+                core, kernels, f"{name} cold uncompacted", mk(), cold_u)
+            runs["packed"] = wholerun_run(
+                core, kernels, f"{name} cold packed", mk(),
+                EngineConfig(warm_start=False, pack=True))
+        eng, res, _ = runs["compacted"]
+        got = answers(res)
+        lane_log = eng.lane_stats()["lane_log"]
+        log("wholerun_answers", json.dumps(dict(
+            mix=name, lane_log=lane_log, reference_lane_log=mix["lane_log"],
+            answers=got, reference={k: mix[k] for k in ANSWER_KEYS})))
+        if got != {k: mix[k] for k in ANSWER_KEYS}:
+            raise AssertionError(f"{name}: answers {got} are not the "
+                                 "reference's")
+        if lane_log != mix["lane_log"]:
+            raise AssertionError(f"{name}: lane log {lane_log} is not the "
+                                 f"reference's {mix['lane_log']}")
+        ref_eng, ref_res, _ = runs.get("uncompacted", runs["compacted"])
+        for how, (e, r, _) in runs.items():
+            if e is not ref_eng:
+                raw_differ(f"{name} {how}", e._last_raw, ref_eng._last_raw,
+                           len(r))
+                results_differ(f"{name} {how}", r, ref_res)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        shards = core.run_packed_shards(mk(), n_shards=2, config=cold)
+        torch.cuda.synchronize()
+        log("wholerun", json.dumps(dict(
+            what=f"{name} cold run_packed_shards(n_shards=2)",
+            wall_s=time.perf_counter() - t0,
+            launches=kernels.launch_counts(), **answers(shards))))
+        results_differ(f"{name} run_packed_shards", shards, ref_res)
+
+    # the prior bank, in memory (tests/test_priorbank.py's set and config)
+    def bank_scens(budgets=(6, 8)):
+        return [core.Scenario(core.default_vgg19_problem(), seed=s,
+                              budget=b) for s in (0, 1) for b in budgets]
+
+    def run(scens, bank=None):
+        return core.WholeRunBayesSplitEdge(scens, cold, bank=bank).run()
+
+    base = run(bank_scens())
+    bank = PriorBank()
+    results_differ("empty bank", run(bank_scens(), bank), base)
+    never = PriorBank()
+    run(bank_scens((20,)), never)
+    results_differ("never-hitting bank", run(bank_scens((6,)),
+                                             never.freeze()),
+                   run(bank_scens((6,))))
+    warm = run(bank_scens(), bank.freeze())
+
+    def evals_to(r, target):
+        hit = np.flatnonzero(np.asarray(r.incumbent_trace) >= target - 1e-9)
+        return int(hit[0]) + 1 if hit.size else len(r.incumbent_trace) + 1
+
+    transfer = [dict(cold=c.best_utility, bank=w.best_utility,
+                     evals_cold=evals_to(c, c.best_utility),
+                     evals_bank=evals_to(w, c.best_utility))
+                for c, w in zip(base, warm)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        bank.save(d)
+        back = PriorBank.load(d)
+    tree, tree_back = bank.state_tree(), back.state_tree()
+    roundtrip = (set(tree) == set(tree_back)
+                 and all(tree[k].dtype == tree_back[k].dtype
+                         and tree[k].tobytes() == tree_back[k].tobytes()
+                         for k in tree))
+    log("wholerun_bank", json.dumps(dict(
+        stats=bank.stats(), never_hitting=never.stats(), transfer=transfer,
+        save_load_roundtrip=roundtrip)))
+    if bank.hits < len(base):
+        raise AssertionError(f"the frozen bank hit {bank.hits} times in "
+                             f"{len(base)} scenarios")
+    for i, t in enumerate(transfer):
+        if t["bank"] < t["cold"] - 1e-9 or t["evals_bank"] > t["evals_cold"]:
+            raise AssertionError(f"bank scenario {i} did worse than cold: "
+                                 f"{t}")
+    if never.hits:
+        raise AssertionError(f"the never-hitting bank hit: {never.stats()}")
+    if not roundtrip:
+        raise AssertionError("PriorBank save/load changed its state_tree")
+    log("wholerun_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase)))
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1648,11 +1943,13 @@ def main() -> int:
                              f"path (sequential {seq_counts}, batched "
                              f"{bat_counts})")
     breakdown_phase(core)
+    wr_counts = wholerun_phase(core, kernels)
 
     # phase 5: the LMs at full width, bf16, one at a time
     by_path = {name: {} for name in libs}
     by_path["matern_score"].update(sequential=seq_counts["matern_score"],
-                                   batched=bat_counts["matern_score"])
+                                   batched=bat_counts["matern_score"],
+                                   wholerun=wr_counts["matern_score"])
     for run in MODEL_RUNS:
         for path, counts in model_phase(kernels, run).items():
             for name, n in counts.items():

@@ -304,3 +304,28 @@ def scenario_from_request(arch: str, gain_offset_db: float = 0.0,
                                util=base.util, p_min=base.p_min,
                                p_max=base.p_max)
     return Scenario(pb, seed=seed, budget=budget, deadline_s=deadline_s)
+
+
+def run_packed_shards(scenarios: Sequence[Scenario], n_shards: int = 1,
+                      engine_cls=None, **engine_kw) -> List[BOResult]:
+    """Architecture-aware shard packing over separate engine runs:
+    scenarios sort by ``(n_layers, budget)`` and split into contiguous
+    shards, each run as its own batch padded to the SHARD-local
+    ``L_max`` and ``budget_max`` instead of the global batch maxima —
+    so a CNN shard never pays an LM-decoder profile's padding and an
+    early-budget shard never sizes its ledger for budget 20.
+
+    Results come back in input order: the packing is a pure permutation.
+    ``engine_cls`` defaults to ``WholeRunBayesSplitEdge``; ``engine_kw``
+    (``device=`` among them) goes to every shard's engine.
+    """
+    from repro_torch.distributed.sharding import (pack_scenarios,
+                                                  unpack_results)
+    if engine_cls is None:
+        from repro_torch.core.wholerun import WholeRunBayesSplitEdge
+        engine_cls = WholeRunBayesSplitEdge
+    shards, order = pack_scenarios(scenarios, n_shards)
+    packed_results: List[BOResult] = []
+    for shard in shards:
+        packed_results.extend(engine_cls(shard, **engine_kw).run())
+    return unpack_results(packed_results, order)

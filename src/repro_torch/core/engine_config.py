@@ -1,7 +1,5 @@
 """One shared engine configuration for the three BO engines. Counterpart
-of ``repro/core/engine_config.py``; the port so far has the batched
-engine only, so the whole-run and streaming knobs (``warm_start``,
-``compact``) are left out until the engines that read them are ported.
+of ``repro/core/engine_config.py``, with the same fields.
 
 ``BatchedBayesSplitEdge``, ``WholeRunBayesSplitEdge`` and
 ``StreamingBayesSplitEdge`` historically each grew their own copy of the
@@ -35,8 +33,8 @@ class EngineConfig:
     """The BO-engine knobs shared by all three engines.
 
     Frozen (hashable), so one instance can be reused across engines
-    without aliasing.
-    Engines ignore fields outside their feature set — the point is that
+    without aliasing. Engines ignore fields outside their feature set
+    (``compact`` means nothing to the batched engine) — the point is that
     ONE config describes the run everywhere.
     """
     n_init: int = 9                  # init-design size
@@ -47,8 +45,10 @@ class EngineConfig:
     constraint_aware: bool = True
     use_grad_term: bool = True
     use_schedules: bool = True
+    warm_start: bool = True          # warm GP refits (wholerun/stream)
     l_pad: Optional[int] = None      # padded layer count (None: batch L_max)
     pack: bool = False               # architecture-aware lane packing
+    compact: bool = True             # between-phase lane compaction
     # pluggable surrogate model: None is the exact GP — the
     # bitwise-historical default; see core/surrogate.py
     surrogate: Optional[smod.Surrogate] = None

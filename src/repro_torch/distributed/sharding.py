@@ -35,8 +35,7 @@ def pack_scenarios(scenarios, n_shards: int = 1):
     Returns ``(shards, order)``; concatenating the shards yields the
     packed sequence and ``order`` is :func:`pack_order`'s permutation.
     Each shard's engine then pads to the shard-local ``L_max`` /
-    ``budget_max`` on its own (the reference's ``batch_bo.run_packed_shards``;
-    the port's waits for the whole-run engine).
+    ``budget_max`` on its own (``batch_bo.run_packed_shards``).
     """
     order = pack_order(scenarios)
     packed = [scenarios[i] for i in order]

@@ -14,7 +14,8 @@ import torch
 
 import repro_torch
 from repro_torch.core import (BasicBO, BatchedBayesSplitEdge, BayesSplitEdge,
-                              Scenario, default_vgg19_problem)
+                              Scenario, WholeRunBayesSplitEdge,
+                              default_vgg19_problem, run_packed_shards)
 from repro_torch.kernels.matern_score import matern_score, matern_score_ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,8 +68,16 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_scan_covers_the_whole_run_engine_bank_and_checkpoints():
+    names = {str(p.relative_to(PORT)) for p in SCANNED if PORT in p.parents}
+    assert {"core/wholerun.py", "core/priorbank.py", "checkpoint/ckpt.py",
+            "checkpoint/__init__.py"} <= names
+
+
+@pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
     bad = [n for n in _imported_names(path) if _forbidden(n)]
@@ -89,9 +98,11 @@ def _vgg_batch():
     lambda: BayesSplitEdge(default_vgg19_problem()),
     lambda: BasicBO(default_vgg19_problem()),
     lambda: BatchedBayesSplitEdge(_vgg_batch()),
+    lambda: WholeRunBayesSplitEdge(_vgg_batch()),
+    lambda: run_packed_shards(_vgg_batch(), n_shards=1),
     lambda: default_vgg19_problem().device_params(),
 ], ids=["BayesSplitEdge", "BasicBO", "BatchedBayesSplitEdge",
-        "device_params"])
+        "WholeRunBayesSplitEdge", "run_packed_shards", "device_params"])
 def test_default_device_raises_without_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
