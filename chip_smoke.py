@@ -53,6 +53,22 @@ Phases, each of which raises on failure (non-zero exit):
    bank hits every scenario and never does worse, and ``save``/``load``
    keeps its state; and a ``lane_independence`` line (whether the fit's
    library calls give a lane the same bits at 1, 4, 8 and 16 lanes);
+4c. the streaming server (``StreamingBayesSplitEdge``), a ``stream``
+   line a run (wall time, arrivals/s, dispatches, the lane log with each
+   phase's acquisition iterations and 16-lane chunks, occupancy, queue
+   depth, host reads, synchronisations, posterior launches and their
+   (S, N, n)): (a) the hetero mix through 8 lanes, cold equal to the
+   cold uncompacted whole run in every output leaf and to the
+   reference's answers and lane log
+   (``tests/data/torch_stream_expected.json``; traces within a 1/64
+   quantum), warm within the reference's warm tolerance of the warm
+   compacted whole run; (b) a 128-arrival mixed CNN + LM trace
+   (``arrival_trace("poisson", n=128, seed=0)`` over
+   ``MIXED_TRACE_ARCHS``), warm, through 8 and 64 lanes, the two widths
+   within the warm tolerance of each other and the reference's quantized
+   answers; (c) chaos on 16 VGG19 requests through 4 lanes, cold: a kill
+   at round 2 resumed from its checkpoint and deduped, and a NaN poison
+   at round 2 (requeued), each equal to the fault-free run bit for bit;
 5. for each of Qwen2-1.5B, RecurrentGemma-2B and RWKV6-3B at full width
    (bf16, weights from ``torch.Generator`` seed 0), one model at a time:
    split serving, where ``SplitRunner`` at four splits must equal the
@@ -68,12 +84,13 @@ Phases, each of which raises on failure (non-zero exit):
    on a float32 copy of the model.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
-whole run of 4b, and each model's split, serving and generation runs)
-and read just after:
+whole run of 4b, each stream of 4c, and each model's split, serving and
+generation runs) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
-kernel never, and the plain versions never. In phases 3, 4 and 4b and
-the serving runs every block scoring is one posterior launch, whose
+kernel never, and the plain versions never. In phases 3, 4, 4b and 4c
+and the serving runs every block scoring is one posterior launch (in
+4c, one a 16-lane chunk of an acquisition iteration), whose
 (S, N, n) is logged, with no triangular solve beside it; every main-path
 row of phase 2 must be among the (S, N, n) so logged. The last line
 is the JSON ``{"ok": true, "device": {...}}``; a JSON line before it
@@ -232,15 +249,18 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 2, 512, 32, 1024
 # inputs; Qwen2-1.5B also to a fixed (atol, rtol).
 HIDDEN_TOL = (1e-3, 1e-3)
 MAIN_N = 64 * 64 + 37 + 45          # grid + VGG19 boundary + local slots
+MIX_N = 64 * 64 + 61 + 45           # ... at the mixed CNN + LM l_pad 61
 # (S, N, n, d) of the matern rows. The main path's, as its block scorings
 # log them: the batched grid at n 16 (S 16 -> 12 live lanes), then at
 # n 32 (S 10 -> 3, most often 6), the sequential run (S 1, n 16), the
 # whole-run grid's 16-lane chunks at n 32 (and n 16, as the batched
-# grid) and the serving run of SERVE_ARCH (S 1, n 16, N = 4096 + its
-# layers + 45; ``main_rows``). Ceiling rows: S 16 at n 48 and 64, which
-# no run reaches, and S 256 (a serving-pool width)
+# grid), the serving run of SERVE_ARCH (S 1, n 16, N = 4096 + its
+# layers + 45; ``main_rows``) and the streaming server's chunks of the
+# mixed CNN + LM trace (16 lanes at l_pad 61, n 16 and 32). Ceiling
+# rows: S 16 at n 48 and 64, which no run reaches, and S 256 (a
+# serving-pool width)
 MAIN_ROWS = [(16, MAIN_N, 16, 2), (6, MAIN_N, 32, 2), (1, MAIN_N, 16, 2),
-             (16, MAIN_N, 32, 2)]
+             (16, MAIN_N, 32, 2), (16, MIX_N, 16, 2), (16, MIX_N, 32, 2)]
 CEILING_ROWS = [(16, MAIN_N, 48, 2), (16, MAIN_N, 64, 2),
                 (256, MAIN_N, 64, 2)]
 SERVE_ARCH = "qwen2-1.5b"
@@ -805,10 +825,6 @@ def breakdown_phase(core):
 # phase 4b: the whole-run engine
 # --------------------------------------------------------------------------
 
-# the reference's MIXED_TRACE_ARCHS (src/repro/wireless/traces.py:70),
-# spelled out here: the port has no traces module yet
-LM_MIX_ARCHS = ("vgg19", "resnet101", "qwen2-moe-a2.7b",
-                "recurrentgemma-2b", "rwkv6-3b", "kimi-k2-1t-a32b")
 # the reference's cold answers and lane logs on the hetero and LM mixes,
 # written and held to the reference by tests/test_torch_wholerun_answers.py
 WHOLERUN_EXPECTED = ROOT / "tests" / "data" / "torch_wholerun_expected.json"
@@ -946,15 +962,16 @@ def wholerun_phase(core, kernels):
     the prior bank's contracts."""
     from repro_torch.core.engine_config import EngineConfig
     from repro_torch.core.priorbank import PriorBank
+    from repro_torch.wireless.traces import MIXED_TRACE_ARCHS
 
     t_phase = time.perf_counter()
     bench = json.loads((ROOT / "benchmarks" / "artifacts"
                         / "BENCH_bo_engine.json").read_text())
     expect = bench["accuracies"]["wholerun"]
     want = json.loads(WHOLERUN_EXPECTED.read_text())
-    if tuple(want["lm"]["archs"]) != LM_MIX_ARCHS:
+    if tuple(want["lm"]["archs"]) != MIXED_TRACE_ARCHS:
         raise AssertionError(f"LM mix {want['lm']['archs']} is not "
-                             f"{LM_MIX_ARCHS}")
+                             f"{MIXED_TRACE_ARCHS}")
     if list(map(dict, want["hetero"]["lane_log"])) != bench["hetero"][
             "compaction_lane_log"]:
         raise AssertionError("the hetero lane log of the expected answers "
@@ -1076,6 +1093,268 @@ def wholerun_phase(core, kernels):
     log("wholerun_phase", json.dumps(dict(
         seconds=time.perf_counter() - t_phase)))
     return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4c: the streaming server
+# --------------------------------------------------------------------------
+
+# the reference's stream answers on (a) and (b), written and held to the
+# reference by tests/test_torch_stream_answers.py
+STREAM_EXPECTED = ROOT / "tests" / "data" / "torch_stream_expected.json"
+QUANTUM = 100.0 / 64.0              # one accuracy quantum (parity level 3)
+WARM_TRACE_TOL = 0.5                # the reference's warm trace bound
+STREAM_OUT_KEYS = ("ev_u", "ev_acc", "ev_feas", "ev_trace", "ev_l", "n",
+                   "best_a", "best_u", "has_best", "fit_steps", "fit_calls",
+                   "fault")         # wholerun._OUT_KEYS but the lane's gen
+
+
+def trace_div(a, b) -> float:
+    m = min(len(a), len(b))
+    if m == 0:
+        return 0.0
+    return float(np.max(np.abs(np.asarray(a[:m]) - np.asarray(b[:m]))))
+
+
+def stream_launches(what, kernels, engines, seen, plain):
+    """The launch rules of a stream run: one posterior launch a
+    LANE_WIDTH chunk of an acquisition iteration (the engines'
+    ``acq_chunks``), every block scoring one of them, no other kernel and
+    no plain version."""
+    counts = kernels.launch_counts()
+    chunks = sum(e._counters["acq_chunks"] for e in engines)
+    if counts["matern_score"] != chunks:
+        raise AssertionError(f"{what}: {counts['matern_score']} "
+                             f"matern_score launches for {chunks} chunks "
+                             "of acquisition iterations")
+    others = {k: n for k, n in counts.items() if k != "matern_score" and n}
+    if others:
+        raise AssertionError(f"{what}: other kernels launched: {others}")
+    check_block_scoring(what, seen, counts, plain, kernels)
+    return counts
+
+
+def stream_line(what, wall, engines, results, counts, syncs, seen):
+    """The ``stream`` line of one run (``engines``: the server, or a
+    killed server and the one resumed from its checkpoint)."""
+    st = engines[-1].stream_stats()
+    c = {k: sum(e._counters[k] for e in engines)
+         for k in engines[-1]._counters}
+    log("stream", json.dumps(dict(
+        what=what, wall_s=wall, serve_wall_s=st["wall_s"],
+        results=len(results), arrivals_per_s=len(results) / wall,
+        dispatches=st["n_dispatches"], rounds=st["rounds"],
+        lane_log=[[e["lanes"], e["live"], e["bucket"], e["iters"],
+                   e["acq_iters"], e["chunks"]] for e in st["lane_log"]],
+        lane_log_keys=["lanes", "live", "bucket", "iters", "acq_iters",
+                       "chunks"],
+        occupancy_mean=st["occupancy_mean"],
+        queue_depth_mean=st["queue_depth_mean"],
+        queue_depth_max=st["queue_depth_max"],
+        acq_iters=c["acq_iters"], acq_chunks=c["acq_chunks"],
+        chunks_per_acq_iter=(c["acq_chunks"] / c["acq_iters"]
+                             if c["acq_iters"] else 0.0),
+        host_reads=st["host_reads"], syncs=syncs["n"],
+        launches=counts, block_scoring=seen,
+        faults={k: c[k] for k in ("n_faults", "n_requeued", "n_degraded",
+                                  "n_checkpoints")})))
+
+
+def stream_run(core, kernels, what, make_feed, config, **kw):
+    """One stream (``kill_at`` set: a run killed at that round, resumed
+    from its checkpoint and deduped), launch counts zeroed just before
+    and read just after; logs its ``stream`` line and holds the launch
+    rules. Returns ``(results by request, engines)``."""
+    from repro_torch.runtime.chaos import FaultInjector, SimulatedCrash
+    from repro_torch.runtime.stream import (StreamingBayesSplitEdge,
+                                            dedup_results)
+
+    kill_at = kw.pop("kill_at", None)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plain, block_scoring_watched() as seen, \
+            syncs_counted() as syncs, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        if kill_at is None:
+            engines = [StreamingBayesSplitEdge(make_feed(), config, **kw)]
+            got = list(engines[0].serve())
+        else:
+            ch = FaultInjector(seed=0, kill_at=[kill_at])
+            engines = [StreamingBayesSplitEdge(
+                make_feed(), config, chaos=ch, ckpt_dir=ckpt, ckpt_every=1,
+                **kw)]
+            got = []
+            try:
+                for r in engines[0].serve():
+                    got.append(r)
+            except SimulatedCrash:
+                pass
+            else:
+                raise AssertionError(f"{what}: the kill at round "
+                                     f"{kill_at} never fired")
+            engines.append(StreamingBayesSplitEdge.resume(
+                ckpt, make_feed(), config=config))
+            got = dedup_results(got + list(engines[1].serve()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = stream_launches(what, kernels, engines, seen, plain)
+    stream_line(what, wall, engines, got, counts, syncs, seen)
+    return {r.index: r for r in got}, engines
+
+
+def stream_results_differ(what, got, ref):
+    """Raise unless two streams' results are equal bit for bit, request
+    by request."""
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{what}: requests {sorted(got)} against "
+                             f"{sorted(ref)}")
+    results_differ(what, [got[i].result for i in sorted(got)],
+                   [ref[i].result for i in sorted(ref)])
+
+
+def warm_agree(what, got, ref):
+    """Equal eval counts and accuracies, incumbent traces within
+    WARM_TRACE_TOL (the reference's warm contract); returns the largest
+    trace divergence."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        d = trace_div(a.incumbent_trace, b.incumbent_trace)
+        worst = max(worst, d)
+        if (a.n_evals != b.n_evals or a.best_accuracy != b.best_accuracy
+                or d >= WARM_TRACE_TOL):
+            raise AssertionError(
+                f"{what}: request {i}: n_evals {a.n_evals}/{b.n_evals}, "
+                f"accuracy {a.best_accuracy}/{b.best_accuracy}, trace "
+                f"divergence {d}")
+    return worst
+
+
+def stream_phase(core, kernels):
+    """Phase 4c: the streaming server. (a) the hetero mix through 8 lanes,
+    cold against the cold uncompacted whole run (every output leaf) and
+    the reference's answers, warm against the warm compacted whole run;
+    (b) the 128-arrival mixed CNN + LM trace, warm, through 8 and 64
+    lanes; (c) chaos, cold: kill at round 2 and resume, and a NaN poison
+    at round 2, each against the fault-free run bit for bit. Returns the
+    matern_score launches by run."""
+    from repro_torch.core import wholerun as wr
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.runtime.chaos import FaultInjector
+    from repro_torch.runtime.stream import requests_from_trace
+    from repro_torch.wireless.traces import MIXED_TRACE_ARCHS, arrival_trace
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    want = json.loads(STREAM_EXPECTED.read_text())
+    cold = EngineConfig(warm_start=False)
+    by_run = {}
+
+    def run(what, make_feed, config, **kw):
+        got, engines = stream_run(core, kernels, what, make_feed, config,
+                                  **kw)
+        by_run[what] = sum(e._counters["acq_chunks"] for e in engines)
+        return got, engines
+
+    # (a) the hetero mix through 8 lanes
+    ha = want["hetero"]
+
+    def hetero():
+        return core.make_hetero_scenarios(seeds=ha["seeds"],
+                                          budgets=ha["budgets"],
+                                          archs=ha["archs"])
+    got, (eng,) = run("hetero cold, 8 lanes", hetero, cold,
+                      n_lanes=ha["n_lanes"])
+    offline = core.WholeRunBayesSplitEdge(
+        hetero(), EngineConfig(warm_start=False, compact=False))
+    off_res = offline.run()
+    results_differ("hetero cold stream vs uncompacted whole run",
+                   [got[i].result for i in sorted(got)], off_res)
+    for i, r in got.items():
+        bad = [k for k in STREAM_OUT_KEYS
+               if r.raw[k].tobytes() != offline._last_raw[k][i].tobytes()]
+        if bad:
+            raise AssertionError(f"hetero cold stream: request {i} differs "
+                                 f"from the whole run in {bad}")
+    res = [got[i].result for i in sorted(got)]
+    lane_log = [[e["lanes"], e["live"], e["bucket"], e["iters"]]
+                for e in eng.stream_stats()["lane_log"]]
+    divs = [trace_div(r.incumbent_trace, t)
+            for r, t in zip(res, ha["incumbent_trace"])]
+    mine = answers(res)
+    log("stream_answers", json.dumps(dict(
+        run="hetero cold, 8 lanes", answers=mine, lane_log=lane_log,
+        reference={k: ha[k] for k in ANSWER_KEYS},
+        reference_lane_log=ha["lane_log"],
+        max_trace_divergence=max(divs))))
+    if mine != {k: ha[k] for k in ANSWER_KEYS} or lane_log != ha["lane_log"]:
+        raise AssertionError("hetero cold stream: answers or lane log are "
+                             "not the reference's")
+    if max(divs) > QUANTUM:
+        raise AssertionError(f"hetero cold stream: incumbent traces "
+                             f"{max(divs)} from the reference's")
+    got_w, _ = run("hetero warm, 8 lanes", hetero, None,
+                   n_lanes=ha["n_lanes"])
+    warm_off = core.WholeRunBayesSplitEdge(hetero()).run()
+    worst = warm_agree("hetero warm stream vs warm compacted whole run",
+                       [got_w[i].result for i in sorted(got_w)], warm_off)
+    log("stream_warm", json.dumps(dict(
+        run="hetero warm, 8 lanes", max_trace_divergence=worst,
+        tolerance=WARM_TRACE_TOL)))
+
+    # (b) the mixed CNN + LM trace at two pool widths
+    tw = want["trace"]
+    tr = arrival_trace(**{k: tw[k] for k in ("kind", "n", "seed",
+                                              "budgets", "archs")})
+    if tuple(tw["archs"]) != MIXED_TRACE_ARCHS:
+        raise AssertionError(f"trace archs {tw['archs']} are not "
+                             f"{MIXED_TRACE_ARCHS}")
+    widths = {}
+    for lanes in (8, 64):
+        g, _ = run(f"trace warm, {lanes} lanes",
+                   lambda: requests_from_trace(tr), None, n_lanes=lanes,
+                   l_pad=tw["l_pad"], budget_max=tw["budget_max"])
+        widths[lanes] = [g[i].result for i in sorted(g)]
+    worst = warm_agree("trace: 64 lanes vs 8", widths[64], widths[8])
+    r8 = widths[8]
+    acc = [r.best_accuracy for r in r8]
+    feas = [r.best_a is not None for r in r8]
+    n_diff = [i for i, r in enumerate(r8) if r.n_evals != tw["n_evals"][i]]
+    ref_div = max(trace_div(r.incumbent_trace, t)
+                  for r, t in zip(r8, tw["incumbent_trace"]))
+    log("stream_trace", json.dumps(dict(
+        widths_max_trace_divergence=worst,
+        reference_accuracy_equal=acc == tw["best_accuracy"],
+        reference_feasible_equal=feas == tw["feasible"],
+        reference_n_evals_differ=n_diff,
+        reference_max_trace_divergence=ref_div)))
+    if acc != tw["best_accuracy"] or feas != tw["feasible"]:
+        raise AssertionError("trace warm, 8 lanes: quantized answers are "
+                             "not the reference's")
+
+    # (c) chaos, cold: the 16 VGG19 requests of tests/test_chaos.py
+    def reqs16():
+        return [core.scenario_from_request("vgg19", (-1) ** i * 1.5,
+                                           (6, 8, 10)[i % 3], i)
+                for i in range(16)]
+    ref, _ = run("chaos fault-free, 4 lanes", reqs16, cold, n_lanes=4)
+    killed, _ = run("chaos kill at round 2, resumed", reqs16, cold,
+                    n_lanes=4, kill_at=2)
+    stream_results_differ("kill/resume vs fault-free", killed, ref)
+    ch = FaultInjector(seed=1, nan_poison_at=[2])
+    poisoned, (eng,) = run("chaos NaN poison at round 2", reqs16, cold,
+                           n_lanes=4, chaos=ch)
+    st = eng.stream_stats()
+    if not any(e["kind"] == "nan_poison" for e in ch.events):
+        raise AssertionError(f"the NaN poison never fired: {ch.events}")
+    if st["n_faults"] < 1 or st["n_requeued"] < 1 or st["n_degraded"]:
+        raise AssertionError(f"NaN poison: faults {st['n_faults']}, "
+                             f"requeued {st['n_requeued']}, degraded "
+                             f"{st['n_degraded']}")
+    stream_results_differ("NaN-poison requeue vs fault-free", poisoned, ref)
+    log("stream_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, lane_width=wr.LANE_WIDTH,
+        launches_by_run=by_run)))
+    return by_run
 
 
 # --------------------------------------------------------------------------
@@ -1944,12 +2223,15 @@ def main() -> int:
                              f"{bat_counts})")
     breakdown_phase(core)
     wr_counts = wholerun_phase(core, kernels)
+    stream_counts = stream_phase(core, kernels)
 
     # phase 5: the LMs at full width, bf16, one at a time
     by_path = {name: {} for name in libs}
     by_path["matern_score"].update(sequential=seq_counts["matern_score"],
                                    batched=bat_counts["matern_score"],
                                    wholerun=wr_counts["matern_score"])
+    by_path["matern_score"].update({f"stream:{what}": n for what, n
+                                    in stream_counts.items()})
     for run in MODEL_RUNS:
         for path, counts in model_phase(kernels, run).items():
             for name, n in counts.items():

@@ -540,27 +540,37 @@ def admit_init(stacked, grid, cfg: WholeRunConfig, seed_theta: bool):
     init-design dataset (at the init bucket) that iteration 0 of the
     offline run performs, pulled forward to admission time so a
     long-lived server's body only ever pays warm refits. Seeded lanes
-    enter the pool with ``seeded=True``."""
+    enter the pool with ``seeded=True``. The seed fits run on chunks of
+    :data:`LANE_WIDTH` lanes, as the body's fits do, so a lane's seed is
+    the same however many requests are admitted with it."""
     state, pen = _init_run_core(stacked, grid, cfg)
     if seed_theta:
         surr = smod.resolve(cfg.surrogate, cfg.gp)
         m = gpm.bucket_size(min(cfg.n_init, cfg.gp.max_points),
                             cfg.gp.max_points)
-        data = gpm.slice_data(
-            dict(x=state["x"], y=state["y"], mask=state["mask"]), m)
-        prior = (dict(mu0=state["prior_mu"], n0=state["prior_n0"])
-                 if cfg.use_prior else None)
-        if cfg.use_prior and cfg.warm_start and "bank_hit" in stacked:
-            # bank-hit lanes seed with a warm refit FROM the banked theta
-            # (installed by _apply_stacked_prior); misses pay the cold seed
-            hit = stacked["bank_hit"]
+        # bank-hit lanes seed with a warm refit FROM the banked theta
+        # (installed by _apply_stacked_prior); misses pay the cold seed
+        bank_warm = cfg.use_prior and cfg.warm_start and "bank_hit" in stacked
+        lanes = dict(budget=stacked["budget"], theta=state["theta"],
+                     prior_mu=state["prior_mu"], prior_n0=state["prior_n0"],
+                     **gpm.slice_data(state, m))
+        if bank_warm:
+            lanes["hit"] = stacked["bank_hit"]
+
+        def seed(ln):
+            data = dict(x=ln["x"], y=ln["y"], mask=ln["mask"])
+            prior = (dict(mu0=ln["prior_mu"], n0=ln["prior_n0"])
+                     if cfg.use_prior else None)
             model_c, steps_c = surr.fit(data, prior)
-            model_w, steps_w = surr.fit_from(data, state["theta"], prior)
-            theta = _sel(hit, model_w["theta"], model_c["theta"])
-            steps = torch.where(hit, steps_w, steps_c)
-        else:
-            model, steps = surr.fit(data, prior)
-            theta = model["theta"]
+            if not bank_warm:
+                return dict(theta=model_c["theta"], steps=steps_c)
+            model_w, steps_w = surr.fit_from(data, ln["theta"], prior)
+            return dict(theta=_sel(ln["hit"], model_w["theta"],
+                                   model_c["theta"]),
+                        steps=torch.where(ln["hit"], steps_w, steps_c))
+
+        res = _by_width(seed, lanes, stacked["budget"].shape[0])
+        theta, steps = res["theta"], res["steps"]
         state = dict(
             state, theta=theta,
             fit_steps=state["fit_steps"] + steps,

@@ -1,1 +1,3 @@
-"""Distribution helpers of the port (scenario packing so far)."""
+"""Distribution helpers of the port: scenario packing, admission
+placement (``sharding``) and the lane pools' heartbeat monitor
+(``fault_tolerance``)."""

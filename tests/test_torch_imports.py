@@ -17,6 +17,7 @@ from repro_torch.core import (BasicBO, BatchedBayesSplitEdge, BayesSplitEdge,
                               Scenario, WholeRunBayesSplitEdge,
                               default_vgg19_problem, run_packed_shards)
 from repro_torch.kernels.matern_score import matern_score, matern_score_ref
+from repro_torch.runtime.stream import StreamingBayesSplitEdge
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -77,6 +78,16 @@ def test_scan_covers_the_whole_run_engine_bank_and_checkpoints():
             "checkpoint/__init__.py"} <= names
 
 
+def test_scan_covers_the_streaming_server():
+    names = {str(p.relative_to(PORT)) for p in SCANNED if PORT in p.parents}
+    assert {"runtime/stream.py", "runtime/chaos.py", "wireless/traces.py",
+            "distributed/fault_tolerance.py",
+            "distributed/sharding.py"} <= names
+    assert {"repro_torch.runtime.stream", "repro_torch.runtime.chaos",
+            "repro_torch.wireless.traces",
+            "repro_torch.distributed.fault_tolerance"} <= set(_port_modules())
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
@@ -101,8 +112,10 @@ def _vgg_batch():
     lambda: WholeRunBayesSplitEdge(_vgg_batch()),
     lambda: run_packed_shards(_vgg_batch(), n_shards=1),
     lambda: default_vgg19_problem().device_params(),
+    lambda: StreamingBayesSplitEdge(_vgg_batch(), n_lanes=2),
 ], ids=["BayesSplitEdge", "BasicBO", "BatchedBayesSplitEdge",
-        "WholeRunBayesSplitEdge", "run_packed_shards", "device_params"])
+        "WholeRunBayesSplitEdge", "run_packed_shards", "device_params",
+        "StreamingBayesSplitEdge"])
 def test_default_device_raises_without_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
