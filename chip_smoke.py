@@ -25,7 +25,8 @@ Phases, each of which raises on failure (non-zero exit):
    and RecurrentGemma-2B's heads, and the reference's kernel cases; bf16
    also against the plain emulation of its tiles), ``decode_attention``
    (also against the plain emulation of its splits, a row with no allowed
-   slot among the shapes, and twice, bit for bit),
+   slot among the shapes, and twice, bit for bit), both timed cold as
+   well as warm,
    ``rglru_scan`` (RecurrentGemma-2B's prefill, split-serving and decode
    shapes, its 2048-step window, and the reference's cases; also against
    the plain emulation of its chunks, in place, twice bit for bit, with
@@ -69,6 +70,26 @@ Phases, each of which raises on failure (non-zero exit):
    answers; (c) chaos on 16 VGG19 requests through 4 lanes, cold: a kill
    at round 2 resumed from its checkpoint and deduped, and a NaN poison
    at round 2 (requeued), each equal to the fault-free run bit for bit;
+4d. the fleet (``sim_fleet``: a router and two 4-lane workers over a
+   simulated transport, one thread), a ``fleet`` line a run (wall time,
+   router cycles, the transport's sent/delivered/dropped/duplicated
+   counts, retries, dispatches, acquisition iterations and chunks, host
+   reads, synchronisations, posterior launches): (a) zero-fault over the
+   hetero mix, cold, equal to 4c's 8-lane single-host stream in every
+   result leaf and so to the reference's answers; (b) a lossy network
+   (``NetworkChaos``: 5 % drop, 5 % duplication, reordering, delay, a
+   partition of ``w0`` healed later) over a 16-arrival bursty deadlined
+   trace: every request exactly once, the deadline hit rate at least 0.9
+   of the fault-free fleet's, the served answers the fault-free fleet's
+   bit for bit;
+4e. Table 1 (``benchmarks/table1_torch.py``): the nine methods,
+   sequential and with the BO rows through the batched engine, each row
+   with its wall time, held to the reference's rows
+   (``tests/data/torch_table1_expected.json``): the host searches
+   exactly, Bayes-Split-Edge and Basic-BO at parity level 3, PPO on the
+   reference's ``jax.random`` draws (every evaluation's split layer and
+   feasibility bit, the best accuracy, every power within
+   ``PPO_POWER_TOL``);
 5. for each of Qwen2-1.5B, RecurrentGemma-2B and RWKV6-3B at full width
    (bf16, weights from ``torch.Generator`` seed 0), one model at a time:
    split serving, where ``SplitRunner`` at four splits must equal the
@@ -84,13 +105,13 @@ Phases, each of which raises on failure (non-zero exit):
    on a float32 copy of the model.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
-whole run of 4b, each stream of 4c, and each model's split, serving and
-generation runs) and read just after:
+whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e, and
+each model's split, serving and generation runs) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
-kernel never, and the plain versions never. In phases 3, 4, 4b and 4c
+kernel never, and the plain versions never. In phases 3, 4, 4b-4e
 and the serving runs every block scoring is one posterior launch (in
-4c, one a 16-lane chunk of an acquisition iteration), whose
+4c and 4d, one a 16-lane chunk of an acquisition iteration), whose
 (S, N, n) is logged, with no triangular solve beside it; every main-path
 row of phase 2 must be among the (S, N, n) so logged. The last line
 is the JSON ``{"ok": true, "device": {...}}``; a JSON line before it
@@ -1236,7 +1257,8 @@ def stream_phase(core, kernels):
     (b) the 128-arrival mixed CNN + LM trace, warm, through 8 and 64
     lanes; (c) chaos, cold: kill at round 2 and resume, and a NaN poison
     at round 2, each against the fault-free run bit for bit. Returns the
-    matern_score launches by run."""
+    matern_score launches by run and the hetero cold results by request
+    (phase 4d's single host)."""
     from repro_torch.core import wholerun as wr
     from repro_torch.core.engine_config import EngineConfig
     from repro_torch.runtime.chaos import FaultInjector
@@ -1264,6 +1286,7 @@ def stream_phase(core, kernels):
                                           archs=ha["archs"])
     got, (eng,) = run("hetero cold, 8 lanes", hetero, cold,
                       n_lanes=ha["n_lanes"])
+    hetero_cold = got
     offline = core.WholeRunBayesSplitEdge(
         hetero(), EngineConfig(warm_start=False, compact=False))
     off_res = offline.run()
@@ -1354,6 +1377,231 @@ def stream_phase(core, kernels):
     log("stream_phase", json.dumps(dict(
         seconds=time.perf_counter() - t_phase, lane_width=wr.LANE_WIDTH,
         launches_by_run=by_run)))
+    return by_run, hetero_cold
+
+
+# --------------------------------------------------------------------------
+# phase 4d: the fleet
+# --------------------------------------------------------------------------
+
+# benchmarks/bench_engine.py's run_fleet: 2 workers x 4 lanes against the
+# 8-lane single host; the lossy run's trace, fleet and network faults
+FLEET_WORKERS, FLEET_LANES = 2, 4
+FLEET_TRACE = dict(kind="bursty", n=16, seed=0, budgets=(6, 10, 14, 20),
+                   deadline_slack=(2.0, 8.0))
+FLEET_TRACE_KW = dict(n_workers=FLEET_WORKERS, n_lanes=FLEET_LANES,
+                      dt_s=0.05, request_timeout=24.0, max_attempts=5)
+FLEET_CHAOS = dict(seed=3, drop_rate=0.05, dup_rate=0.05, reorder_rate=0.2,
+                   delay_max=2, partition_at=[(8, "w0", "router")],
+                   heal_at=[(24, "*", "*")])
+FLEET_HIT_RATE_FLOOR = 0.9          # lossy hit rate over the fault-free one
+
+
+def fleet_run(kernels, what, make_router):
+    """One simulated fleet on the card (``sim_fleet``: the router drives
+    its workers in one thread), launch counts zeroed just before and read
+    just after: logs its ``fleet`` line (wall time, router cycles, the
+    transport's sent/delivered/dropped/duplicated counts, retries,
+    timeouts, dispatches, acquisition iterations and LANE_WIDTH chunks,
+    host reads, synchronisations) and holds the stream's launch rules
+    over the workers' engines. Returns ``(router, {index: the emitted
+    StreamResult})``."""
+    from repro_torch.core import wholerun as wr
+
+    kernels.reset_launch_counts()
+    reads0 = wr._counts["host_reads"]
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plain, block_scoring_watched() as seen, \
+            syncs_counted() as syncs:
+        rt = make_router()
+        emitted = []
+        rt.on_result = emitted.append
+        rt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engines = [w.eng for w in rt._drive]
+    counts = stream_launches(what, kernels, engines, seen, plain)
+    st = rt.fleet_stats()
+    log("fleet", json.dumps(dict(
+        what=what, wall_s=wall, results=len(emitted), cycles=st["cycles"],
+        transport=st["transport"], retries=st["n_retries"],
+        timeouts=st["n_timeouts"], dup_results=st["n_dup_results"],
+        degraded=st["n_degraded"], undeliverable=st["n_undeliverable"],
+        workers_dead=st["workers_dead"],
+        deadline_hit_rate=st["deadline_hit_rate"],
+        dispatches=sum(w.counters["n_dispatches"] for w in rt._drive),
+        workers={w.name: w.counters for w in rt._drive},
+        acq_iters=sum(e._counters["acq_iters"] for e in engines),
+        acq_chunks=sum(e._counters["acq_chunks"] for e in engines),
+        host_reads=wr._counts["host_reads"] - reads0, syncs=syncs["n"],
+        launches=counts, block_scoring=seen)))
+    indices = [r.index for r in emitted]
+    if len(indices) != len(set(indices)):
+        raise AssertionError(f"{what}: the router emitted a request twice")
+    return rt, {r.index: r for r in emitted}
+
+
+def fleet_phase(core, kernels, single):
+    """Phase 4d: the fleet (``runtime/fleet.py``) on the card. (a)
+    zero-fault: 2 workers x 4 lanes over the hetero mix, cold, equal to
+    the 8-lane single-host stream (``single``, phase 4c's run) in every
+    result leaf, and so to the reference's answers; (b) lossy: 5 % drop,
+    5 % duplication, reordering, delay and one partition/heal cycle over a
+    bursty deadlined trace, every request exactly once, the deadline hit
+    rate at least FLEET_HIT_RATE_FLOOR of the fault-free fleet's, and
+    every answer the fault-free fleet's bit for bit. Returns the
+    matern_score launches by run."""
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.runtime.chaos import NetworkChaos
+    from repro_torch.runtime.fleet import sim_fleet
+    from repro_torch.runtime.stream import requests_from_trace
+    from repro_torch.wireless.traces import arrival_trace
+
+    t_phase = time.perf_counter()
+    want = json.loads(STREAM_EXPECTED.read_text())["hetero"]
+    cold = EngineConfig(warm_start=False)
+    by_run = {}
+
+    def run(what, make_router):
+        rt, got = fleet_run(kernels, what, make_router)
+        by_run[what] = sum(w.eng._counters["acq_chunks"] for w in rt._drive)
+        return rt, got
+
+    def hetero():
+        return core.make_hetero_scenarios(seeds=want["seeds"],
+                                          budgets=want["budgets"],
+                                          archs=want["archs"])
+
+    # (a) zero-fault, against the single host bit for bit
+    if FLEET_WORKERS * FLEET_LANES != want["n_lanes"]:
+        raise AssertionError("the fleet's lanes are not the single host's")
+    what = f"zero-fault, {FLEET_WORKERS} x {FLEET_LANES} lanes, hetero cold"
+    rt, got = run(what, lambda: sim_fleet(
+        hetero(), n_workers=FLEET_WORKERS, config=cold, n_lanes=FLEET_LANES,
+        device=DEVICE))
+    st = rt.fleet_stats()
+    if st["n_retries"] or st["n_degraded"] or st["transport"]["dropped"]:
+        raise AssertionError(f"{what}: faults in a zero-fault run: {st}")
+    stream_results_differ(f"{what} vs the single host", got, single)
+    for i, r in got.items():
+        bad = [k for k in STREAM_OUT_KEYS
+               if r.raw[k].tobytes() != single[i].raw[k].tobytes()]
+        if bad:
+            raise AssertionError(f"{what}: request {i} differs from the "
+                                 f"single host in {bad}")
+    res = [got[i].result for i in sorted(got)]
+    divs = [trace_div(r.incumbent_trace, t)
+            for r, t in zip(res, want["incumbent_trace"])]
+    mine = answers(res)
+    log("fleet_answers", json.dumps(dict(
+        run=what, equal_to_single_host=True, answers=mine,
+        reference={k: want[k] for k in ANSWER_KEYS},
+        max_trace_divergence=max(divs))))
+    if mine != {k: want[k] for k in ANSWER_KEYS} or max(divs) > QUANTUM:
+        raise AssertionError(f"{what}: answers are not the reference's")
+
+    # (b) a lossy network over a bursty deadlined trace
+    tr = arrival_trace(**FLEET_TRACE)
+
+    def trace_fleet(chaos=None):
+        return sim_fleet(requests_from_trace(tr), config=cold,
+                         arrivals=tr["t"], chaos=chaos, device=DEVICE,
+                         **FLEET_TRACE_KW)
+    rt_ff, ff = run("fault-free, bursty trace", trace_fleet)
+    chaos = NetworkChaos(**FLEET_CHAOS)
+    rt_l, lossy = run("lossy, bursty trace", lambda: trace_fleet(chaos))
+    ff_hit = rt_ff.fleet_stats()["deadline_hit_rate"]
+    st = rt_l.fleet_stats()
+    kinds = [e["kind"] for e in chaos.events]
+    log("fleet_lossy", json.dumps(dict(
+        requests=tr["n"], exactly_once=sorted(lossy) == list(range(tr["n"])),
+        faultfree_hit_rate=ff_hit, lossy_hit_rate=st["deadline_hit_rate"],
+        floor=FLEET_HIT_RATE_FLOOR, chaos_events=len(chaos.events),
+        partitions=kinds.count("partition"), heals=kinds.count("heal"),
+        transport=st["transport"])))
+    if sorted(lossy) != list(range(tr["n"])):
+        raise AssertionError(f"lossy fleet: requests {sorted(lossy)} are "
+                             "not each emitted exactly once")
+    if st["transport"]["dropped"] == 0 or "heal" not in kinds:
+        raise AssertionError(f"lossy fleet: the faults did not fire: {st}")
+    if st["deadline_hit_rate"] < FLEET_HIT_RATE_FLOOR * ff_hit:
+        raise AssertionError(f"lossy fleet: hit rate "
+                             f"{st['deadline_hit_rate']} < "
+                             f"{FLEET_HIT_RATE_FLOOR} x {ff_hit}")
+    served = {i: r for i, r in lossy.items() if not r.degraded}
+    stream_results_differ("lossy fleet vs fault-free (served requests)",
+                          served, {i: ff[i] for i in served})
+    log("fleet_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, launches_by_run=by_run)))
+    return by_run
+
+
+# --------------------------------------------------------------------------
+# phase 4e: Table 1
+# --------------------------------------------------------------------------
+
+# the reference's nine rows, sequential and batched, and its PPO draws,
+# written and held to the reference by tests/test_torch_table1_answers.py
+TABLE1_EXPECTED = ROOT / "tests" / "data" / "torch_table1_expected.json"
+
+
+def table1_phase(kernels):
+    """Phase 4e: the nine rows of Table 1 on the card
+    (``benchmarks/table1_torch.py``), sequential and batched, each held
+    to the reference's row by ``table1_torch.mismatches`` (the host rows
+    exactly, the BO rows at parity level 3, PPO on the reference's draws
+    within ``PPO_POWER_TOL``), with its wall time. On the BO rows every
+    block scoring is one posterior launch with no triangular solve; the
+    other rows launch no kernel. Returns the BO rows' matern_score
+    launches."""
+    from benchmarks import table1_torch as t1
+
+    t_phase = time.perf_counter()
+    want = json.loads(TABLE1_EXPECTED.read_text())
+    by_run = {}
+    for mode in ("sequential", "batched"):
+        for name in want["rows"]:
+            what = f"{mode}: {name}"
+            kernels.reset_launch_counts()
+            with plain_calls_counted() as plain, \
+                    block_scoring_watched() as seen, syncs_counted() as syncs:
+                ((_, pb, res, wall),) = t1.table(
+                    want["seed"], batched=mode == "batched", device=DEVICE,
+                    ppo_draws=want["ppo_draws"], rows=[name])
+            counts = kernels.launch_counts()
+            got = t1.answers(name, pb, res)
+            ref = next(r for r in want[mode] if r["algorithm"] == name)
+            bad = t1.mismatches(got, ref)
+            line = dict(mode=mode, row=name, wall_s=wall,
+                        **{k: got[k] for k in ("n_evals", "split_layer",
+                                               "power_w", "best_accuracy",
+                                               "feasible")},
+                        reference={k: ref[k] for k in (
+                            "n_evals", "split_layer", "power_w",
+                            "best_accuracy", "feasible")},
+                        mismatches=bad, syncs=syncs["n"], launches=counts,
+                        block_scoring=seen)
+            if name == t1.PPO_ROW:
+                line["max_power_diff_w"] = max(
+                    abs(a - b) for a, b in zip(got["eval_powers_w"],
+                                               ref["eval_powers_w"]))
+                line["power_tol_w"] = t1.PPO_POWER_TOL
+            log("table1", json.dumps(line))
+            if bad:
+                raise AssertionError(f"table1 {what}: {bad} are not the "
+                                     "reference's")
+            if name in t1.BO_ROWS:
+                if counts["matern_score"] == 0:
+                    raise AssertionError(f"table1 {what}: no posterior "
+                                         "launch")
+                check_block_scoring(f"table1 {what}", seen, counts, plain,
+                                    kernels)
+                by_run[what] = counts["matern_score"]
+            elif any(counts.values()) or any(plain.values()):
+                raise AssertionError(f"table1 {what}: launched {counts}, "
+                                     f"plain versions {plain}")
+    log("table1_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, launches_by_run=by_run)))
     return by_run
 
 
@@ -1406,6 +1654,10 @@ def check_close(name, shape, got, ref, dtype):
 
 
 def flash_phase(kernels):
+    """Each FLASH_SHAPES row against the plain version (bf16 also
+    against the plain emulation of its tiles), with SDPA's time beside
+    it; timed warm (back-to-back calls on one set of inputs) and cold
+    (``cold_ms``)."""
     from repro_torch.kernels.flash_attention.ref import attention_tiled_ref
 
     F = torch.nn.functional
@@ -1436,6 +1688,8 @@ def flash_phase(kernels):
             plain=lambda: kernels.attention_ref(q, k, v, window=window),
             kernel=lambda: kernels.flash_attention(q, k, v, window=window),
             library=lambda: library(qh, kh, vh)), ())
+        ms_cold = cold_ms(lambda q_, k_, v_: kernels.flash_attention(
+            q_, k_, v_, window=window), cold_copies((q, k, v)))
         esize = q.element_size()
         nbytes = esize * (2 * q.numel() + k.numel() + v.numel())
         pairs = B * allowed_pairs(S, S, window)
@@ -1444,6 +1698,7 @@ def flash_phase(kernels):
                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
                    emulation_max_abs_err=emu_err,
                    blocks=-(-S // 64) * Hq * B, ms=ms["kernel"],
+                   ms_cold=ms_cold,
                    plain_ms=ms["plain"], library_ms=ms["library"],
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("flash_attention", json.dumps(row))
@@ -1465,6 +1720,9 @@ def decode_inputs(B, T, last, q_pos, Hq, Hkv, hd, dtype, seed):
 
 
 def decode_phase(kernels):
+    """Each DECODE_SHAPES row against the plain version and the plain
+    emulation of its splits, twice bit for bit, with SDPA's time beside
+    it; timed warm and cold (``cold_ms``)."""
     from repro_torch.kernels.decode_attention.ops import decode_splits
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_split_ref)
@@ -1495,6 +1753,8 @@ def decode_phase(kernels):
             kernel=lambda: kernels.decode_attention(*args, window=window),
             library=lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, enable_gqa=True)), ())
+        ms_cold = cold_ms(lambda *a: kernels.decode_attention(
+            *a, window=window), cold_copies(args))
         # the K/V bytes this run's mask needs (each allowed slot once per
         # kv head), every kv_pos, q_pos, q and o
         n_slots = int(allowed.sum())
@@ -1507,7 +1767,7 @@ def decode_phase(kernels):
                    allowed_slots=n_slots, splits=n_split,
                    slots_per_split=chunk, blocks=B * Hkv * n_split,
                    max_abs_err=err, emulation_max_abs_err=emu_err,
-                   ms=ms["kernel"],
+                   ms=ms["kernel"], ms_cold=ms_cold,
                    plain_ms=ms["plain"], library_ms=ms["library"],
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("decode_attention", json.dumps(row))
@@ -2223,7 +2483,9 @@ def main() -> int:
                              f"{bat_counts})")
     breakdown_phase(core)
     wr_counts = wholerun_phase(core, kernels)
-    stream_counts = stream_phase(core, kernels)
+    stream_counts, hetero_cold = stream_phase(core, kernels)
+    fleet_counts = fleet_phase(core, kernels, hetero_cold)
+    table1_counts = table1_phase(kernels)
 
     # phase 5: the LMs at full width, bf16, one at a time
     by_path = {name: {} for name in libs}
@@ -2232,6 +2494,10 @@ def main() -> int:
                                    wholerun=wr_counts["matern_score"])
     by_path["matern_score"].update({f"stream:{what}": n for what, n
                                     in stream_counts.items()})
+    by_path["matern_score"].update({f"fleet:{what}": n for what, n
+                                    in fleet_counts.items()})
+    by_path["matern_score"].update({f"table1:{what}": n for what, n
+                                    in table1_counts.items()})
     for run in MODEL_RUNS:
         for path, counts in model_phase(kernels, run).items():
             for name, n in counts.items():

@@ -289,7 +289,7 @@ def scenario_from_request(arch: str, gain_offset_db: float = 0.0,
     problem for that backbone, with the request's channel expressed as
     a dB offset from the calibrated operating point (e.g. a fading
     frame of the mMobile replay trace). The request decoder of the
-    streaming admission queue (``repro.runtime.stream``, not ported yet).
+    streaming admission queue (``repro_torch.runtime.stream``).
 
     ``arch`` covers the whole registry (:func:`request_archs`): the two
     CNN backbones plus every LM decoder config (``default_lm_problem``

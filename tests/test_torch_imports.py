@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor ``repro``, its entry points default to the card, and
-the kernel wrapper takes its plain version only for CPU tensors."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``benchmarks/table1_torch.py`` import neither ``jax`` nor ``repro``, its
+entry points default to the card, and the kernel wrapper takes its plain
+version only for CPU tensors."""
 import ast
 import os
 import pkgutil
@@ -16,7 +17,10 @@ import repro_torch
 from repro_torch.core import (BasicBO, BatchedBayesSplitEdge, BayesSplitEdge,
                               Scenario, WholeRunBayesSplitEdge,
                               default_vgg19_problem, run_packed_shards)
+from repro_torch.baselines import PPOBaseline
 from repro_torch.kernels.matern_score import matern_score, matern_score_ref
+from repro_torch.runtime.fleet import (FleetWorker, SimTransport, sim_fleet,
+                                       socket_fleet)
 from repro_torch.runtime.stream import StreamingBayesSplitEdge
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -69,7 +73,9 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "benchmarks" /
+                                        "table1_torch.py"]
 
 
 def test_scan_covers_the_whole_run_engine_bank_and_checkpoints():
@@ -86,6 +92,40 @@ def test_scan_covers_the_streaming_server():
     assert {"repro_torch.runtime.stream", "repro_torch.runtime.chaos",
             "repro_torch.wireless.traces",
             "repro_torch.distributed.fault_tolerance"} <= set(_port_modules())
+
+
+def test_scan_covers_the_fleet_the_baselines_and_table1():
+    names = {str(p.relative_to(ROOT)) for p in SCANNED}
+    assert {"src/repro_torch/runtime/fleet.py",
+            "src/repro_torch/baselines/__init__.py",
+            "src/repro_torch/baselines/ppo.py",
+            "src/repro_torch/baselines/cmaes.py",
+            "src/repro_torch/baselines/direct.py",
+            "src/repro_torch/baselines/exhaustive.py",
+            "src/repro_torch/baselines/greedy.py",
+            "src/repro_torch/baselines/random_search.py",
+            "benchmarks/table1_torch.py"} <= names
+    assert {"repro_torch.runtime.fleet", "repro_torch.baselines.ppo"} <= set(
+        _port_modules())
+
+
+def test_table1_torch_imports_with_jax_blocked():
+    """``benchmarks/table1_torch.py`` in a fresh interpreter with ``jax``
+    made unimportable loads no ``repro``/``jax`` module."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import benchmarks.table1_torch\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'repro' or m.startswith('repro.')\n"
+        "             or m.startswith('jax.'))\n"
+        "print('LOADED', bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LOADED []" in out.stdout
 
 
 @pytest.mark.parametrize("path", SCANNED,
@@ -113,9 +153,15 @@ def _vgg_batch():
     lambda: run_packed_shards(_vgg_batch(), n_shards=1),
     lambda: default_vgg19_problem().device_params(),
     lambda: StreamingBayesSplitEdge(_vgg_batch(), n_lanes=2),
+    lambda: sim_fleet(_vgg_batch(), n_workers=1, n_lanes=2),
+    lambda: FleetWorker("w0", SimTransport(["router", "w0"]), l_pad=37,
+                        budget_max=10),
+    lambda: socket_fleet(1),
+    lambda: PPOBaseline(default_vgg19_problem()),
 ], ids=["BayesSplitEdge", "BasicBO", "BatchedBayesSplitEdge",
         "WholeRunBayesSplitEdge", "run_packed_shards", "device_params",
-        "StreamingBayesSplitEdge"])
+        "StreamingBayesSplitEdge", "sim_fleet", "FleetWorker",
+        "socket_fleet", "PPOBaseline"])
 def test_default_device_raises_without_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
