@@ -9,18 +9,27 @@ port's batched engine; ``--device`` picks where the BO rows and PPO run
 Writes ``benchmarks/artifacts/table1_torch.json`` (the rows, with the
 card's name and power limit on a CUDA run), never the reference's
 ``table1.json``. Imports neither ``jax`` nor ``repro``.
+
+The figure scripts (``benchmarks/*_torch.py``) reuse its method makers
+(``bayes_split_edge``, ``basic_bo``, ``ppo``), ``run_method``,
+``figure_runs`` (Figs 6 and 7 from a sequential table's runs),
+``card``, and the answer helpers ``deviations``/``differences``,
+``normalized`` and ``finals_recorded``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
+import re
 import subprocess
+from unittest import mock
 
 import torch
 
-from benchmarks.common import Timer, save_json
+from benchmarks.common import Timer, _np_default, save_json
 from repro_torch.baselines import (CMAES, ComputeFirst, DirectSearch,
                                    ExhaustiveSearch, PPOBaseline,
                                    RandomSearch, TransmitFirst)
@@ -65,37 +74,78 @@ PAPER_ROWS = {
 }
 
 
+def bayes_split_edge(device="cuda", batched=False, budget=20):
+    """``make(problem)`` for Bayes-Split-Edge: ``BayesSplitEdge``, or one
+    scenario through the batched engine."""
+    if batched:
+        return lambda pb: _BatchedRunner(pb, budget=budget, device=device)
+    return lambda pb: BayesSplitEdge(pb, budget=budget, device=device)
+
+
+def basic_bo(device="cuda", batched=False, budget=48):
+    """``make(problem)`` for Basic-BO (``BASIC_BO_KW``), sequential or
+    through the batched engine."""
+    if batched:
+        return lambda pb: _BatchedRunner(pb, budget=budget, device=device,
+                                         config=EngineConfig(**BASIC_BO_KW))
+    return lambda pb: BasicBO(pb, budget=budget, device=device)
+
+
+def ppo(device="cuda", draws=None):
+    """``make(problem)`` for PPO; ``draws`` (``PPOBaseline.run``'s)
+    replaces its own."""
+    class _PPO(PPOBaseline):
+        def run(self, seed=0):
+            return super().run(seed, draws=draws)
+
+    return lambda pb: _PPO(pb, device=device)
+
+
 def algorithms(batched: bool = False, device="cuda", ppo_draws=None):
     """``(name, make(problem) -> runner)`` for the nine rows, in the
     table's order; ``ppo_draws`` (``PPOBaseline.run``'s ``draws``)
     replaces PPO's own."""
-    if batched:
-        mk_ours = lambda pb: _BatchedRunner(  # noqa: E731
-            pb, budget=20, device=device)
-        mk_basic = lambda pb: _BatchedRunner(  # noqa: E731
-            pb, budget=48, device=device,
-            config=EngineConfig(**BASIC_BO_KW))
-    else:
-        mk_ours = lambda pb: BayesSplitEdge(  # noqa: E731
-            pb, budget=20, device=device)
-        mk_basic = lambda pb: BasicBO(pb, budget=48,  # noqa: E731
-                                      device=device)
-
-    class _PPO(PPOBaseline):
-        def run(self, seed=0):
-            return super().run(seed, draws=ppo_draws)
-
     return [
-        ("Bayes-Split-Edge (Ours)", mk_ours),
-        ("Basic-BO", mk_basic),
+        ("Bayes-Split-Edge (Ours)", bayes_split_edge(device, batched)),
+        ("Basic-BO", basic_bo(device, batched)),
         ("Exhaustive Search", lambda pb: ExhaustiveSearch(pb, n_power=1001)),
         ("Direct Search", lambda pb: DirectSearch(pb)),
         ("CMA-ES", lambda pb: CMAES(pb)),
         ("Random Search", lambda pb: RandomSearch(pb)),
-        (PPO_ROW, lambda pb: _PPO(pb, device=device)),
+        (PPO_ROW, ppo(device, ppo_draws)),
         ("Transmit-First", lambda pb: TransmitFirst(pb)),
         ("Compute-First", lambda pb: ComputeFirst(pb)),
     ]
+
+
+# the rows Figs 6 and 7 run with Table 1's very calls (seed 0, the same
+# budgets), by the figures' names: their runs can be taken from a
+# sequential Table 1 instead of being run again
+FIGURE_NAMES = {"Bayes-Split-Edge (Ours)": "Bayes-Split-Edge",
+                "Basic-BO": "Basic-BO", "Direct Search": "Direct Search",
+                PPO_ROW: PPO_ROW}
+
+
+def run_method(make, seed: int = 0, device="cuda"):
+    """One method on a fresh ``default_vgg19_problem()``: ``(problem,
+    BOResult, wall seconds)``, the card synchronised before the clock
+    stops."""
+    pb = default_vgg19_problem()
+    with Timer() as tm:
+        res = make(pb).run(seed=seed)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+    return pb, res, tm.s
+
+
+def figure_runs(algos, seed: int = 0, device="cuda", table1=None) -> dict:
+    """``{name: (problem, BOResult)}`` for a figure's ``(name, make)``
+    methods. ``table1`` (``table()``'s sequential rows) gives the runs of
+    the methods in ``FIGURE_NAMES``, which are then not run again."""
+    shared = {FIGURE_NAMES[name]: (pb, res)
+              for name, pb, res, _ in (table1 or ()) if name in FIGURE_NAMES}
+    return {name: shared.get(name) or run_method(mk, seed, device)[:2]
+            for name, mk in algos}
 
 
 def answers(name, pb, res) -> dict:
@@ -174,17 +224,77 @@ def table(seed: int = 0, batched: bool = False, device="cuda",
           ppo_draws=None, rows=None):
     """Run the rows (all nine, or the names in ``rows``); returns
     ``[(name, problem, BOResult, wall seconds)]`` in the table's order."""
-    out = []
-    for name, mk in algorithms(batched, device, ppo_draws):
-        if rows is not None and name not in rows:
-            continue
-        pb = default_vgg19_problem()
-        with Timer() as tm:
-            res = mk(pb).run(seed=seed)
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        out.append((name, pb, res, tm.s))
-    return out
+    return [(name, *run_method(mk, seed, device))
+            for name, mk in algorithms(batched, device, ppo_draws)
+            if rows is None or name in rows]
+
+
+def deviations(got, want, path="") -> dict:
+    """Where the JSON-like ``got`` is not ``want``: ``{path: largest
+    |got - want|}`` over the numbers that differ (NaN equals NaN), and
+    ``inf`` where the structure, a string, a bool or None differs. A path
+    is ``key/index/...`` with each list index written ``*``."""
+    here = re.sub(r"/\d+(?=/|$)", "/*", path) or "/"
+    if isinstance(want, dict) or isinstance(want, (list, tuple)):
+        keys = (list(want) if isinstance(want, dict)
+                else range(len(want)))
+        same = (isinstance(got, dict) and set(got) == set(want)
+                if isinstance(want, dict) else
+                isinstance(got, (list, tuple)) and len(got) == len(want))
+        if not same:
+            return {here: math.inf}
+        out = {}
+        for k in keys:
+            for p, d in deviations(got[k], want[k], f"{path}/{k}").items():
+                out[p] = max(out.get(p, 0.0), d)
+        return out
+    number = (int, float)
+    if (isinstance(want, bool) or not isinstance(want, number)
+            or isinstance(got, bool) or not isinstance(got, number)):
+        return {} if type(got) is type(want) and got == want else {
+            here: math.inf}
+    if got == want or (math.isnan(got) and math.isnan(want)):
+        return {}
+    return {here: abs(got - want)}
+
+
+def differences(got, want, tol=None) -> list:
+    """The paths of ``deviations`` beyond their tolerance: ``tol`` maps
+    a path (a regular expression, searched) to the largest deviation
+    allowed there; every other path must be equal."""
+    return sorted(p for p, d in deviations(got, want).items()
+                  if not d <= next((t for pat, t in (tol or {}).items()
+                                    if re.search(pat, p)), 0.0))
+
+
+@contextlib.contextmanager
+def finals_recorded(bo_module):
+    """Record the final split layer (-1: none found), quantized accuracy,
+    feasibility and evaluation count of every BO run that ``bo_module.ScenarioState``
+    finishes in the block, in the order they finish: the sequential and
+    the batched engine of either package (``bo_module`` is
+    ``repro_torch.core.bo`` or the reference's ``repro.core.bo``). Yields
+    the list."""
+    seen = []
+    result = bo_module.ScenarioState.result
+
+    def recorded(state):
+        res = result(state)
+        found = res.best_a is not None
+        seen.append(dict(
+            split_layer=int(state.pb.denormalize(res.best_a)[0]) if found
+            else -1, best_accuracy=float(res.best_accuracy), feasible=found,
+            n_evals=int(res.n_evals)))
+        return res
+
+    with mock.patch.object(bo_module.ScenarioState, "result", recorded):
+        yield seen
+
+
+def normalized(obj):
+    """``obj`` as JSON gives it back (tuples as lists, numpy scalars as
+    Python numbers): the form the expected files hold."""
+    return json.loads(json.dumps(obj, default=_np_default))
 
 
 def card() -> dict:
@@ -219,13 +329,13 @@ def run(seed: int = 0, batched: bool = False, device="cuda"):
     return rows
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--batched", action="store_true",
                     help="route the BO rows through the batched engine")
     ap.add_argument("--device", default="cuda",
                     help="where the BO rows and PPO run (default: cuda)")
-    args, _ = ap.parse_known_args()
+    args, _ = ap.parse_known_args(argv)
     rows = run(batched=args.batched, device=args.device)
     hdr = (f"{'algorithm':26s} {'evals':>6s} {'l':>3s} {'P(W)':>6s} "
            f"{'acc%':>6s} {'E(J)':>6s} {'tau(s)':>6s} {'wall(s)':>8s} "

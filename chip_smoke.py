@@ -35,7 +35,8 @@ Phases, each of which raises on failure (non-zero exit):
    L2 size) and ``rwkv6_scan`` (RWKV6-3B's
    shapes in f32 and bf16, the reference's cases and a ragged hd 100,
    the state written in place, twice bit for bit, with its plan, blocks
-   an SM and waves; its hd-160 build must not spill);
+   an SM and waves, timed cold as well as warm; its hd-160 build must
+   not spill);
 3. the sequential engine, ``BayesSplitEdge(default_vgg19_problem(),
    budget=20).run(seed=0)``, must reach 87.5 % at split layer 7;
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
@@ -82,14 +83,40 @@ Phases, each of which raises on failure (non-zero exit):
    trace: every request exactly once, the deadline hit rate at least 0.9
    of the fault-free fleet's, the served answers the fault-free fleet's
    bit for bit;
-4e. Table 1 (``benchmarks/table1_torch.py``): the nine methods,
-   sequential and with the BO rows through the batched engine, each row
-   with its wall time, held to the reference's rows
-   (``tests/data/torch_table1_expected.json``): the host searches
-   exactly, Bayes-Split-Edge and Basic-BO at parity level 3, PPO on the
-   reference's ``jax.random`` draws (every evaluation's split layer and
-   feasibility bit, the best accuracy, every power within
-   ``PPO_POWER_TOL``);
+4e. Table 1 (``benchmarks/table1_torch.py``): the nine methods
+   sequentially and the two BO rows through the batched engine (the
+   seven host and PPO rows are the same code in both modes, so only the
+   sequential mode runs them), each row with its wall time, held to the
+   reference's rows (``tests/data/torch_table1_expected.json``): the
+   host searches exactly, Bayes-Split-Edge and Basic-BO at parity level
+   3, PPO on the reference's ``jax.random`` draws (every evaluation's
+   split layer and feasibility bit, the best accuracy, every power
+   within ``PPO_POWER_TOL``);
+4f. the paper's figures (``benchmarks/*_torch.py``), a ``figure`` line
+   each (wall time, BO runs, evaluations, synchronisations, posterior
+   launches and their (S, N, n), mismatches and deviations), each held
+   by its script's ``mismatches`` to the reference's answers
+   (``tests/data/torch_figures_{paper,regret,ablation}_expected.json``):
+   Figs 2-4 (host numbers); Figs 6 and 7 built from 4e's sequential
+   runs (the same calls) with their host-only methods, grid and band,
+   Basic-BO's steps held at parity level 3 (it leaves the reference's
+   path of evaluations on the card; ``CARD_LEVEL3``);
+   Fig 8 ``--mixed-arch``, Fig 9 ``--batched`` and Fig 10 ``--batched``
+   at the reference's default seeds (3, 3, 10); trace robustness (5
+   frames). The figures' sequential modes are held on the CPU only
+   (``tests/test_torch_figures_{regret,ablation}.py``);
+4g. VGG19 at full width (``models/vgg.py``: 1000 classes, 224 x 224 x
+   3, float32, 143.7 M parameters from ``torch.Generator`` seed 0, one
+   seeded image, cuDNN deterministic): ``split_forward`` at every split
+   0..37 equal to the unsplit forward bit for bit, its boundary bytes
+   the profile's ``activation_bytes(l)``, the logits at l = 7 within
+   ``VGG_LOGIT_TOL`` of a float64 forward on the host, and a BO run with
+   the real VGG19 as executor equal to phase 3's run bit for bit (the
+   executor called once an evaluation at the ledger's (l, p), the
+   posterior launched as often as in phase 3); a ``vgg`` line (BO and
+   executor seconds, per split the device half, hop and server half ms
+   and the boundary bytes) and a ``profile`` line of one forward at
+   l = 7 beside its bound;
 5. for each of Qwen2-1.5B, RecurrentGemma-2B and RWKV6-3B at full width
    (bf16, weights from ``torch.Generator`` seed 0), one model at a time:
    split serving, where ``SplitRunner`` at four splits must equal the
@@ -105,11 +132,12 @@ Phases, each of which raises on failure (non-zero exit):
    on a float32 copy of the model.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
-whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e, and
-each model's split, serving and generation runs) and read just after:
+whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
+each figure of 4f, the executor run of 4g, and each model's split,
+serving and generation runs) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
-kernel never, and the plain versions never. In phases 3, 4, 4b-4e
+kernel never, and the plain versions never. In phases 3, 4, 4b-4g
 and the serving runs every block scoring is one posterior launch (in
 4c and 4d, one a 16-lane chunk of an acquisition iteration), whose
 (S, N, n) is logged, with no triangular solve beside it; every main-path
@@ -767,7 +795,7 @@ def sequential_phase(core, kernels):
         raise AssertionError(f"sequential run missed the optimum: "
                              f"{res.best_accuracy} at layer {layer}")
     check_block_scoring("sequential", seen, counts, plain, kernels)
-    return counts
+    return counts, res
 
 
 def batched_scenarios(core):
@@ -1547,20 +1575,25 @@ TABLE1_EXPECTED = ROOT / "tests" / "data" / "torch_table1_expected.json"
 
 def table1_phase(kernels):
     """Phase 4e: the nine rows of Table 1 on the card
-    (``benchmarks/table1_torch.py``), sequential and batched, each held
-    to the reference's row by ``table1_torch.mismatches`` (the host rows
-    exactly, the BO rows at parity level 3, PPO on the reference's draws
-    within ``PPO_POWER_TOL``), with its wall time. On the BO rows every
-    block scoring is one posterior launch with no triangular solve; the
-    other rows launch no kernel. Returns the BO rows' matern_score
-    launches."""
+    (``benchmarks/table1_torch.py``) sequentially, and the two BO rows
+    through the batched engine (the seven other rows are the same code in
+    both modes), each held to the reference's row by
+    ``table1_torch.mismatches`` (the host rows exactly, the BO rows at
+    parity level 3, PPO on the reference's draws within
+    ``PPO_POWER_TOL``), with its wall time. On the BO rows every block
+    scoring is one posterior launch with no triangular solve; the other
+    rows launch no kernel. Returns the BO rows' matern_score launches and
+    the sequential rows (``table1_torch.table``'s), from which phase 4f
+    builds Figs 6 and 7."""
     from benchmarks import table1_torch as t1
 
     t_phase = time.perf_counter()
     want = json.loads(TABLE1_EXPECTED.read_text())
-    by_run = {}
+    by_run, sequential = {}, []
     for mode in ("sequential", "batched"):
         for name in want["rows"]:
+            if mode == "batched" and name not in t1.BO_ROWS:
+                continue
             what = f"{mode}: {name}"
             kernels.reset_launch_counts()
             with plain_calls_counted() as plain, \
@@ -1569,6 +1602,8 @@ def table1_phase(kernels):
                     want["seed"], batched=mode == "batched", device=DEVICE,
                     ppo_draws=want["ppo_draws"], rows=[name])
             counts = kernels.launch_counts()
+            if mode == "sequential":
+                sequential.append((name, pb, res, wall))
             got = t1.answers(name, pb, res)
             ref = next(r for r in want[mode] if r["algorithm"] == name)
             bad = t1.mismatches(got, ref)
@@ -1602,7 +1637,280 @@ def table1_phase(kernels):
                                      f"plain versions {plain}")
     log("table1_phase", json.dumps(dict(
         seconds=time.perf_counter() - t_phase, launches_by_run=by_run)))
+    return by_run, sequential
+
+
+# --------------------------------------------------------------------------
+# phase 4f: the paper's figures
+# --------------------------------------------------------------------------
+
+# the reference's answers, written and held to the reference by
+# tests/test_torch_figures_{paper,regret,ablation}.py
+FIGURES_EXPECTED = {name: ROOT / "tests" / "data" /
+                    f"torch_figures_{name}_expected.json"
+                    for name in ("paper", "regret", "ablation")}
+
+
+def figure_run(kernels, what, run, bo=True):
+    """One figure's run with the launch counters zeroed around it: its
+    output, every BO run's final (``finals_recorded``) and a dict of
+    wall seconds, evaluations, synchronisations and launches. A BO
+    figure's block scorings are each one posterior launch with no
+    triangular solve and no plain version; a host figure launches
+    nothing."""
+    from benchmarks import table1_torch as t1
+    from repro_torch.core import bo as bo_mod
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plain, block_scoring_watched() as seen, \
+            syncs_counted() as syncs, t1.finals_recorded(bo_mod) as finals:
+        out = run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    stats = dict(wall_s=wall, bo_runs=len(finals),
+                 evaluations=sum(f["n_evals"] for f in finals),
+                 syncs=syncs["n"], posterior_launches=counts["matern_score"],
+                 block_scoring=seen, launches=counts)
+    if bo:
+        if counts["matern_score"] == 0:
+            raise AssertionError(f"figure {what}: no posterior launch")
+        check_block_scoring(f"figure {what}", seen, counts, plain, kernels)
+    elif any(counts.values()) or any(plain.values()):
+        raise AssertionError(f"figure {what}: launched {counts}, plain "
+                             f"versions {plain}")
+    return out, finals, stats
+
+
+def figures_phase(kernels, table1_rows):
+    """Phase 4f: the paper's figures on the card, each held to the
+    reference's answers by its script's ``mismatches``, a ``figure``
+    line each: Figs 2-4 (host numbers); Figs 6 and 7 built from phase
+    4e's sequential Table 1 runs (``table1_rows``: the same calls), with
+    their host-only methods, grid and band run here; Fig 8
+    ``--mixed-arch``, Fig 9 ``--batched`` and Fig 10 ``--batched`` at the
+    reference's default seeds (3, 3, 10); trace robustness (5 frames).
+    The sequential modes of Figs 8-10 are held on the CPU only
+    (``tests/test_torch_figures_{regret,ablation}.py``). Every line is
+    logged before a figure that disagrees fails the phase. Returns the
+    posterior launches by figure."""
+    from benchmarks import fig6_convergence_torch as fig6
+    from benchmarks import fig7_space_torch as fig7
+    from benchmarks import fig8_regret_torch as fig8
+    from benchmarks import fig9_ablation_torch as fig9
+    from benchmarks import fig10_seeds_torch as fig10
+    from benchmarks import profiling_torch as profiling
+    from benchmarks import table1_torch as t1
+    from benchmarks import trace_robustness_torch as trace
+
+    t_phase = time.perf_counter()
+    paper = json.loads(FIGURES_EXPECTED["paper"].read_text())
+    regret = json.loads(FIGURES_EXPECTED["regret"].read_text())
+    ablation = json.loads(FIGURES_EXPECTED["ablation"].read_text())
+    draws = json.loads(TABLE1_EXPECTED.read_text())["ppo_draws"]
+    # (name, module, run, expected answers, answers takes the finals,
+    # BO runs inside the run); Figs 6 and 7 take their rule's card form
+    # (``fig6_convergence_torch.CARD_LEVEL3``)
+    figures = [
+        ("fig2-4", profiling, profiling.run, paper["profiling"], False,
+         False),
+        ("fig6", fig6, lambda: fig6.run(0, DEVICE, draws, table1_rows),
+         paper["fig6"], False, False),
+        ("fig7", fig7, lambda: fig7.run(0, DEVICE, draws, table1_rows),
+         paper["fig7"], False, False),
+        ("fig8 --mixed-arch", fig8,
+         lambda: fig8.run(regret["mixed_arch"]["seeds"], mixed_arch=True,
+                          device=DEVICE),
+         regret["mixed_arch"]["answers"], True, True),
+        ("fig9 --batched", fig9,
+         lambda: fig9.run(ablation["fig9"]["batched"]["seeds"],
+                          batched=True, device=DEVICE),
+         ablation["fig9"]["batched"]["answers"], True, True),
+        ("fig10 --batched", fig10,
+         lambda: fig10.run(ablation["fig10"]["batched"]["seeds"],
+                           batched=True, device=DEVICE),
+         ablation["fig10"]["batched"]["answers"], True, True),
+        ("trace_robustness", trace, lambda: trace.run(device=DEVICE),
+         paper["trace_robustness"], False, True),
+    ]
+    by_run, failed = {}, {}
+    for what, mod, run, want, with_finals, bo in figures:
+        out, finals, stats = figure_run(kernels, what, run, bo)
+        got = mod.answers(out, finals) if with_finals else mod.answers(out)
+        bad = (mod.mismatches(got, want, on_card=True)
+               if mod in (fig6, fig7) else mod.mismatches(got, want))
+        log("figure", json.dumps(dict(
+            figure=what, **stats, mismatches=bad,
+            tolerances=getattr(mod, "TOL", {}),
+            deviations=t1.deviations(got, want),
+            bo_runs_from="phase 4e (table1 sequential)"
+            if what in ("fig6", "fig7") else "this run")))
+        if bad:
+            failed[what] = bad
+        if bo:
+            by_run[what] = stats["posterior_launches"]
+    log("figures_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, launches_by_run=by_run)))
+    if failed:
+        raise AssertionError(f"figures not held to the reference's "
+                             f"answers: {failed}")
     return by_run
+
+
+# --------------------------------------------------------------------------
+# phase 4g: VGG19 at full width
+# --------------------------------------------------------------------------
+
+VGG_CLASSES = 1000
+VGG_PROFILED_SPLIT = 7
+# the card's float32 logits (TF32 off) against the same weights' float64
+# forward on the CPU: the reference's own split-vs-full tolerance
+VGG_LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def vgg_split_times(vgg, params, img, l):
+    """Device ms of each part of ``split_forward`` at split ``l``: the
+    device half, the hop and the server half (classifier included), the
+    card synchronised around each; with the logits and the payload's
+    bytes."""
+    marks = [time.perf_counter()]
+    act = vgg.vgg19_features(params, img, 0, l)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    received, nbytes = vgg.wireless_hop(act)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    logits = vgg.vgg19_classifier(params,
+                                  vgg.vgg19_features(params, received, l, 37))
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    device_ms, hop_ms, server_ms = (1e3 * (b - a)
+                                    for a, b in zip(marks, marks[1:]))
+    return logits, nbytes, dict(l=l, device_half_ms=device_ms, hop_ms=hop_ms,
+                                server_half_ms=server_ms,
+                                boundary_bytes=nbytes)
+
+
+def vgg_phase(core, kernels, seq_counts, seq_res):
+    """Phase 4g: VGG19 (``models/vgg.py``) at full width, 1000 classes,
+    224 x 224 x 3, float32, weights from ``torch.Generator`` seed 0, one
+    seeded image (batch 1), cuDNN deterministic. ``split_forward`` at
+    every split 0..37 equals the unsplit forward bit for bit and ships
+    the profile's ``activation_bytes(l)``; the logits at l = 7 lie
+    within VGG_LOGIT_TOL of the same weights' float64 forward on the
+    CPU; ``BayesSplitEdge(default_vgg19_problem(executor=make_executor(
+    ...)), budget=20).run(seed=0)`` gives phase 3's answers bit for bit,
+    calls the executor once an evaluation at the ledger's (l, p) and
+    launches the posterior as often as phase 3. Logs a ``vgg`` line (BO
+    and executor seconds; per split the device half, hop and server half
+    ms and the boundary bytes) and a ``profile`` line of one forward at
+    l = 7 beside its bound. Returns the run's launch counts."""
+    from repro_torch.configs.cnn import get_cnn_config
+    from repro_torch.models import vgg
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    cfg = get_cnn_config("vgg19-imagenet-mini")
+    params = vgg.init_vgg19(torch.Generator(DEVICE).manual_seed(0),
+                            n_classes=VGG_CLASSES, device=DEVICE)
+    leaves = [t for pair in params["convs"] + params["fcs"] for t in pair]
+    n_params = sum(t.numel() for t in leaves)
+    img = 0.1 * torch.randn((1, 224, 224, 3), device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(1))
+    with torch.no_grad():
+        full = vgg.vgg19_classifier(params, vgg.vgg19_features(params, img))
+        splits = []
+        for l in range(38):
+            logits, nbytes, row = vgg_split_times(vgg, params, img, l)
+            again, nbytes2 = vgg.split_forward(params, img, l)
+            want = int(cfg.activation_bytes(l))
+            if not (torch.equal(logits, full) and torch.equal(again, full)):
+                raise AssertionError(f"vgg19 split at {l} differs from the "
+                                     "unsplit forward")
+            if not nbytes == nbytes2 == want:
+                raise AssertionError(f"vgg19 split at {l}: {nbytes} boundary "
+                                     f"bytes, the profile says {want}")
+            splits.append(row)
+        cpu = {k: [tuple(t.to("cpu", torch.float64) for t in pair)
+                   for pair in v] for k, v in params.items()}
+        ref64, _ = vgg.split_forward(cpu, img.to("cpu", torch.float64),
+                                     VGG_PROFILED_SPLIT)
+        at_split = next(r for r in splits if r["l"] == VGG_PROFILED_SPLIT)
+        got64 = full.to("cpu", torch.float64)
+        err = float((got64 - ref64).abs().max())
+        if not torch.allclose(got64, ref64, **VGG_LOGIT_TOL):
+            raise AssertionError(f"vgg19 logits at l={VGG_PROFILED_SPLIT} "
+                                 f"are {err} from the float64 forward")
+        del cpu
+        calls, spent = [], [0.0]
+        run_real = vgg.make_executor(params, img)
+
+        def executor(l, p_w):
+            calls.append((l, p_w))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_real(l, p_w)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+
+        pb = core.default_vgg19_problem(executor=executor)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_calls_counted() as plain, block_scoring_watched() as seen:
+            res = core.BayesSplitEdge(pb, budget=20).run(seed=0)
+        torch.cuda.synchronize()
+        bo_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check_block_scoring("vgg executor run", seen, counts, plain, kernels)
+    if counts != seq_counts:
+        raise AssertionError(f"vgg executor run launched {counts}, phase 3 "
+                             f"{seq_counts}")
+    if calls != [(h.l, h.p_w) for h in pb.history] or len(calls) != \
+            res.n_evals:
+        raise AssertionError(f"vgg executor called {len(calls)} times for "
+                             f"{res.n_evals} evaluations, or off the ledger")
+    same = (res.n_evals == seq_res.n_evals
+            and res.accuracies == seq_res.accuracies
+            and res.utilities == seq_res.utilities
+            and res.feasible == seq_res.feasible
+            and res.incumbent_trace == seq_res.incumbent_trace
+            and np.array_equal(res.best_a, seq_res.best_a))
+    layer, p_w = pb.denormalize(res.best_a)
+    log("vgg", json.dumps(dict(
+        classes=VGG_CLASSES, params=n_params,
+        weight_bytes=sum(t.numel() * t.element_size() for t in leaves),
+        cudnn_deterministic=torch.backends.cudnn.deterministic,
+        splits_equal_unsplit=len(splits), logits_vs_float64=dict(
+            split=VGG_PROFILED_SPLIT, max_abs_err=err, **VGG_LOGIT_TOL),
+        bo_s=bo_s, executor_s=spent[0], executor_calls=len(calls),
+        n_evals=res.n_evals, layer=layer, p_w=p_w,
+        best_accuracy=res.best_accuracy, equals_phase3=same,
+        launches=counts, block_scoring=seen, per_split=splits,
+        device_half_ms_at_split=at_split["device_half_ms"])))
+    if not same:
+        raise AssertionError("the vgg executor run's answers are not phase "
+                             "3's")
+    # one forward at l = 7: its bound is the larger of its MACs (the 40
+    # layers of the profile, 2 operations each) at the f32 peak and its
+    # bytes (the weights, the image and the logits) at the HBM rate
+    macs = sum(layer.macs for layer in cfg.layers)
+    nbytes = (sum(t.numel() * t.element_size() for t in leaves)
+              + img.numel() * 4 + VGG_CLASSES * 4)
+    bound_ms, bound_by, terms = bound(nbytes, 2 * macs)
+    with torch.no_grad():
+        profile_calls("vgg19", f"split_forward_l{VGG_PROFILED_SPLIT}",
+                      lambda: vgg.split_forward(params, img,
+                                                VGG_PROFILED_SPLIT),
+                      10, {}, extra=dict(macs=macs, bytes=nbytes,
+                                         bound_ms=bound_ms,
+                                         bound_by=bound_by,
+                                         bound_terms=terms))
+    torch.backends.cudnn.deterministic = False
+    del params, leaves
+    torch.cuda.empty_cache()
+    log("vgg_phase", json.dumps(dict(seconds=time.perf_counter() - t_phase)))
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1896,7 +2204,8 @@ def rglru_phase(kernels):
 def rwkv6_phase(kernels):
     """Each RWKV_SHAPES row against the plain version, twice bit for bit,
     in place as out of place, with the kernel's plan (``scan_plan``), the
-    blocks an SM holds and the waves its grid needs on this card."""
+    blocks an SM holds and the waves its grid needs on this card; timed
+    warm (``ms``) and cold (``ms_cold``, ``cold_ms``)."""
     from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
     from repro_torch.kernels.rwkv6_scan.ops import scan_plan
 
@@ -1938,6 +2247,7 @@ def rwkv6_phase(kernels):
         waves = -(-plan.blocks // (per_sm * sms))
         ms = median_ms(dict(plain=lambda: kernels.rwkv6_scan_ref(*args),
                             kernel=lambda: kernels.rwkv6_scan(*args)), ())
+        ms_cold = cold_ms(kernels.rwkv6_scan, cold_copies(args))
         # per (b, t, h): each state element takes k v (1), w S + k v (2)
         # and r S + acc (2); r . (u k) 3 hd and its v term 2 hd; one exp
         # per row
@@ -1951,8 +2261,9 @@ def rwkv6_phase(kernels):
                    rows_per_chain=plan.chain, chunk=plan.chunk,
                    grid=list(plan.grid), smem_bytes=plan.smem_bytes,
                    blocks_per_sm=per_sm, sms=sms, waves=waves,
-                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
-                   bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
+                   ms=ms["kernel"], ms_cold=ms_cold, plain_ms=ms["plain"],
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_terms=terms)
         log("rwkv6_scan", json.dumps(row))
         if (B, H, hd) == (2, 16, 160) and (per_sm < 2 or waves != 1):
             raise AssertionError(
@@ -2201,7 +2512,7 @@ def profiled(fn, n):
     return busy, counts, by_name
 
 
-def profile_calls(arch, path, fn, n, launches):
+def profile_calls(arch, path, fn, n, launches, extra=None):
     """Host ms per call (CUDA-synchronised, no profiler), then the device
     time per call by kernel class from ``torch.profiler`` over another n
     calls; the idle share is 1 - device busy / host time. ``launches``
@@ -2209,7 +2520,7 @@ def profile_calls(arch, path, fn, n, launches):
     profile must hold exactly that many CUDA kernels of each port kernel
     a call. Where the profiler dropped events, the path is profiled again
     with half the calls, at most PROFILE_RETRIES times; a line that is
-    still short raises."""
+    still short raises. ``extra`` joins the logged line."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2245,7 +2556,7 @@ def profile_calls(arch, path, fn, n, launches):
         device_ms_by_class=busy,
         kernels_per_call={c: k / n for c, k in counts.items()},
         port_kernels_per_call=want, short_tries=short,
-        top_kernels_ms=dict(top))))
+        top_kernels_ms=dict(top), **(extra or {}))))
 
 
 def profile_phase(run, cfg, model):
@@ -2475,7 +2786,7 @@ def main() -> int:
     rwkv_rows = rwkv6_phase(kernels)
 
     # phases 3 and 4: the BO engines
-    seq_counts = sequential_phase(core, kernels)
+    seq_counts, seq_res = sequential_phase(core, kernels)
     bat_counts, _, _ = batched_phase(core, kernels)
     if seq_counts["matern_score"] == 0 or bat_counts["matern_score"] == 0:
         raise AssertionError(f"matern_score was not launched on the main "
@@ -2485,7 +2796,9 @@ def main() -> int:
     wr_counts = wholerun_phase(core, kernels)
     stream_counts, hetero_cold = stream_phase(core, kernels)
     fleet_counts = fleet_phase(core, kernels, hetero_cold)
-    table1_counts = table1_phase(kernels)
+    table1_counts, table1_rows = table1_phase(kernels)
+    figure_counts = figures_phase(kernels, table1_rows)
+    vgg_counts = vgg_phase(core, kernels, seq_counts, seq_res)
 
     # phase 5: the LMs at full width, bf16, one at a time
     by_path = {name: {} for name in libs}
@@ -2498,6 +2811,9 @@ def main() -> int:
                                     in fleet_counts.items()})
     by_path["matern_score"].update({f"table1:{what}": n for what, n
                                     in table1_counts.items()})
+    by_path["matern_score"].update({f"figures:{what}": n for what, n
+                                    in figure_counts.items()})
+    by_path["matern_score"]["vgg:executor run"] = vgg_counts["matern_score"]
     for run in MODEL_RUNS:
         for path, counts in model_phase(kernels, run).items():
             for name, n in counts.items():

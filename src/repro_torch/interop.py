@@ -11,7 +11,8 @@ both packages the same GP and constraint surface.
 
 :func:`model_from_reference` carries a ``repro`` model's parameter
 pytree (``transformer.init_model``) into the port's ``Transformer``,
-keeping each leaf's dtype. A JAX bfloat16 leaf arrives as numpy with
+keeping each leaf's dtype, and :func:`vgg19_from_reference` a VGG19's
+into ``models.vgg``'s layout. A JAX bfloat16 leaf arrives as numpy with
 dtype ``ml_dtypes.bfloat16``, which neither ``np.issubdtype(...,
 np.floating)`` nor ``torch.tensor`` accepts: it goes through float32,
 which holds every bfloat16 exactly, and back to ``torch.bfloat16``.
@@ -93,3 +94,19 @@ def model_from_reference(cfg, np_params, device):
                 put_tree(model.layers[layer], group[f"b{i}"],
                          take=r if reps > 1 else None)
     return model
+
+
+def vgg19_from_reference(np_params, device) -> dict:
+    """The reference's VGG19 parameters (``repro.models.vgg.init_vgg19``,
+    numpy leaves) as the port's ``models.vgg`` dict, float32 on
+    ``device``: each conv kernel from the reference's HWIO to
+    ``F.conv2d``'s (out, in, kh, kw), the fully-connected layers as they
+    are."""
+    def put(a, axes=None):
+        a = np.asarray(a, np.float32)
+        return torch.tensor(np.ascontiguousarray(
+            a if axes is None else a.transpose(axes))).to(device)
+
+    return {"convs": [(put(w, (3, 2, 0, 1)), put(b))
+                      for w, b in np_params["convs"]],
+            "fcs": [(put(w), put(b)) for w, b in np_params["fcs"]]}

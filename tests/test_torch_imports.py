@@ -1,12 +1,15 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``benchmarks/table1_torch.py`` import neither ``jax`` nor ``repro``, its
-entry points default to the card, and the kernel wrapper takes its plain
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the
+port's benchmark scripts (``benchmarks/*_torch.py``) and examples
+(``examples/*_torch.py``) import neither ``jax`` nor ``repro``, its entry
+points default to the card, and the kernel wrapper takes its plain
 version only for CPU tensors."""
 import ast
 import os
 import pkgutil
+import runpy
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -22,8 +25,17 @@ from repro_torch.kernels.matern_score import matern_score, matern_score_ref
 from repro_torch.runtime.fleet import (FleetWorker, SimTransport, sim_fleet,
                                        socket_fleet)
 from repro_torch.runtime.stream import StreamingBayesSplitEdge
+from repro_torch.models.vgg import init_vgg19
+from benchmarks import (fig6_convergence_torch, fig7_space_torch,
+                        fig8_regret_torch, fig9_ablation_torch,
+                        fig10_seeds_torch, run_torch, table1_torch,
+                        trace_robustness_torch)
 
 ROOT = Path(__file__).resolve().parents[1]
+quickstart_torch, serve_split_torch = (
+    types.SimpleNamespace(**runpy.run_path(str(ROOT / "examples" / name)))
+    for name in ("quickstart_torch.py", "serve_split_torch.py"))
+
 PORT = ROOT / "src" / "repro_torch"
 
 
@@ -73,9 +85,11 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "benchmarks" /
-                                        "table1_torch.py"]
+PORT_SCRIPTS = (sorted((ROOT / "benchmarks").glob("*_torch.py"))
+                + [ROOT / "benchmarks" / "run_torch.py"]
+                + sorted((ROOT / "examples").glob("*_torch.py")))
+SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    PORT_SCRIPTS
 
 
 def test_scan_covers_the_whole_run_engine_bank_and_checkpoints():
@@ -107,6 +121,44 @@ def test_scan_covers_the_fleet_the_baselines_and_table1():
             "benchmarks/table1_torch.py"} <= names
     assert {"repro_torch.runtime.fleet", "repro_torch.baselines.ppo"} <= set(
         _port_modules())
+
+
+def test_scan_covers_the_figures_vgg19_and_the_examples():
+    names = {str(p.relative_to(ROOT)) for p in SCANNED}
+    assert {"src/repro_torch/models/vgg.py",
+            "benchmarks/profiling_torch.py",
+            "benchmarks/fig6_convergence_torch.py",
+            "benchmarks/fig7_space_torch.py",
+            "benchmarks/fig8_regret_torch.py",
+            "benchmarks/fig9_ablation_torch.py",
+            "benchmarks/fig10_seeds_torch.py",
+            "benchmarks/trace_robustness_torch.py",
+            "benchmarks/run_torch.py",
+            "examples/quickstart_torch.py",
+            "examples/serve_split_torch.py"} <= names
+    assert "repro_torch.models.vgg" in set(_port_modules())
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_script_imports_with_jax_blocked(path):
+    """Each port benchmark script and example, loaded in a fresh
+    interpreter with ``jax`` made unimportable, loads no ``repro``/``jax``
+    module (``run_path`` runs no ``__main__`` block)."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"runpy.run_path({str(path)!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'repro' or m.startswith('repro.')\n"
+        "             or m.startswith('jax.'))\n"
+        "print('LOADED', bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LOADED []" in out.stdout
 
 
 def test_table1_torch_imports_with_jax_blocked():
@@ -158,10 +210,31 @@ def _vgg_batch():
                         budget_max=10),
     lambda: socket_fleet(1),
     lambda: PPOBaseline(default_vgg19_problem()),
+    lambda: init_vgg19(),
+    lambda: table1_torch.run(),
+    lambda: fig6_convergence_torch.run(),
+    lambda: fig7_space_torch.run(),
+    lambda: fig8_regret_torch.run(),
+    lambda: fig8_regret_torch.run(batched=True),
+    lambda: fig8_regret_torch.run(mixed_arch=True),
+    lambda: fig9_ablation_torch.run(),
+    lambda: fig9_ablation_torch.run(batched=True),
+    lambda: fig10_seeds_torch.run(),
+    lambda: fig10_seeds_torch.run(batched=True),
+    lambda: trace_robustness_torch.run(),
+    lambda: run_torch.main(["fig10_seeds"]),
+    lambda: quickstart_torch.main([]),
+    lambda: serve_split_torch.main([]),
 ], ids=["BayesSplitEdge", "BasicBO", "BatchedBayesSplitEdge",
         "WholeRunBayesSplitEdge", "run_packed_shards", "device_params",
         "StreamingBayesSplitEdge", "sim_fleet", "FleetWorker",
-        "socket_fleet", "PPOBaseline"])
+        "socket_fleet", "PPOBaseline", "init_vgg19", "table1_torch",
+        "fig6_convergence_torch", "fig7_space_torch", "fig8_regret_torch",
+        "fig8_regret_torch-batched", "fig8_regret_torch-mixed_arch",
+        "fig9_ablation_torch", "fig9_ablation_torch-batched",
+        "fig10_seeds_torch", "fig10_seeds_torch-batched",
+        "trace_robustness_torch", "run_torch", "quickstart_torch",
+        "serve_split_torch"])
 def test_default_device_raises_without_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
