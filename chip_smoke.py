@@ -21,8 +21,9 @@ Phases, each of which raises on failure (non-zero exit):
    to the mean entry's bit for bit, its shared memory equal to
    ``posterior_plan``'s and, at the main path's rows, enough blocks an
    SM for one wave; its build must not spill),
-   ``flash_attention`` (bf16 at Qwen2-1.5B's
-   and RecurrentGemma-2B's heads, and the reference's kernel cases; bf16
+   ``flash_attention`` (bf16 at Qwen2-1.5B's,
+   RecurrentGemma-2B's, Qwen1.5-MoE-A2.7B's (16/16, hd 128) and Kimi
+   K2's (64/8, hd 112) heads, and the reference's kernel cases; bf16
    also against the plain emulation of its tiles), ``decode_attention``
    (also against the plain emulation of its splits, a row with no allowed
    slot among the shapes, and twice, bit for bit), both timed cold as
@@ -117,19 +118,29 @@ Phases, each of which raises on failure (non-zero exit):
    executor seconds, per split the device half, hop and server half ms
    and the boundary bytes) and a ``profile`` line of one forward at
    l = 7 beside its bound;
-5. for each of Qwen2-1.5B, RecurrentGemma-2B and RWKV6-3B at full width
-   (bf16, weights from ``torch.Generator`` seed 0), one model at a time:
-   split serving, where ``SplitRunner`` at four splits must equal the
-   unsplit forward bit for bit and ``launch.serve.main`` (budget 15) must
-   pick the split and power the CPU run picks; greedy decoding (a
+5. for each of Qwen2-1.5B, RecurrentGemma-2B, RWKV6-3B and
+   Qwen1.5-MoE-A2.7B at full width (bf16, weights from
+   ``torch.Generator`` seed 0), one model at a time:
+   split serving, where ``launch.serve.main`` (budget 15, with its own
+   model, built and freed before the phase's) must
+   pick the split and power the CPU run picks and ``SplitRunner`` at four
+   splits must equal the unsplit forward bit for bit; greedy decoding (a
    B 2 x 512 prompt, 32 new tokens, ``max_seq`` 1024); where the time
    goes (``torch.profiler``: device time by kernel class and the idle
    share) in one split-serving forward, one prefill and one decode step,
    each line holding exactly the port's CUDA kernels ``MODEL_RUNS`` says
    (a line that lost events is profiled again over fewer calls, at most
-   twice, and then fails);
+   twice, and then fails); for the MoE model a ``moe`` line a path (the
+   split-serving forward, the full forward, the prefill, one decode
+   step: assignments, capacity, dropped assignments in total and at the
+   worst layer, the largest expert load, the summed aux loss, and the MoE
+   layers' device ms: expert products, shared experts, the rest);
    and prefill + one decode step against the full forward, in bf16 and
-   on a float32 copy of the model.
+   on a float32 copy of the model (drawn anew from the same seed once the
+   bf16 model is freed, each leaf rounded through bf16: the same weights,
+   and both do not fit the card at 14.3 B parameters); where an MoE
+   route drops an assignment, the check runs again on the same weights
+   at a capacity factor under which nothing drops, and says so.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
@@ -183,6 +194,8 @@ PEAK_BF16_FLOPS = 989e12            # dense tensor-core bf16
 ATTN_RTOL = 1e-2                    # the reference's kernel tolerances
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 QWEN = dict(Hq=12, Hkv=2, hd=128)   # Qwen2-1.5B's attention heads
+MOE = dict(Hq=16, Hkv=16, hd=128)   # Qwen1.5-MoE-A2.7B's
+KIMI = dict(Hq=64, Hkv=8, hd=112)   # Kimi K2's (the pool's one hd 112)
 # flash attention: (name, B, S, window, dtype, Hq, Hkv, hd)
 FLASH_SHAPES = [
     ("split_serving", 2, 32, 0, torch.bfloat16, *QWEN.values()),
@@ -196,6 +209,11 @@ FLASH_SHAPES = [
     ("hd256_f32", 1, 128, 0, torch.float32, 4, 1, 256),
     # RecurrentGemma-2B's local layers in prefill
     ("recurrentgemma_prefill", 2, 512, 2048, torch.bfloat16, 10, 1, 256),
+    # Qwen1.5-MoE-A2.7B's prefill and split-serving forward (G = 1), and
+    # Kimi K2's heads, which no model of the card runs (1.03 T parameters)
+    ("moe_prefill", 2, 512, 0, torch.bfloat16, *MOE.values()),
+    ("moe_split_serving", 2, 32, 0, torch.bfloat16, *MOE.values()),
+    ("kimi_prefill", 1, 512, 0, torch.bfloat16, *KIMI.values()),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 0, torch.float32, 4, 2, 32),
     ("case1", 1, 256, 0, torch.float32, 8, 8, 64),
@@ -217,6 +235,9 @@ DECODE_SHAPES = [
     # RecurrentGemma-2B's local layers in decoding (ring of 1024 slots)
     ("recurrentgemma_decode", 2, 1024, 543, 543, 2048, torch.bfloat16, 10,
      1, 256),
+    # Qwen1.5-MoE-A2.7B's decoding, and Kimi K2's heads
+    ("moe_decode", 2, 1024, 543, 543, 0, torch.bfloat16, *MOE.values()),
+    ("kimi_decode", 1, 1024, 543, 543, 0, torch.bfloat16, *KIMI.values()),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 99, 100, 0, torch.float32, 4, 2, 32),
     ("case1", 1, 256, 255, 256, 0, torch.float32, 8, 1, 64),
@@ -274,6 +295,9 @@ class ModelRun:
     per_forward: dict
     per_step: dict
     bf16_tol: tuple = None          # (atol, rtol) of prefill + decode
+    # bf16 prefill + decode held to the float32 forward (within the bf16
+    # forward's own error) instead of to the bf16 forward (``decode_check``)
+    bf16_vs_float32: bool = False
 
 
 MODEL_RUNS = [
@@ -286,6 +310,12 @@ MODEL_RUNS = [
              dict(decode_attention=8, rglru_scan=18)),
     ModelRun("rwkv6-3b", (0, 1, 16, 32), (1, 0.143, 15),
              dict(rwkv6_scan=32), dict(rwkv6_scan=32)),
+    # 24 layers, each attention (16/16 heads) and 60 routed experts
+    # bf16_tol from its first card runs: the bf16 routes 0.078 apart at
+    # |h| <= 3.79, 1.056 times Qwen2-1.5B's (3e-2, 2e-2) at the worst
+    ModelRun("qwen2-moe-a2.7b", (0, 1, 12, 24), (1, 0.059, 15),
+             dict(flash_attention=24), dict(decode_attention=24),
+             bf16_tol=(5e-2, 2e-2), bf16_vs_float32=True),
 ]
 SPLIT_BATCH, SPLIT_SEQ = 2, 32
 SERVE_BUDGET = 15
@@ -303,7 +333,7 @@ MIX_N = 64 * 64 + 61 + 45           # ... at the mixed CNN + LM l_pad 61
 # log them: the batched grid at n 16 (S 16 -> 12 live lanes), then at
 # n 32 (S 10 -> 3, most often 6), the sequential run (S 1, n 16), the
 # whole-run grid's 16-lane chunks at n 32 (and n 16, as the batched
-# grid), the serving run of SERVE_ARCH (S 1, n 16, N = 4096 + its
+# grid), the serving runs of SERVE_ARCHS (S 1, n 16, N = 4096 + their
 # layers + 45; ``main_rows``) and the streaming server's chunks of the
 # mixed CNN + LM trace (16 lanes at l_pad 61, n 16 and 32). Ceiling
 # rows: S 16 at n 48 and 64, which no run reaches, and S 256 (a
@@ -312,7 +342,7 @@ MAIN_ROWS = [(16, MAIN_N, 16, 2), (6, MAIN_N, 32, 2), (1, MAIN_N, 16, 2),
              (16, MAIN_N, 32, 2), (16, MIX_N, 16, 2), (16, MIX_N, 32, 2)]
 CEILING_ROWS = [(16, MAIN_N, 48, 2), (16, MAIN_N, 64, 2),
                 (256, MAIN_N, 64, 2)]
-SERVE_ARCH = "qwen2-1.5b"
+SERVE_ARCHS = ("qwen2-1.5b", "qwen2-moe-a2.7b")
 MAIN_SHAPE = (16, MAIN_N, 16, 2)
 CEILING_SHAPE = (16, MAIN_N, 64, 2)
 # (S, N, n) -> posterior launches, over every block scoring watched
@@ -426,15 +456,16 @@ def card_line() -> str:
 
 
 def main_rows():
-    """MAIN_ROWS with the serving row of SERVE_ARCH: N is the 64 x 64
-    grid, one boundary slot a layer of the problem ``launch/serve.py``
-    builds for it, and the local slots."""
+    """MAIN_ROWS with the serving row of each of SERVE_ARCHS: N is the
+    64 x 64 grid, one boundary slot a layer of the problem
+    ``launch/serve.py`` builds for it, and the local slots."""
     from repro_torch.configs import get_config
     from repro_torch.core.acquisition import N_LOCAL
     from repro_torch.launch import serve
 
-    L = serve.build_problem(get_config(SERVE_ARCH), SPLIT_SEQ).L
-    return MAIN_ROWS + [(1, 64 * 64 + L + N_LOCAL, 16, 2)]
+    return MAIN_ROWS + [
+        (1, 64 * 64 + serve.build_problem(get_config(a), SPLIT_SEQ).L
+         + N_LOCAL, 16, 2) for a in SERVE_ARCHS]
 
 
 def score_inputs(S, N, n, d, seed=0):
@@ -2489,6 +2520,10 @@ def kernel_class(name: str) -> str:
 # its splits and their merge (both names match kernel_class)
 CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2)
 PROFILE_RETRIES = 2
+# calls of a phase-5 path under the profiler: its events (tens of
+# thousands a call for the LMs) take Python tens of microseconds each to
+# read back, the larger part of a model's phase at 10-16 calls
+PROFILED_CALLS = 2
 
 
 def profiled(fn, n):
@@ -2512,10 +2547,11 @@ def profiled(fn, n):
     return busy, counts, by_name
 
 
-def profile_calls(arch, path, fn, n, launches, extra=None):
-    """Host ms per call (CUDA-synchronised, no profiler), then the device
-    time per call by kernel class from ``torch.profiler`` over another n
-    calls; the idle share is 1 - device busy / host time. ``launches``
+def profile_calls(arch, path, fn, n, launches, extra=None, profiled_n=None):
+    """Host ms per call (CUDA-synchronised, no profiler) over n calls,
+    then the device time per call by kernel class from ``torch.profiler``
+    over ``profiled_n`` (default n) more; the idle share is 1 - device
+    busy / host time. ``launches``
     is the port's kernel launches of one call (``MODEL_RUNS``): the
     profile must hold exactly that many CUDA kernels of each port kernel
     a call. Where the profiler dropped events, the path is profiled again
@@ -2530,6 +2566,7 @@ def profile_calls(arch, path, fn, n, launches, extra=None):
     host_ms = 1e3 * (time.perf_counter() - t0) / n
     want = {c: launches.get(c, 0) * CUDA_KERNELS_PER_LAUNCH.get(c, 1)
             for c in PORT_KERNELS}
+    host_n, n = n, profiled_n or n
     short = []
     for attempt in range(PROFILE_RETRIES + 1):
         busy, counts, by_name = profiled(fn, n)
@@ -2550,7 +2587,8 @@ def profile_calls(arch, path, fn, n, launches, extra=None):
     total = sum(busy.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log("profile", json.dumps(dict(
-        arch=arch, path=path, calls=n, host_ms_per_call=host_ms,
+        arch=arch, path=path, calls=n, host_calls=host_n,
+        host_ms_per_call=host_ms,
         device_busy_ms_per_call=total if total else "not measured",
         idle_share=1 - total / host_ms if total else "not measured",
         device_ms_by_class=busy,
@@ -2569,7 +2607,8 @@ def profile_phase(run, cfg, model):
     runner = SplitRunner(cfg, model, SPLIT_BATCH, SPLIT_SEQ)
     l = run.splits[2]
     profile_calls(run.arch, f"split_serving_forward_l{l}",
-                  lambda: runner.run(l), 10, per(run, forwards=1))
+                  lambda: runner.run(l), 10, per(run, forwards=1),
+                  profiled_n=PROFILED_CALLS)
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (GEN_BATCH, GEN_PROMPT)),
@@ -2580,11 +2619,11 @@ def profile_phase(run, cfg, model):
                            device=DEVICE)
     profile_calls(run.arch, "prefill_512",
                   lambda: prefill(model, dict(tokens=prompt), cache), 3,
-                  per(run, forwards=1))
+                  per(run, forwards=1), profiled_n=PROFILED_CALLS)
     tok = prompt[:, -1:]
     profile_calls(run.arch, "decode_step",
                   lambda: decode(model, tok, cache, GEN_PROMPT), 16,
-                  per(run, steps=1))
+                  per(run, steps=1), profiled_n=PROFILED_CALLS)
 
 
 def prefill_decode(cfg, model, dtype):
@@ -2610,27 +2649,208 @@ def prefill_decode(cfg, model, dtype):
     return dec[:, 0].float(), full[:, -1].float()
 
 
+# MoE layers (phase 5): how many assignments drop, and where the time goes
+
+
+@contextlib.contextmanager
+def moe_recorded():
+    """Record each capacity dispatch of the MoE layers: its tokens T,
+    top-k, capacity C and the experts' loads (a host read a layer, so
+    only in untimed passes); yields the records."""
+    from repro_torch.models import moe
+
+    records = []
+    dispatch = moe._dispatch_ffn_capacity
+
+    def recorded(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap):
+        load = torch.bincount(topi.reshape(-1), minlength=cfg.n_experts)
+        records.append(dict(T=xt.shape[0], k=topi.shape[1], E=e_n, C=cap,
+                            load=load.tolist()))
+        return dispatch(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap)
+
+    with mock.patch.object(moe, "_dispatch_ffn_capacity", recorded):
+        yield records
+
+
+def drop_stats(records):
+    """For each T among the records (a path: its MoE layers), the
+    assignments, capacity, mean load, dropped assignments in total and
+    at the worst layer, and the largest expert load."""
+    out = {}
+    for T in dict.fromkeys(r["T"] for r in records):
+        rows = [r for r in records if r["T"] == T]
+        drops = [sum(max(n - r["C"], 0) for n in r["load"]) for r in rows]
+        r0 = rows[0]
+        out[T] = dict(tokens=T, layers=len(rows), assignments=T * r0["k"],
+                      capacity=r0["C"], mean_load=T * r0["k"] / r0["E"],
+                      dropped=sum(drops), dropped_worst_layer=max(drops),
+                      largest_load=max(max(r["load"]) for r in rows))
+    return out
+
+
+@contextlib.contextmanager
+def moe_capacity(model, factor):
+    """The model's MoE layers at another capacity factor."""
+    from repro_torch.models.moe import MoE
+
+    layers = [m for m in model.modules() if isinstance(m, MoE)]
+    cfg = layers[0].cfg
+    for m in layers:
+        m.cfg = dataclasses.replace(cfg, capacity_factor=factor)
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.cfg = cfg
+
+
+def moe_device_ms(fn):
+    """The MoE layers' device ms in one call of ``fn`` (after a warm-up),
+    from ``torch.profiler``: in total, in the expert products (their
+    ``aten::bmm``), in the shared experts' MLP and in the rest (routing,
+    dispatch, combine); each layer is a ``record_function`` range, read
+    from its CPU event's device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+
+    def ranged(name, f):
+        def wrap(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return wrap
+
+    with mock.patch.object(moe, "moe_apply",
+                           ranged("moe_layer", moe.moe_apply)), \
+            mock.patch.object(moe, "mlp_apply",
+                              ranged("moe_shared_mlp", moe.mlp_apply)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+
+    def within(ev, name, skip=None):
+        """Device ms of the events named ``name`` under ``ev``."""
+        if ev.name == name:
+            return ev.device_time_total / 1e3
+        return sum(within(c, name, skip) for c in ev.cpu_children
+                   if c.name != skip)
+
+    cpu = torch.autograd.DeviceType.CPU
+    layers = [ev for ev in prof.events()
+              if ev.name == "moe_layer" and ev.device_type == cpu]
+    total = sum(ev.device_time_total for ev in layers) / 1e3
+    if not total:
+        return dict(layers=len(layers), moe_ms="not measured")
+    experts = sum(within(ev, "aten::bmm", skip="moe_shared_mlp")
+                  for ev in layers)
+    shared = sum(within(ev, "moe_shared_mlp") for ev in layers)
+    return dict(layers=len(layers), moe_ms=total, experts_bmm_ms=experts,
+                shared_mlp_ms=shared, other_ms=total - experts - shared)
+
+
+def moe_phase(run, cfg, model):
+    """A ``moe`` line for each path of the MoE model: the split-serving
+    forward (T = 2 x 32), the full forward (2 x 512), the prefill (2 x
+    511) and one decode step (T 2): drops (``drop_stats``), the summed
+    aux loss, and the MoE layers' device ms (``moe_device_ms``)."""
+    from repro_torch.models import transformer as tfm
+
+    def tokens(seed, B, S):
+        rng = np.random.default_rng(seed)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              dtype=torch.int32, device=DEVICE)
+        return tok, torch.arange(S, dtype=torch.int32, device=DEVICE
+                                 ).expand(B, S)
+
+    split_tok, split_pos = tokens(0, SPLIT_BATCH, SPLIT_SEQ)
+    tok, pos = tokens(2, GEN_BATCH, GEN_PROMPT)
+    cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
+                           device=DEVICE)
+    paths = dict(
+        split_serving_forward=lambda: tfm.forward(
+            model, tokens=split_tok, positions=split_pos),
+        forward=lambda: tfm.forward(model, tokens=tok, positions=pos),
+        prefill=lambda: tfm.forward(
+            model, tokens=tok[:, :-1], positions=pos[:, :-1], cache=cache,
+            t=0, mode="prefill"),
+        decode_step=lambda: tfm.forward(
+            model, tokens=tok[:, -1:], positions=pos[:, -1:], cache=cache,
+            t=GEN_PROMPT - 1, mode="decode"))
+    with torch.inference_mode():
+        for path, fn in paths.items():
+            with moe_recorded() as records:
+                _, _, aux = fn()
+            (stats,) = drop_stats(records).values()
+            log("moe", json.dumps(dict(
+                arch=run.arch, path=path, aux=float(aux),
+                capacity_factor=cfg.capacity_factor, **stats,
+                device_ms=moe_device_ms(fn))))
+
+
+def routes_checked(run, cfg, model, dtype):
+    """``prefill_decode``, with each MoE route's drops recorded (the
+    full forward T 1024, the prefill T 1022, the decode step T 2). The
+    capacity path drops by design, and the two routes see other loads:
+    where either drops, the check runs again on the same weights at the
+    capacity factor E / k (C >= T: nothing can drop). Logs which check
+    ran; returns (dec, full) of the check that counts."""
+    if not cfg.moe:
+        return prefill_decode(cfg, model, dtype)
+    with moe_recorded() as records:
+        out = prefill_decode(cfg, model, dtype)
+    drops = {T: d["dropped"] for T, d in drop_stats(records).items()}
+    line = dict(arch=run.arch, dtype=str(dtype).split(".")[-1],
+                capacity_factor=cfg.capacity_factor, dropped_by_tokens=drops,
+                check="as configured")
+    if any(drops.values()):
+        factor = cfg.n_experts / cfg.top_k
+        with moe_capacity(model, factor), moe_recorded() as records:
+            out = prefill_decode(cfg, model, dtype)
+        again = {T: d["dropped"] for T, d in drop_stats(records).items()}
+        line.update(check=f"drop-free capacity_factor {factor}",
+                    dropped_by_tokens_drop_free=again)
+        if any(again.values()):
+            raise AssertionError(f"{run.arch}: {again} dropped at "
+                                 f"capacity factor {factor}")
+    log("moe_decode_check", json.dumps(line))
+    return out
+
+
 def decode_check(run, bf16, f32):
     """Prefill + decode against the full forward. Float32: within
     HIDDEN_TOL. Bfloat16: the two routes may differ by no more than the
     bf16 forward differs from the float32 copy on the same inputs (its
-    own rounding error), and within ``run.bf16_tol`` where one is set."""
+    own rounding error), and within ``run.bf16_tol`` where one is set.
+    With ``run.bf16_vs_float32`` the bf16 decode route is held to the
+    float32 forward instead, within that same error: where the two bf16
+    routes round independently (Qwen1.5-MoE-A2.7B on the H100: its 16 KV
+    heads through flash and through split-T decode give last hidden
+    states 5 bf16 ulps apart, each about 4 from float32), they may
+    differ by up to twice it while each is as close to float32."""
     (dec16, full16), (dec32, full32) = bf16, f32
     atol, rtol = HIDDEN_TOL
     err32 = float((dec32 - full32).abs().max())
     ok32 = bool(torch.allclose(dec32, full32, atol=atol, rtol=rtol))
     err16 = float((dec16 - full16).abs().max())
     rounding = float((full16 - full32).abs().max())
-    ok16 = err16 <= rounding
+    dec_err = float((dec16 - full32).abs().max())
+    ok16 = (dec_err if run.bf16_vs_float32 else err16) <= rounding
     if run.bf16_tol:
         ok16 = ok16 and bool(torch.allclose(dec16, full16,
                                             atol=run.bf16_tol[0],
                                             rtol=run.bf16_tol[1]))
+    # against Qwen2-1.5B's bf16_tol: <= 1 where it would hold
+    qwen2_tol = float(((dec16 - full16).abs()
+                       / (3e-2 + 2e-2 * full16.abs())).max())
     log("decode_vs_forward", json.dumps(dict(
         arch=run.arch, float32_max_abs_err=err32, float32_atol=atol,
         float32_rtol=rtol, bf16_max_abs_err=err16,
         bf16_forward_vs_float32=rounding, bf16_tol=run.bf16_tol,
-        dec_bf16_vs_float32=float((dec16 - full32).abs().max()),
+        bf16_vs_float32=run.bf16_vs_float32, dec_bf16_vs_float32=dec_err,
+        bf16_err_over_qwen2_tol=qwen2_tol,
         hidden_absmax=float(full32.abs().max()), ok=ok32 and ok16)))
     for name, t in (("bf16", dec16), ("float32", dec32)):
         if not bool(t.isfinite().all()):
@@ -2640,38 +2860,72 @@ def decode_check(run, bf16, f32):
                              f"the forward by {err32} in float32")
     if not ok16:
         raise AssertionError(f"{run.arch}: prefill + decode differs from "
-                             f"the forward by {err16} in bf16 (the bf16 "
+                             f"the forward by {err16} in bf16, from the "
+                             f"float32 forward by {dec_err} (the bf16 "
                              f"forward's own error: {rounding})")
 
 
+def float32_copy(cfg32):
+    """The bf16 model's weights in float32, with no bf16 model resident:
+    drawn as ``init_model`` drew it (from seed 0, in float32, then cast),
+    each leaf rounded through bf16."""
+    from repro_torch.models import transformer as tfm
+
+    model = tfm.init_model(cfg32, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.bfloat16())
+    return model
+
+
 def model_phase(kernels, run):
-    """Phase 5 for one model: load it, serve, decode, profile, check
-    decoding in bf16 and on a float32 copy, then free it. Returns the
-    launch counts of its split, serving and generation runs."""
+    """Phase 5 for one model: serve (the entry point builds and frees its
+    own model), load the model, split, decode, profile, check decoding
+    in bf16, free it, check decoding on a float32 copy; a
+    ``model_phase`` line gives each step's seconds. Returns the launch
+    counts of its serving, split and generation runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
 
+    steps, lap = {}, [time.perf_counter()]
+
+    def step(name, fn, *a):
+        out = fn(*a)
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+        return out
+
     cfg = get_config(run.arch)
-    t0 = time.perf_counter()
-    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
-                           DEVICE)
-    torch.cuda.synchronize()
+    counts = dict(serve=step("serve", serve_phase, kernels, run, cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = step("init", tfm.init_model, cfg,
+                 torch.Generator(DEVICE).manual_seed(0), DEVICE)
     log("model", json.dumps(dict(
         arch=run.arch, params=sum(p.numel() for p in model.parameters()),
         param_counts=cfg.param_counts(), dtype=cfg.param_dtype,
-        init_s=time.perf_counter() - t0)))
-    counts = dict(split=split_phase(kernels, run, cfg, model),
-                  serve=serve_phase(kernels, run, cfg),
-                  generate=generate_phase(kernels, run, cfg, model))
-    profile_phase(run, cfg, model)
-    bf16 = prefill_decode(cfg, model, torch.bfloat16)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    model32 = tfm.Transformer(cfg32, DEVICE)
-    model32.load_state_dict(model.state_dict())
+        init_s=steps["init"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)))
+    counts.update(
+        split=step("split", split_phase, kernels, run, cfg, model),
+        generate=step("generate", generate_phase, kernels, run, cfg, model))
+    step("profile", profile_phase, run, cfg, model)
+    if cfg.moe:
+        step("moe", moe_phase, run, cfg, model)
+    bf16 = step("bf16 check", routes_checked, run, cfg, model,
+                torch.bfloat16)
     del model
-    decode_check(run, bf16, prefill_decode(cfg32, model32, torch.float32))
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = step("float32 copy", float32_copy, cfg32)
+    f32 = step("float32 check", routes_checked, run, cfg32, model32,
+               torch.float32)
+    decode_check(run, bf16, f32)
     del model32
     torch.cuda.empty_cache()
+    log("model_phase", json.dumps(dict(arch=run.arch, seconds=steps)))
     return counts
 
 
@@ -2728,6 +2982,7 @@ def kernel_entry(name, replaces, rows, main, by_path):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
@@ -2775,30 +3030,40 @@ def main() -> int:
                              "instruction in its SASS")
 
     # phase 2: kernels against plain (launches here are not counted)
+    seconds, lap = {}, [time.perf_counter()]
+
+    def timed(name, fn, *a):
+        """Run a phase and keep its seconds for the ``timings`` line."""
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+        return out
+
     main_shapes = main_rows()
     shapes = main_shapes + CEILING_ROWS
-    rows = kernel_phase(kernels.matern_score, kernels.matern_score_ref,
-                        shapes)
-    post_rows = posterior_phase(kernels, shapes, main_shapes)
-    flash_rows = flash_phase(kernels)
-    decode_rows = decode_phase(kernels)
-    rglru_rows = rglru_phase(kernels)
-    rwkv_rows = rwkv6_phase(kernels)
+    rows = timed("2 matern_score", kernel_phase, kernels.matern_score,
+                 kernels.matern_score_ref, shapes)
+    post_rows = timed("2 matern_posterior", posterior_phase, kernels,
+                      shapes, main_shapes)
+    flash_rows = timed("2 flash_attention", flash_phase, kernels)
+    decode_rows = timed("2 decode_attention", decode_phase, kernels)
+    rglru_rows = timed("2 rglru_scan", rglru_phase, kernels)
+    rwkv_rows = timed("2 rwkv6_scan", rwkv6_phase, kernels)
 
     # phases 3 and 4: the BO engines
-    seq_counts, seq_res = sequential_phase(core, kernels)
-    bat_counts, _, _ = batched_phase(core, kernels)
+    seq_counts, seq_res = timed("3", sequential_phase, core, kernels)
+    bat_counts, _, _ = timed("4", batched_phase, core, kernels)
     if seq_counts["matern_score"] == 0 or bat_counts["matern_score"] == 0:
         raise AssertionError(f"matern_score was not launched on the main "
                              f"path (sequential {seq_counts}, batched "
                              f"{bat_counts})")
-    breakdown_phase(core)
-    wr_counts = wholerun_phase(core, kernels)
-    stream_counts, hetero_cold = stream_phase(core, kernels)
-    fleet_counts = fleet_phase(core, kernels, hetero_cold)
-    table1_counts, table1_rows = table1_phase(kernels)
-    figure_counts = figures_phase(kernels, table1_rows)
-    vgg_counts = vgg_phase(core, kernels, seq_counts, seq_res)
+    timed("4 breakdown", breakdown_phase, core)
+    wr_counts = timed("4b", wholerun_phase, core, kernels)
+    stream_counts, hetero_cold = timed("4c", stream_phase, core, kernels)
+    fleet_counts = timed("4d", fleet_phase, core, kernels, hetero_cold)
+    table1_counts, table1_rows = timed("4e", table1_phase, kernels)
+    figure_counts = timed("4f", figures_phase, kernels, table1_rows)
+    vgg_counts = timed("4g", vgg_phase, core, kernels, seq_counts, seq_res)
 
     # phase 5: the LMs at full width, bf16, one at a time
     by_path = {name: {} for name in libs}
@@ -2815,7 +3080,8 @@ def main() -> int:
                                     in figure_counts.items()})
     by_path["matern_score"]["vgg:executor run"] = vgg_counts["matern_score"]
     for run in MODEL_RUNS:
-        for path, counts in model_phase(kernels, run).items():
+        for path, counts in timed(f"5 {run.arch}", model_phase, kernels,
+                                  run).items():
             for name, n in counts.items():
                 if n:
                     by_path[name][f"{path}:{run.arch}"] = n
@@ -2828,6 +3094,8 @@ def main() -> int:
                              "(S, N, n) the main paths launched: "
                              f"{LAUNCHED_SHAPES}")
 
+    log("timings", json.dumps(dict(
+        seconds=seconds, script_s=time.perf_counter() - t_start)))
     log(json.dumps({"kernels": [
         matern_entry(rows, post_rows, by_path["matern_score"],
                      main_shapes),

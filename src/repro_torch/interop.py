@@ -62,7 +62,10 @@ def model_from_reference(cfg, np_params, device):
     ``final_norm``, ``unembed`` unless tied, ``groups/g{gi}/b{i}``); a
     group of ``reps > 1`` stacks its layers on a leading axis, which is
     unstacked here in the reference's layer order. Each parameter takes
-    its leaf's dtype (float32 or bfloat16)."""
+    its leaf's dtype (float32 or bfloat16). An MoE block's leaves land
+    under the same names: ``mlp.router``, ``mlp.wg``/``wu``/``wd`` (the
+    experts, stacked on E) and ``mlp.shared.wg``/``wu``/``wd``; Kimi
+    K2's leading ``attn_dense`` group keeps a dense ``mlp``."""
     from repro_torch.models import transformer as tfm
 
     model = tfm.Transformer(cfg, device)

@@ -34,7 +34,9 @@ def init_tensor(shape, init: str, scale: float, generator: torch.Generator,
     """One leaf drawn under the rules of ``init_params``: zeros, ones,
     ``embed`` (normal x scale), ``small`` (normal x 0.02 x scale), else a
     normal scaled by 1/sqrt(fan-in), fan-in = prod(shape[:-1]). Drawn in
-    float32 on the generator's device, then cast to ``dtype``."""
+    float32 on the generator's device, scaled in place (so a stacked
+    leaf costs one float32 copy at its peak, not two), then cast to
+    ``dtype``."""
     dev = generator.device
     if init == "zeros":
         return torch.zeros(shape, device=dev, dtype=dtype)
@@ -49,7 +51,7 @@ def init_tensor(shape, init: str, scale: float, generator: torch.Generator,
     else:
         fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
         std = scale / math.sqrt(max(fan_in, 1))
-    return (z * std).to(dtype)
+    return z.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------

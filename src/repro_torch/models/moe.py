@@ -1,0 +1,241 @@
+"""Mixture-of-Experts: softmax top-k routing, then capacity (default) or
+sort-based ragged dispatch over the experts' SwiGLU FFNs, plus always-on
+shared experts. Counterpart of ``repro/models/moe.py``.
+
+Only the reference's local path is here: this module has no mesh context
+(``ctx``), and the reference's ``shard_map`` modes (experts or every
+expert's d_ff sharded on the ``model`` axis) wait for the mesh tooling.
+
+Three rules keep the port on the reference's answers and bit for bit
+repeatable on the card:
+
+- Assignments are ranked within their expert by a *stable* sort
+  (``jnp.argsort`` is stable; ``torch.argsort`` is only when told), so
+  the same assignments overflow the capacity and drop as in the
+  reference.
+- No atomics: the combine gathers each assignment's row and adds a
+  token's k rows in order, in the output dtype; the reference's
+  ``out.at[t].add`` is a scatter-add whose order a CUDA ``index_add_``
+  would vary from run to run.
+- Router logits are float32 products with TF32 off, since a logit that
+  moves changes the top-k experts.
+
+The expert products are plain batched matrix products, as the
+reference's ``jnp.einsum``/``jax.lax.ragged_dot`` are: no Pallas kernel
+of the reference runs here, so none of the port does.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.common import new_param, torch_dtype
+from repro_torch.models.mlp import MLP, mlp_apply
+
+
+def moe_template(cfg) -> dict:
+    """The reference's routed-expert leaves: name -> (shape, init rule).
+    The shared experts are an ``MLP`` of d_ff x n_shared_experts."""
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": ((D, E), "small"),
+            "wg": ((E, D, Fd), "normal"),
+            "wu": ((E, D, Fd), "normal"),
+            "wd": ((E, Fd, D), "normal")}
+
+
+class MoE(nn.Module):
+    """``router`` (D, E), ``wg``/``wu`` (E, D, F), ``wd`` (E, F, D), and
+    ``shared`` (an ``MLP``) when the config has shared experts."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        for name, (shape, init) in moe_template(cfg).items():
+            setattr(self, name, new_param(shape, init, device=device,
+                                          dtype=dtype))
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, d_ff=cfg.d_ff * cfg.n_shared_experts,
+                              device=device, dtype=dtype)
+
+    def forward(self, x):
+        return moe_apply(self, x, self.cfg)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuBLAS float32 products at full precision inside the block."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _counts(ids, n: int):
+    """How many of the integer ``ids`` equal each of 0..n-1. A compare
+    and a sum: ``torch.bincount`` reads the largest id back to the host
+    on CUDA (a synchronisation a layer), and a scatter-add is atomic."""
+    return (ids.reshape(-1, 1) == torch.arange(n, device=ids.device)).sum(0)
+
+
+def _route(xt, router_w, cfg):
+    """softmax -> top-k -> renormalize. Returns (weights, ids, aux):
+    (T, k) float32, (T, k) int64, and the Switch-style load-balance loss
+    E * sum_e f_e p_e, f_e the share of top-k assignments to e."""
+    T, k, E = xt.shape[0], cfg.top_k, cfg.n_experts
+    with _no_tf32():
+        logits = xt.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    pe = probs.mean(dim=0)
+    fe = _counts(topi, E).float() / (T * k)
+    return topw, topi, E * torch.sum(fe * pe)
+
+
+def _assignments(topi, topw, k, e_lo: int, e_n: int):
+    """The flat (A = T k) assignments in token order: expert bin (e_n
+    for an expert outside [e_lo, e_lo + e_n)), weight, token."""
+    A = topi.numel()
+    local_e = topi.reshape(A) - e_lo
+    is_local = (local_e >= 0) & (local_e < e_n)
+    eid = torch.where(is_local, local_e, e_n)
+    flat_t = torch.arange(A, device=topi.device) // k
+    return eid, topw.reshape(A), flat_t, is_local
+
+
+def _combine(rows, w, T: int, k: int):
+    """out[t] = sum_j rows[t k + j] w[t k + j], added in order j = 0..k-1
+    in the rows' dtype (the reference's scatter-add, without atomics);
+    the weights are cast to that dtype before they multiply."""
+    g = (rows * w[:, None].to(rows.dtype)).reshape(T, k, -1)
+    out = g[:, 0]
+    for j in range(1, k):
+        out = out + g[:, j]
+    return out
+
+
+def _expert_ffn(x, wg, wu, wd, mm):
+    """SwiGLU over each expert's rows, with the product ``mm``."""
+    act = (F.silu(mm(x, wg)) * mm(x, wu)).to(x.dtype)
+    return mm(act, wd)
+
+
+def ragged_dot(x, w, sizes):
+    """``jax.lax.ragged_dot``: rows [o_e, o_e + sizes[e]) of x (m, K)
+    times w[e] (K, N), o_e the sum of the sizes before e; rows past the
+    last group are zero. Reads the group sizes on the host."""
+    out = x.new_zeros(x.shape[0], w.shape[-1])
+    lo = 0
+    for e, n in enumerate(sizes.tolist()):
+        if n:
+            out[lo:lo + n] = x[lo:lo + n] @ w[e]
+        lo += n
+    return out
+
+
+def _dispatch_ffn(xt, topw, topi, wg, wu, wd, cfg, e_lo: int, e_n: int,
+                  cap: int):
+    """Sort-based grouped FFN over the assignments routed to experts
+    [e_lo, e_lo + e_n): sorted by expert (stably), truncated to ``cap``
+    rows, run through ``ragged_dot``. xt: (T, D) -> (T, D)."""
+    T, _ = xt.shape
+    k = cfg.top_k
+    eid, flat_w, flat_t, _ = _assignments(topi, topw, k, e_lo, e_n)
+    A = eid.numel()
+    order = torch.argsort(eid, stable=True)[:min(cap, A)]
+    sel_e = eid[order]
+    sel_w = torch.where(sel_e < e_n, flat_w[order], 0.0)
+    counts = _counts(sel_e, e_n)
+    cum = torch.clamp(torch.cumsum(counts, 0), max=order.numel())
+    sizes = torch.diff(cum, prepend=cum.new_zeros(1))
+    down = _expert_ffn(xt[flat_t[order]], wg, wu, wd,
+                       lambda a, w: ragged_dot(a, w, sizes))
+    # back to assignment order (each assignment once: no duplicates),
+    # then the in-order combine; unselected assignments add zero
+    rows = down.new_zeros(A, down.shape[-1])
+    rows[order] = down
+    w = torch.zeros(A, dtype=sel_w.dtype, device=sel_w.device)
+    w[order] = sel_w
+    return _combine(rows, w, T, k)
+
+
+def _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo: int,
+                           e_n: int, cap_per_expert: int):
+    """GShard-style fixed-capacity dispatch: each expert's first C
+    assignments (in token order) fill a dense (E_loc, C, D) buffer, the
+    expert products are batched matmuls, and each assignment gathers its
+    row back. Overflow beyond C drops. xt: (T, D) -> (T, D)."""
+    T, D = xt.shape
+    k = cfg.top_k
+    C = cap_per_expert
+    eid, flat_w, flat_t, is_local = _assignments(topi, topw, k, e_lo, e_n)
+    A = eid.numel()
+    # rank of each assignment within its expert (stable over A order)
+    order = torch.argsort(eid, stable=True)
+    ranked = torch.empty_like(order)
+    ranked[order] = torch.arange(A, device=xt.device)
+    counts = _counts(eid, e_n + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = ranked - starts[eid]
+    keep = is_local & (pos < C)
+    # slot (e, c) holds the assignment of rank c in expert e, if any
+    c = torch.arange(C, device=xt.device)
+    src = starts[:e_n, None] + c
+    filled = c < counts[:e_n, None]
+    take = order[src.clamp(max=A - 1)]
+    xb = torch.where(filled[..., None], xt[flat_t[take]], 0)   # (E,C,D)
+    down = _expert_ffn(xb, wg, wu, wd, torch.bmm).reshape(e_n * C, D)
+    slot = (eid * C + pos).clamp(0, e_n * C - 1)
+    rows = torch.where(keep[:, None], down[slot], 0)
+    return _combine(rows, flat_w, T, k)
+
+
+def _maybe_quant_experts(cfg, *ws):
+    """bf16 -> (f8e4m3, per-expert scale) casts (identity for bf16)."""
+    if not cfg.moe_weight_dtype.startswith("float8"):
+        return [(w, None) for w in ws]
+    out = []
+    for w in ws:
+        amax = w.float().abs().amax(dim=(1, 2), keepdim=True)
+        # tensor / tensor: ``448.0 / t`` is t.reciprocal() * 448 in torch,
+        # which rounds twice and misses the reference's scale by an ulp
+        scale = torch.full_like(amax, 448.0) / torch.clamp(amax, min=1e-9)
+        wq = (w.float() * scale).to(torch.float8_e4m3fn)
+        out.append((wq, torch.reciprocal(scale)))
+    return out
+
+
+def _dequant(wq, scale, dtype):
+    if scale is None:
+        return wq
+    return (wq.float() * scale).to(dtype)
+
+
+def moe_apply(p: MoE, x, cfg):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar), the reference's
+    local path (no mesh). Capacity per expert max(T k cf / E, 4); the
+    ragged path keeps every assignment (T k rows, at least 8)."""
+    D = x.shape[-1]
+    dt = torch_dtype(cfg.dtype)
+    wg, wu, wd = (_dequant(q, s, dt) for q, s in
+                  _maybe_quant_experts(cfg, p.wg, p.wu, p.wd))
+    xt = x.reshape(-1, D)
+    T = xt.shape[0]
+    topw, topi, aux = _route(xt, p.router, cfg)
+    if cfg.moe_dispatch == "capacity":
+        cap_e = max(int(T * cfg.top_k * cfg.capacity_factor
+                        / cfg.n_experts), 4)
+        out = _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, 0,
+                                     cfg.n_experts, cap_e)
+    else:
+        out = _dispatch_ffn(xt, topw, topi, wg, wu, wd, cfg, 0,
+                            cfg.n_experts, max(T * cfg.top_k, 8))
+    out = out.reshape(x.shape)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(p.shared, x)
+    return out, aux

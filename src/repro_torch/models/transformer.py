@@ -1,14 +1,19 @@
-"""Decoder-stack assembly for every architecture of the pool but the
-MoE ones. Counterpart of ``repro/models/transformer.py``.
+"""Decoder-stack assembly for every architecture of the pool.
+Counterpart of ``repro/models/transformer.py``.
 
 The model is an ``nn.Module`` (``Transformer``) whose blocks sit in one
 flat ``layers`` list in global layer order; the reference's scan groups
 (``layer_groups``) only decide how weights are drawn and carried across.
 Blocks come in three kinds: attention (``attn``, ``local``,
 ``attn_dense``), RG-LRU (``rglru``, RecurrentGemma) and RWKV6
-(``rwkv``). ``forward`` covers train/prefill (S tokens, optional cache
-write) and decode (one token against the cache). Full sequences go
-through ``kernels/flash_attention``, a decode step through
+(``rwkv``). An MoE config's ``attn`` blocks take a ``models.moe.MoE`` in
+place of the dense MLP; its ``attn_dense`` blocks (Kimi K2's leading
+layer) keep the MLP. Every block returns ``(x, aux)``, aux the MoE
+load-balance loss or None. ``forward`` covers train/prefill (S tokens,
+optional cache write) and decode (one token against the cache). Full
+sequences go through ``kernels/flash_attention`` (on CPU tensors above
+``attention.BLOCKED_ABOVE`` tokens through ``attention.blocked_attention``,
+as the reference's model does), a decode step through
 ``kernels/decode_attention``, and the recurrences at every S through
 ``kernels/rglru_scan`` and ``kernels/rwkv6_scan``: on CPU tensors those
 return their plain versions, on CUDA tensors they launch the kernels.
@@ -20,10 +25,9 @@ Unlike the reference, which returns a new cache, prefill and decode
 write the cache in place (and return it), so a decode step moves no more
 bytes than its one token and the recurrent states.
 
-Not ported yet, and raising ``NotImplementedError`` rather than falling
-back to anything: MoE layers (ROADMAP queue 1, the MoE slice), and the
-mesh paths (``ShardCtx``, the vocab-sharded embedding lookup, padded
-heads), which wait for the mesh tooling.
+Not ported yet: the mesh paths (``ShardCtx``, the vocab-sharded
+embedding lookup, padded heads, MoE's ``shard_map`` modes), which wait
+for the mesh tooling.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (Norm, init_tensor, new_param,
                                        padded_vocab, torch_dtype)
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU, rglru_apply
 from repro_torch.models.rwkv6 import RWKVMix, rwkv_channel_mix, rwkv_time_mix
 
@@ -85,14 +90,10 @@ def group_layers(cfg):
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a layer kind the port lacks."""
+    """Raise ``ValueError`` for a layer kind the model does not know."""
     for kind in cfg.layer_kinds():
         if kind not in ATTENTION_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
-        if cfg.moe and kind == "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers wait for the MoE slice (ROADMAP "
-                "queue 1)")
 
 
 def attention_window(cfg, kind: str) -> int:
@@ -105,8 +106,9 @@ def attention_window(cfg, kind: str) -> int:
 
 
 class AttentionBlock(nn.Module):
-    """Pre-norm attention + dense MLP, as ``_attention_block`` (kinds
-    ``attn``, ``local`` and ``attn_dense``)."""
+    """Pre-norm attention + dense MLP, or MoE for an MoE config's
+    ``attn`` kind, as ``_attention_block`` (kinds ``attn``, ``local``
+    and ``attn_dense``)."""
 
     def __init__(self, cfg, kind: str, *, device, dtype):
         super().__init__()
@@ -117,7 +119,8 @@ class AttentionBlock(nn.Module):
         self.ln1 = Norm(cfg, **kw)
         self.ln2 = Norm(cfg, **kw)
         self.attn = attn.Attention(cfg, **kw)
-        self.mlp = MLP(cfg, **kw)
+        self.mlp = (MoE(cfg, **kw) if cfg.moe and kind == "attn"
+                    else MLP(cfg, **kw))
 
     def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
         cfg = self.cfg
@@ -125,12 +128,18 @@ class AttentionBlock(nn.Module):
         q, k, v = attn.qkv_proj(self.attn, h, cfg, positions)
         if mode == "decode":
             o = self._decode(q, k, v, positions, cache, t)
+        elif q.device.type == "cpu" and q.shape[1] > attn.BLOCKED_ABOVE:
+            o = attn.blocked_attention(q, k, v, positions, positions,
+                                       self.window)
         else:
             o = flash_attention(q, k, v, causal=True, window=self.window)
-            if cache is not None:
-                _prefill_write(cache, k, v, positions)
+        if cache is not None and mode != "decode":
+            _prefill_write(cache, k, v, positions)
         x = x + attn.out_proj(self.attn, o)
-        return x + self.mlp(self.ln2(x))
+        if isinstance(self.mlp, MoE):
+            m, aux = self.mlp(self.ln2(x))
+            return x + m, aux
+        return x + self.mlp(self.ln2(x)), None
 
     def _decode(self, q, k, v, positions, cache, t):
         """Write the token at slot ``t % C``, then attend to the cache."""
@@ -180,7 +189,7 @@ class RGLRUBlock(nn.Module):
     def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
         o, _ = rglru_apply(self.lru, self.ln1(x), cache)
         x = x + o
-        return x + self.mlp(self.ln2(x))
+        return x + self.mlp(self.ln2(x)), None
 
 
 class RWKVBlock(nn.Module):
@@ -202,7 +211,7 @@ class RWKVBlock(nn.Module):
         o, _ = rwkv_time_mix(self.mix, self.ln1(x), self.cfg, cache)
         x = x + o
         o2, _ = rwkv_channel_mix(self.mix, self.ln2(x), self.cfg, cache)
-        return x + o2
+        return x + o2, None
 
 
 def make_block(cfg, kind: str, *, device, dtype) -> nn.Module:
@@ -271,6 +280,9 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
                                       p.dtype)
                     for r, q in enumerate(same):
                         q.copy_(val[r] if reps > 1 else val)
+                    # freed before the next leaf is drawn: a stacked
+                    # expert leaf is 16.6 GB in float32 at full width
+                    del val
     return model
 
 
@@ -353,15 +365,27 @@ def logits_fn(model: Transformer, hidden):
 
 def forward(model: Transformer, *, tokens=None, embeds=None, positions,
             cache=None, t=None, mode: str = "train"):
-    """Returns (hidden (B,S,D), cache, aux_loss). The cache, when given,
-    is written in place and returned."""
+    """Returns (hidden (B,S,D), cache, aux_loss), aux_loss the sum of the
+    MoE layers' load-balance losses (zero without MoE). The cache, when
+    given, is written in place and returned."""
     dt = torch_dtype(model.cfg.dtype)
     if embeds is not None:
         x = embeds.to(dt)
     else:
         x = embed_lookup(model, tokens).to(dt)
-    for i, block in enumerate(model.layers):
-        x = block(x, positions, None if cache is None else cache[i], t, mode)
-    x = model.final_norm(x)
+    x, aux = apply_layers(model, x, positions, 0, len(model.layers), cache,
+                          t, mode)
+    return model.final_norm(x), cache, aux
+
+
+def apply_layers(model: Transformer, x, positions, lo: int, hi: int,
+                 cache=None, t=None, mode: str = "train"):
+    """Layers [lo, hi) -> (x, the sum of their MoE aux losses, float32
+    zero without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, cache, aux
+    for i in range(lo, hi):
+        x, a = model.layers[i](x, positions,
+                               None if cache is None else cache[i], t, mode)
+        if a is not None:
+            aux = aux + a
+    return x, aux

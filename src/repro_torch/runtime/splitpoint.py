@@ -26,11 +26,11 @@ def layer_param(model, idx: int):
 
 
 def run_layers(model, x, positions, lo: int, hi: int):
-    """Apply layers [lo, hi) in mode ``train``, without a cache."""
+    """Apply layers [lo, hi) in mode ``train``, without a cache. Returns
+    (x, the sum of the layers' MoE aux losses)."""
     for i in range(lo, hi):
-        _, block = layer_param(model, i)
-        x = block(x, positions, None, None, "train")
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        layer_param(model, i)             # IndexError outside [0, L)
+    return tfm.apply_layers(model, x, positions, lo, hi)
 
 
 def device_half(model, tokens=None, embeds=None, positions=None,

@@ -50,6 +50,7 @@ def test_every_module_imports_with_jax_blocked():
     loaded."""
     mods = _port_modules()
     assert "repro_torch.core.gp" in mods and len(mods) > 25
+    assert "repro_torch.models.moe" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -1,12 +1,15 @@
 """The port's model layer (``repro_torch.models``) against the reference
 (``repro.models``) on the CPU: norms, RoPE, the MLP types and the QKV
 projection on the same numpy-seeded inputs, and the whole ``forward``
-(mode ``train``) of every registered arch but the MoE ones in reduced
-form (RecurrentGemma also at 8 layers, which adds its trailing
-single-block groups) with the reference's initialized parameters carried
-across (``interop.model_from_reference``), the weight carry-over, the
-init rules and the cache layout. The recurrent layers' own functions are
-held in ``tests/test_torch_recurrent_layers.py``.
+(mode ``train``) of every registered arch in reduced form (RecurrentGemma
+also at 8 layers, which adds its trailing single-block groups; the MoE
+archs with their aux loss; Qwen2-1.5B also at S 1100, where both
+packages take the blocked attention path) with the reference's
+initialized parameters carried across (``interop.model_from_reference``),
+the weight carry-over, the init rules and the cache layout. The
+recurrent layers' own functions are held in
+``tests/test_torch_recurrent_layers.py``, the MoE layer's in
+``tests/test_torch_moe.py``.
 
 Tolerances: functions atol 1e-5, rtol 1e-5 (float32, the same
 operations in another order); the model forward atol 1e-4, rtol 1e-3
@@ -46,7 +49,7 @@ RECURRENT = [("recurrentgemma-2b", {}), ("recurrentgemma-2b",
                                          dict(n_layers=8)),
              ("rwkv6-3b", {})]
 RECURRENT_IDS = ["recurrentgemma", "recurrentgemma_8_layers", "rwkv6"]
-NOT_PORTED = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b"]
+MOE_ARCHS = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b"]
 
 
 def np_tree(tree):
@@ -289,13 +292,122 @@ def test_init_model_follows_the_reference_rules():
     assert not torch.equal(a.layers[0].attn.wq, a.layers[1].attn.wq)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_layer_kinds_raise(arch):
-    cfg = port_cfg(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tfm.init_cache(cfg, 1, 8, device="cpu")
+def test_init_tensor_scales_in_place_as_the_old_formula():
+    """``z.mul_(std)`` then the cast: the values of ``(z * std).to``."""
+    for init, dtype in [("normal", torch.bfloat16), ("small", torch.float32),
+                        ("embed", torch.bfloat16)]:
+        got = port_common.init_tensor((3, 40, 24), init, 0.5,
+                                      torch.Generator().manual_seed(7), dtype)
+        z = torch.randn((3, 40, 24), generator=torch.Generator().manual_seed(7),
+                        dtype=torch.float32)
+        std = dict(normal=0.5 / np.sqrt(120), small=0.02 * 0.5,
+                   embed=0.5)[init]
+        assert torch.equal(got, (z * std).to(dtype)), init
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "rwkv6-3b"])
+def test_float32_init_rounded_through_bfloat16_is_the_bfloat16_init(arch):
+    """A float32 model drawn from the same seed, each leaf rounded through
+    bfloat16, holds the bfloat16 model's weights exactly (the card's
+    float32 copy is made so, without the bfloat16 model resident)."""
+    cfg = port_cfg(arch, param_dtype="bfloat16", dtype="bfloat16")
+    cfg32 = port_cfg(arch)
+    a = port_tfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = port_tfm.init_model(cfg32, torch.Generator().manual_seed(0), "cpu")
+    for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert p.dtype == torch.bfloat16 and q.dtype == torch.float32
+        assert torch.equal(p.float(), q.bfloat16().float()), n
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_reference_jnp_path(arch):
+    """Hidden states and the summed aux loss; Kimi K2 with its dense
+    ``attn_dense`` first layer. These replace the raise-tests of the
+    MoE kinds, which were ported."""
+    cfg, params = ref_model(arch)
+    model = model_from_reference(port_cfg(arch), np_tree(params), "cpu")
+    kinds = ["attn_dense"] * cfg.first_k_dense + ["attn"] * (
+        cfg.n_layers - cfg.first_k_dense)
+    assert [b.kind for b in model.layers] == kinds
+    assert [type(b.mlp).__name__ for b in model.layers] == [
+        "MLP" if k == "attn_dense" else "MoE" for k in kinds]
+    jin, tin = inputs(cfg)
+    jp, tp = positions()
+    want, _, want_aux = ref_tfm.forward(params, cfg, None, positions=jp,
+                                        mode="train", **jin)
+    got, _, aux = port_tfm.forward(model, positions=tp, mode="train", **tin)
+    assert float(aux) > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=JNP_ATOL,
+                               rtol=JNP_RTOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=F_ATOL,
+                               rtol=F_RTOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_reference_pallas_kernels(arch):
+    cfg, params = ref_model(arch, use_pallas_kernels=True)
+    model = model_from_reference(port_cfg(arch), np_tree(params), "cpu")
+    jin, tin = inputs(cfg)
+    jp, tp = positions()
+    want, _, want_aux = ref_tfm.forward(params, cfg, None, positions=jp,
+                                        mode="train", **jin)
+    got, _, aux = port_tfm.forward(model, positions=tp, mode="train", **tin)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=PALLAS_ATOL, rtol=PALLAS_RTOL)
+    np.testing.assert_allclose(float(aux), float(want_aux),
+                               atol=PALLAS_ATOL, rtol=PALLAS_RTOL)
+
+
+def test_moe_weights_round_trip():
+    """Kimi K2's bfloat16 leaves (a dense first group, an MoE group with
+    a shared expert) land on their layers bit for bit."""
+    cfg, params = ref_model("kimi-k2-1t-a32b", param_dtype="bfloat16")
+    model = model_from_reference(port_cfg("kimi-k2-1t-a32b"),
+                                 np_tree(params), "cpu")
+    names = set()
+    for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+        keys = [p.key for p in path]
+        if keys[0] != "groups":
+            continue
+        layer = port_tfm.group_layers(cfg)[int(keys[1][1:])][3][0][0]
+        name = ".".join(keys[3:])
+        p = model.layers[layer].get_parameter(name)
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_array_equal(p.float().numpy(),
+                                      np.asarray(leaf.astype(jnp.float32)))
+        names.add((layer, name))
+    assert {(1, "mlp.router"), (1, "mlp.wg"), (1, "mlp.shared.wd"),
+            (0, "mlp.wg")} <= names and (0, "mlp.router") not in names
+    assert len(names) == sum(1 for n, _ in model.named_parameters()
+                             if n.startswith("layers."))
+
+
+def test_long_sequence_takes_the_blocked_path():
+    """S 1100 > 1024: both packages' models run ``blocked_attention``
+    (the port's on CPU tensors only), and agree."""
+    cfg, params = ref_model("qwen2-1.5b")
+    model = model_from_reference(port_cfg("qwen2-1.5b"), np_tree(params),
+                                 "cpu")
+    jin, tin = inputs(cfg, batch=1, seq=1100)
+    jp, tp = positions(1, 1100)
+    want, _, _ = ref_tfm.forward(params, cfg, None, positions=jp,
+                                 mode="train", **jin)
+    calls = []
+    blocked = port_attn.blocked_attention
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return blocked(*a, **k)
+
+    port_attn.blocked_attention = counted
+    try:
+        got, _, _ = port_tfm.forward(model, positions=tp, mode="train",
+                                     **tin)
+    finally:
+        port_attn.blocked_attention = blocked
+    assert len(calls) == cfg.n_layers
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=JNP_ATOL,
+                               rtol=JNP_RTOL)
 
 
 def test_layer_groups_match_reference():
