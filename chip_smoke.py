@@ -7,7 +7,7 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. setup: the card's name and power limit, torch/CUDA versions, TF32 off,
    and the build of every kernel from the sources in the checkout (one
-   nvcc per source, all five at once; seconds, and each instance's
+   nvcc per source, all six at once; seconds, and each instance's
    registers and spills, logged); ``flash_attention``'s SASS must hold
    tensor-core instructions (``cuobjdump``, where the toolkit has it);
 2. each kernel against its plain PyTorch version on the card, at the
@@ -24,7 +24,15 @@ Phases, each of which raises on failure (non-zero exit):
    ``flash_attention`` (bf16 at Qwen2-1.5B's,
    RecurrentGemma-2B's, Qwen1.5-MoE-A2.7B's (16/16, hd 128) and Kimi
    K2's (64/8, hd 112) heads, and the reference's kernel cases; bf16
-   also against the plain emulation of its tiles), ``decode_attention``
+   also against the plain emulation of its tiles), its backward
+   ``flash_attention_bwd`` (dq, dk and dv at Qwen2-1.5B's training
+   microbatch in bf16 and float32, a ragged S, RecurrentGemma-2B's local
+   layer over its 2048 window at S 4096, Qwen1.5-MoE-A2.7B's and Kimi
+   K2's heads, and the reference's kernel cases; against the float32
+   plain backward on the same inputs and the plain emulation of its own
+   arithmetic within ``BWD_TOL`` of each tensor's largest magnitude, the
+   forward's log-sum-exp within ``LSE_ATOL``, twice bit for bit, timed
+   warm and cold beside SDPA's backward), ``decode_attention``
    (also against the plain emulation of its splits, a row with no allowed
    slot among the shapes, and twice, bit for bit), both timed cold as
    well as warm,
@@ -140,12 +148,30 @@ Phases, each of which raises on failure (non-zero exit):
    bf16 model is freed, each leaf rounded through bf16: the same weights,
    and both do not fit the card at 14.3 B parameters); where an MoE
    route drops an assignment, the check runs again on the same weights
-   at a capacity factor under which nothing drops, and says so.
+   at a capacity factor under which nothing drops, and says so;
+6. training, Qwen2-1.5B (``TRAIN_ARCH``): (a) ``launch.train`` at full
+   width and depth, bf16, remat, AdamW, B 4 x S 512 in 2 microbatches,
+   30 steps (``TRAIN_RUN``): the loss falls (the mean of the last five
+   below the first five), each step launches exactly
+   ``train_launches`` (28 x 2 x 2 flash forwards, 28 x 2 backwards) and
+   no plain version; a ``profile`` line of one step and a ``train`` line
+   (step ms on the host's clock, tokens/s, device busy and idle share,
+   peak memory, the loss curve, MFU, the step split into forward, CE,
+   backward and optimizer); (b) one AdamW step at full width, 2 layers,
+   float32, through the kernels and through the plain versions on the
+   same weights and batch, the loss, every gradient leaf and the updated
+   parameters within ``STEP_GRAD_TOL``, ``STEP_ATOL``/``STEP_SHARE`` and
+   ``STEP_ATOL_ALL``; (c) 2 layers at full width with the vocab cut to
+   32,000, bf16, int8 gradient compression, 6 steps with a checkpoint
+   every 2 and a failure injected at step 3 through
+   ``TrainController``: the resumed run equals the uninterrupted one bit
+   for bit in every parameter, moment and error-feedback leaf.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
-each figure of 4f, the executor run of 4g, and each model's split,
-serving and generation runs) and read just after:
+each figure of 4f, the executor run of 4g, each model's split,
+serving and generation runs, and the training run and step check of
+phase 6) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
 kernel never, and the plain versions never. In phases 3, 4, 4b-4g
@@ -162,6 +188,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import re
@@ -224,6 +251,25 @@ FLASH_SHAPES = [
     ("case6", 1, 64, 0, torch.bfloat16, 2, 2, 128),
 ]
 FLASH_MAIN = "prefill"
+# flash attention's backward: (name, B, S, window, dtype, Hq, Hkv, hd);
+# "train" is a microbatch of phase 6's Qwen2-1.5B training run
+FLASH_BWD_SHAPES = [
+    ("train", 2, 512, 0, torch.bfloat16, *QWEN.values()),
+    ("train_f32", 2, 512, 0, torch.float32, *QWEN.values()),
+    ("ragged", 2, 500, 0, torch.bfloat16, *QWEN.values()),
+    # RecurrentGemma-2B's local layer over its whole window
+    ("recurrentgemma_local", 1, 4096, 2048, torch.bfloat16, 10, 1, 256),
+    ("moe_train", 2, 512, 0, torch.bfloat16, *MOE.values()),
+    ("kimi_train", 1, 512, 0, torch.bfloat16, *KIMI.values()),
+    *(row for row in FLASH_SHAPES if row[0].startswith("case")),
+]
+FLASH_BWD_MAIN = "train"
+# backward vs the float32 plain backward on the same inputs, of each
+# tensor's largest magnitude: float32 differs in summation order only;
+# bfloat16 rounds the inputs' products nowhere but the outputs round to
+# bf16 (2^-9 relative) and D uses the bf16 output
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-4      # base-2 log-sum-exp, float32 sums in another order
 # decode attention: (name, B, T, last, q_pos, window, dtype, Hq, Hkv,
 # hd); slot p % T holds position p for p <= last, the rest are empty
 DECODE_SHAPES = [
@@ -1960,13 +2006,14 @@ def median_ms(fns, args, samples=5, inner=10):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def attn_bound(nbytes, pairs, hd, Hq, dtype):
+def attn_bound(nbytes, pairs, hd, Hq, dtype, per_pair=4):
     """Least time on an H100: the larger of the bytes at the HBM rate and
-    the 4 hd operations per allowed (q, k) pair per q head at the peak
-    for the inputs' type (bf16 tensor cores, or f32)."""
+    the ``per_pair`` hd operations per allowed (q, k) pair per q head (4
+    in the forward, 10 in the backward) at the peak for the inputs' type
+    (bf16 tensor cores, or f32)."""
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 4 * hd * Hq * pairs / peak
+    t_ops = per_pair * hd * Hq * pairs / peak
     return (1e3 * max(t_bytes, t_ops),
             "operations" if t_ops >= t_bytes else "bytes",
             dict(bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops))
@@ -2042,6 +2089,107 @@ def flash_phase(kernels):
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("flash_attention", json.dumps(row))
         rows.append(row)
+    return rows
+
+
+def check_rel(name, shape, what, got, want, tol):
+    """max |got - want| within ``tol`` of want's largest magnitude."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"{name} {what} disagrees with its plain "
+                             f"version at {shape}: max abs err {err}, "
+                             f"{tol} of the largest magnitude {scale}")
+    return err, err / scale if scale else 0.0
+
+
+def flash_bwd_phase(kernels):
+    """Each FLASH_BWD_SHAPES row: the forward's log-sum-exp against
+    ``attention_lse_ref``; the backward kernel's dq, dk and dv against
+    the plain backward (``attention_bwd_ref``, autograd through the
+    plain forward, in float32 on the same inputs) and against the plain
+    emulation of its own arithmetic (``attention_bwd_tiled_ref``), each
+    within BWD_TOL of the tensor's largest magnitude; run twice, bit for
+    bit; timed warm and cold beside its bound and SDPA's backward."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_tiled_ref, attention_lse_ref)
+
+    F = torch.nn.functional
+    rows = []
+    for name, B, S, window, dtype, Hq, Hkv, hd in FLASH_BWD_SHAPES:
+        rng = np.random.default_rng(S + hd + window + 1)
+        q, k, v, do = (torch.as_tensor(rng.standard_normal(sh),
+                                       dtype=torch.float32,
+                                       device=DEVICE).to(dtype)
+                       for sh in ((B, S, Hq, hd), (B, S, Hkv, hd),
+                                  (B, S, Hkv, hd), (B, S, Hq, hd)))
+        out, lse = fops.flash_attention_fwd(q, k, v, True, window)
+        grads = fops.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+        again = fops.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+        want = kernels.attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         do.float(), causal=True,
+                                         window=window)
+        emu = attention_bwd_tiled_ref(q, k, v, out, lse, do, True, window)
+        lse_want = attention_lse_ref(q, k, True, window)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_attention_bwd at {name}: two calls "
+                                 "on the same inputs differ")
+        tol = BWD_TOL[dtype]
+        errs, rel, emu_rel = {}, {}, {}
+        for label, g, w, e in zip(("dq", "dk", "dv"), grads, want, emu):
+            errs[label], rel[label] = check_rel(
+                "flash_attention_bwd", name, label, g, w, tol)
+            emu_rel[label] = check_rel(
+                "flash_attention_bwd", name, f"{label} (emulation)", g, e,
+                tol)[1]
+        lse_err = float((lse - lse_want).abs().max())
+        if lse_err > LSE_ATOL:
+            raise AssertionError(f"flash_attention lse at {name}: max abs "
+                                 f"err {lse_err} > {LSE_ATOL}")
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        if window:
+            i = torch.arange(S, device=DEVICE)
+            mask = ((i[None, :] <= i[:, None])
+                    & (i[:, None] - i[None, :] < window))
+            lib_out = F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        else:
+            lib_out = F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+        doh = do.transpose(1, 2)
+        ms = median_ms(dict(
+            plain=lambda: kernels.attention_bwd_ref(q, k, v, do, True,
+                                                    window),
+            kernel=lambda: fops.flash_attention_bwd(q, k, v, out, lse, do,
+                                                    True, window),
+            library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                                retain_graph=True)),
+            (), samples=3, inner=5)
+        ms_cold = cold_ms(lambda *a: fops.flash_attention_bwd(
+            *a, True, window), cold_copies((q, k, v, out, lse, do)),
+            samples=3, inner=5)
+        esize = q.element_size()
+        # q, k, v, o, do and lse read once; dq, dk, dv written once
+        nbytes = (esize * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                  + lse.element_size() * lse.numel())
+        pairs = B * allowed_pairs(S, S, window)
+        bound_ms, bound_by, terms = attn_bound(nbytes, pairs, hd, Hq, dtype,
+                                               per_pair=10)
+        row = dict(name=name, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window,
+                   dtype=str(dtype).split(".")[-1],
+                   max_abs_err=max(errs.values()), rel_err=rel,
+                   emulation_rel_err=emu_rel, lse_max_abs_err=lse_err,
+                   tol=tol, repeat_bitwise=True, ms=ms["kernel"],
+                   ms_cold=ms_cold, plain_ms=ms["plain"],
+                   library_ms=ms["library"], bound_ms=bound_ms,
+                   bound_by=bound_by, bound_terms=terms, bytes=nbytes,
+                   pairs_per_head=pairs)
+        log("flash_attention_bwd", json.dumps(row))
+        rows.append(row)
+        del lib_out, want, emu
     return rows
 
 
@@ -2321,7 +2469,8 @@ def plain_calls_counted():
     from repro_torch.kernels.rwkv6_scan import ops as wops
 
     targets = [(mops, "matern_score_ref"), (mops, "matern_posterior_ref"),
-               (fops, "attention_ref"), (dops, "decode_attention_ref"),
+               (fops, "attention_ref"), (fops, "attention_lse_ref"),
+               (fops, "attention_bwd_ref"), (dops, "decode_attention_ref"),
                (gops, "rglru_scan_ref"), (wops, "rwkv6_scan_ref")]
     counts = {name: 0 for _, name in targets}
 
@@ -2500,11 +2649,13 @@ def generate_phase(kernels, run, cfg, model):
     return counts
 
 
-PORT_KERNELS = ("flash_attention", "decode_attention", "matern_score",
-                "rglru_scan", "rwkv6_scan")
+PORT_KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
+                "matern_score", "rglru_scan", "rwkv6_scan")
 
 
 def kernel_class(name: str) -> str:
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
     for kernel in PORT_KERNELS:
         if f"{kernel}_kernel" in name:
             return kernel
@@ -2517,8 +2668,9 @@ def kernel_class(name: str) -> str:
 
 
 # CUDA kernels one launch of a wrapper runs: a decode_attention call is
-# its splits and their merge (both names match kernel_class)
-CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2)
+# its splits and their merge (both names match kernel_class), a
+# flash_attention_bwd call its D, dq, dk/dv and group-sum kernels
+CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2, flash_attention_bwd=4)
 PROFILE_RETRIES = 2
 # calls of a phase-5 path under the profiler: its events (tens of
 # thousands a call for the LMs) take Python tens of microseconds each to
@@ -2556,7 +2708,8 @@ def profile_calls(arch, path, fn, n, launches, extra=None, profiled_n=None):
     profile must hold exactly that many CUDA kernels of each port kernel
     a call. Where the profiler dropped events, the path is profiled again
     with half the calls, at most PROFILE_RETRIES times; a line that is
-    still short raises. ``extra`` joins the logged line."""
+    still short raises. ``extra`` joins the logged line, which is
+    returned."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2586,7 +2739,7 @@ def profile_calls(arch, path, fn, n, launches, extra=None, profiled_n=None):
                              f"in {len(short)} tries: {short}")
     total = sum(busy.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("profile", json.dumps(dict(
+    line = dict(
         arch=arch, path=path, calls=n, host_calls=host_n,
         host_ms_per_call=host_ms,
         device_busy_ms_per_call=total if total else "not measured",
@@ -2594,7 +2747,9 @@ def profile_calls(arch, path, fn, n, launches, extra=None, profiled_n=None):
         device_ms_by_class=busy,
         kernels_per_call={c: k / n for c, k in counts.items()},
         port_kernels_per_call=want, short_tries=short,
-        top_kernels_ms=dict(top), **(extra or {}))))
+        top_kernels_ms=dict(top), **(extra or {}))
+    log("profile", json.dumps(line))
+    return line
 
 
 def profile_phase(run, cfg, model):
@@ -2929,6 +3084,386 @@ def model_phase(kernels, run):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 6: training
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+# 6a: full width and depth, bf16 as configured, remat as configured. At
+# width 1536 Adam's first steps move every weight by about lr whatever
+# its gradient's size, and from lr 1e-4 up the loss rises over 30 steps
+# (1e-3: the mean of the last five 0.59 above the first five's, the
+# held-out loss 0.71-0.86 up); 1e-5 lowers both the most of 3e-5, 1e-5
+# and 3e-6 (benchmarks/train_lr_sweep_torch.py on an H100)
+TRAIN_RUN = dict(steps=30, batch=4, seq=512, microbatches=2, lr=1e-5)
+# two batches the run never sees: their mean loss must fall too
+HELD_OUT_STEPS = (1000, 1001)
+# 6b: one AdamW step at full width, 2 layers, float32, kernels vs plain
+STEP_CHECK = dict(layers=2, batch=2, seq=512, lr=1e-3)
+# gradients of the two routes: float32 sums in another order, through 2
+# layers and the CE; of each leaf's largest magnitude
+STEP_GRAD_TOL = 1e-4
+# the updated parameters: Adam's first step is g / (|g| + eps) an
+# element, so an element whose gradient is float32 noise (1e-7 of its
+# leaf's largest) may move anywhere within a sign flip (2 lr) between
+# the two routes: all but STEP_SHARE of the elements within STEP_ATOL x
+# lr (the CPU tests' bar, tests/test_torch_train.py), every element
+# within STEP_ATOL_ALL x lr (its first card run: 0.1 lr at most over the
+# 327 M elements, 6.8e-5 of them beyond 1e-3 lr)
+STEP_ATOL, STEP_SHARE, STEP_ATOL_ALL = 1e-3, 1e-3, 2.0
+# 6c: 2 layers at full width, the vocab cut to train_100m.py's 32,000,
+# bf16, int8 gradient compression, a checkpoint every 2 steps, a failure
+# at step 3
+RESUME = dict(layers=2, vocab=32_000, steps=6, every=2, fail_at=3,
+              batch=2, seq=256, lr=1e-3)
+
+
+def train_launches(cfg, microbatches):
+    """Kernel launches of one training step: each attention layer's
+    forward once a microbatch, twice under remat (the backward runs the
+    layer again), and its backward once."""
+    n = sum(k in ("attn", "local", "attn_dense") for k in cfg.layer_kinds())
+    return dict(flash_attention=n * microbatches * (2 if cfg.remat else 1),
+                flash_attention_bwd=n * microbatches)
+
+
+def device_batch(pipe, step):
+    return {k: torch.as_tensor(v, device=DEVICE)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def held_out_loss(model, cfg, batches):
+    """The mean loss of ``batches``, no gradient."""
+    from repro_torch.train.trainer import loss_fn
+
+    with torch.no_grad():
+        return statistics.mean(float(loss_fn(model, b, cfg)[0])
+                               for b in batches)
+
+
+def model_flops(cfg, n_params, B, S):
+    """Model operations of one training step, recompute not counted: 6
+    per parameter per token (the tied embedding once, as the unembedding)
+    and 12 hd per allowed (q, k) pair per q head per attention layer."""
+    n_attn = sum(k in ("attn", "local", "attn_dense")
+                 for k in cfg.layer_kinds())
+    pairs = B * allowed_pairs(S, S, 0)
+    return 6 * n_params * B * S + 12 * cfg.hd * cfg.n_heads * n_attn * pairs
+
+
+def train_breakdown(cfg, model, opt, opt_state, batch, microbatches):
+    """One microbatch's trunk forward, cross-entropy (forward and
+    backward, to the hidden state and the unembedding), trunk backward
+    (remat's second forward included), and one optimizer update, each on
+    the host's clock between synchronisations. Updates the model."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.losses import vocab_parallel_ce
+    from repro_torch.train.trainer import trainable_params
+
+    params = trainable_params(model)
+    toks = batch["tokens"][:batch["tokens"].shape[0] // microbatches]
+    inp, labels = toks[:, :-1], toks[:, 1:]
+    B, S = labels.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=DEVICE).expand(B, S)
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    with torch.enable_grad():
+        hidden, _, _ = timed("forward", lambda: tfm.forward(
+            model, tokens=inp, positions=positions, mode="train"))
+        h = hidden.detach().requires_grad_(True)
+        w = model.embed if cfg.tie_embeddings else model.unembed
+        dh, _ = timed("ce", lambda: torch.autograd.grad(
+            vocab_parallel_ce(h, tfm.unembed_weight(model), labels, cfg),
+            (h, w)))
+        grads = timed("backward", lambda: torch.autograd.grad(
+            hidden, list(params.values()), dh, allow_unused=True,
+            materialize_grads=True))
+    grads = {k: g.float() for k, g in zip(params, grads)}
+    timed("optimizer", lambda: opt.update(grads, opt_state, params))
+    per_step = {k: v * (1 if k == "optimizer" else microbatches)
+                for k, v in ms.items()}
+    return dict(microbatch_ms=ms, step_ms=per_step)
+
+
+def train_phase(kernels):
+    """6a: ``launch.train`` on Qwen2-1.5B at full width and depth; the
+    loss must fall (the mean of the last five steps below the first
+    five's, and the held-out loss below the seeded weights'), each step
+    must launch exactly ``train_launches``' kernels and no plain
+    version; a ``train`` line with step times,
+    tokens/s, device busy and idle share of a profiled step, peak memory,
+    the loss curve, MFU and the step split into forward, backward, CE and
+    optimizer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(TRAIN_ARCH)
+    a = TRAIN_RUN
+    mb = a["microbatches"]
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(a["steps"]), "--batch",
+            str(a["batch"]), "--seq", str(a["seq"]), "--microbatches",
+            str(mb), "--lr", str(a["lr"]), "--ckpt", ""]
+    per_step = train_launches(cfg, mb)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, a["batch"], a["seq"])
+    held = [device_batch(pipe, s) for s in HELD_OUT_STEPS]
+    fresh = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    held_before = held_out_loss(fresh, cfg, held)
+    del fresh
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls_counted() as plain:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_mod.train(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    check_launches("train", counts,
+                   {k: v * a["steps"] for k, v in per_step.items()}, plain)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = run.losses
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    held_after = held_out_loss(run.model, cfg, held)
+    if not (len(losses) == a["steps"] and last < first
+            and held_after < held_before and all(np.isfinite(losses))):
+        raise AssertionError(f"train: the loss did not fall: {losses}, "
+                             f"held-out {held_before} -> {held_after}")
+    n_params = sum(p.numel() for p in run.model.parameters())
+    tokens = a["batch"] * a["seq"]
+    steady = run.step_seconds[2:]
+    step_s = statistics.median(steady)
+
+    opt, step_fn = train_mod.build(cfg, run.model, lr=a["lr"],
+                                   total_steps=a["steps"],
+                                   num_microbatches=mb)
+    batch = device_batch(pipe, a["steps"])
+    state = [run.state]
+
+    def one_step():
+        state[0], _ = step_fn(state[0], batch)
+
+    prof = profile_calls(TRAIN_ARCH, "train_step", one_step, 2, per_step,
+                         profiled_n=1)
+    split = train_breakdown(cfg, run.model, opt, state[0][1], batch, mb)
+    flops = model_flops(cfg, n_params, a["batch"], a["seq"])
+    busy = prof["device_busy_ms_per_call"]
+    log("train", json.dumps(dict(
+        arch=TRAIN_ARCH, params=n_params, param_counts=cfg.param_counts(),
+        dtype=cfg.param_dtype, remat=cfg.remat, optimizer="adamw",
+        **a, tokens_per_step=tokens, wall_s=wall,
+        step_ms=[1e3 * t for t in run.step_seconds],
+        step_ms_median=1e3 * step_s, tokens_per_s=tokens / step_s,
+        device_busy_ms_per_step=busy, idle_share=prof["idle_share"],
+        host_ms_profiled_step=prof["host_ms_per_call"],
+        peak_memory_gb=peak_gb, losses=losses, first5_mean=first,
+        last5_mean=last, held_out_steps=HELD_OUT_STEPS,
+        held_out_loss_before=held_before, held_out_loss_after=held_after,
+        launches_per_step=per_step,
+        launches=counts, plain_calls=plain, split=split,
+        model_tflop_per_step=flops / 1e12,
+        mfu=flops / step_s / PEAK_BF16_FLOPS,
+        mfu_device_busy=(flops / (busy / 1e3) / PEAK_BF16_FLOPS
+                         if isinstance(busy, float) else "not measured"))))
+    del run, state, step_fn, opt
+    torch.cuda.empty_cache()
+    return {"train": a["steps"] * per_step["flash_attention"]}, \
+        {"train": a["steps"] * per_step["flash_attention_bwd"]}
+
+
+def step_check_phase(kernels):
+    """6b: one AdamW step of Qwen2-1.5B at full width, 2 layers, float32,
+    through the kernels and through the plain versions (``attention_ref``
+    called in ``flash_attention``'s place, autograd through it), on the
+    same weights and batch: the loss, every gradient leaf and the updated
+    parameters agree within the stated bars."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.trainer import trainable_params, value_and_grad
+
+    c = STEP_CHECK
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=c["layers"],
+                              dtype="float32", param_dtype="float32")
+    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    plain_model = copy.deepcopy(model)
+    batch = device_batch(SyntheticTokenPipeline(cfg.vocab_size, c["batch"],
+                                                c["seq"]), 0)
+    opt = optim.adamw(optim.cosine_schedule(c["lr"], 0, 10))
+    pk, pp = trainable_params(model), trainable_params(plain_model)
+    sk, sp = opt.init(pk), opt.init(pp)
+    with plain_calls_counted() as plain:
+        kernels.reset_launch_counts()
+        (lk, _), gk = value_and_grad(model, batch, cfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    check_launches("train step check (kernels)", counts,
+                   train_launches(cfg, 1), plain)
+    kernels.reset_launch_counts()
+    with mock.patch.object(tfm, "flash_attention", attention_ref):
+        (lp, _), gp = value_and_grad(plain_model, batch, cfg)
+        torch.cuda.synchronize()
+    check_launches("train step check (plain)", kernels.launch_counts(), {},
+                   {})
+    loss_err = abs(float(lk) - float(lp))
+    if loss_err > 1e-5 * abs(float(lp)):
+        raise AssertionError(f"train step check: loss {float(lk)} through "
+                             f"the kernels, {float(lp)} through plain")
+    grad_rel = {}
+    for name in gp:
+        scale = float(gp[name].abs().max())
+        err = float((gk[name] - gp[name]).abs().max())
+        grad_rel[name] = err / scale if scale else err
+        if err > STEP_GRAD_TOL * scale:
+            raise AssertionError(f"train step check: gradient of {name} "
+                                 f"differs by {err}, {STEP_GRAD_TOL} of "
+                                 f"{scale} allowed")
+    opt.update(gk, sk, pk)
+    opt.update(gp, sp, pp)
+    with torch.no_grad():
+        diff = torch.cat([(pk[n] - pp[n]).abs().flatten() for n in pk])
+    lr = c["lr"]
+    share = float((diff > STEP_ATOL * lr).float().mean())
+    worst = float(diff.max())
+    if share > STEP_SHARE or worst > STEP_ATOL_ALL * lr:
+        raise AssertionError(f"train step check: updated parameters differ "
+                             f"by up to {worst} ({share} of the elements "
+                             f"beyond {STEP_ATOL * lr})")
+    worst_leaf = max(grad_rel, key=grad_rel.get)
+    log("train_step_check", json.dumps(dict(
+        arch=TRAIN_ARCH, layers=c["layers"], dtype="float32",
+        batch=c["batch"], seq=c["seq"], lr=lr, loss_kernels=float(lk),
+        loss_plain=float(lp), loss_abs_err=loss_err,
+        grad_rel_err_max=grad_rel[worst_leaf], grad_worst_leaf=worst_leaf,
+        grad_leaves=len(grad_rel), param_abs_err_max=worst,
+        param_share_beyond=share, launches=counts,
+        tol=dict(grad=STEP_GRAD_TOL, param_atol_lr=STEP_ATOL,
+                 param_share=STEP_SHARE, param_atol_all_lr=STEP_ATOL_ALL))))
+    del model, plain_model, gk, gp, sk, sp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def resume_phase(kernels):
+    """6c: a run stopped by a failure at step ``fail_at`` and resumed from
+    its checkpoint equals the uninterrupted run bit for bit, in every
+    parameter, moment, error-feedback leaf and the step: the reference's
+    contract in ``test_train_controller_resume_after_failure``, at 2
+    layers of full width with int8 gradient compression."""
+    import os
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager, latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed.collectives import init_error_state
+    from repro_torch.distributed.fault_tolerance import TrainController
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import trainable_params
+
+    r = RESUME
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=r["layers"],
+                              vocab_size=r["vocab"])
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, r["batch"], r["seq"])
+
+    def fresh():
+        model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                               DEVICE)
+        opt, step_fn = train_mod.build(cfg, model, compress=True,
+                                       lr=r["lr"], total_steps=r["steps"])
+        params = trainable_params(model)
+        return step_fn, (params, opt.init(params), init_error_state(params))
+
+    class Failure(RuntimeError):
+        pass
+
+    def injector(step):
+        if step == r["fail_at"]:
+            raise Failure(step)
+
+    def host(state):
+        return {k: v.detach().cpu().clone()
+                for k, v in _flat_state(state).items()}
+
+    batch_fn = functools.partial(device_batch, pipe)
+    times = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        step_fn, state = fresh()
+        final, step_a, _ = TrainController(
+            step_fn, batch_fn, train_mod.NoCheckpoints(),
+            max_steps=r["steps"]).run(state, install_sigterm=False)
+        want = host(final)
+        del final, state, step_fn
+        times["uninterrupted_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(os.path.join(d, "ckpt"),
+                                save_interval=r["every"], async_save=False)
+        step_fn, state = fresh()
+        try:
+            TrainController(step_fn, batch_fn, mgr, max_steps=r["steps"],
+                            failure_injector=injector).run(
+                state, install_sigterm=False)
+            raise AssertionError("resume check: the failure was not raised")
+        except Failure:
+            pass
+        del state, step_fn
+        saved = latest_step(mgr.dir)
+        if saved != r["fail_at"]:
+            raise AssertionError(f"resume check: latest checkpoint {saved}, "
+                                 f"the crash path must save {r['fail_at']}")
+        step_fn, state = fresh()
+        found = mgr.restore_latest(state, DEVICE)
+        train_mod.copy_state(state, found[1])
+        final, step_b, _ = TrainController(
+            step_fn, batch_fn, mgr, max_steps=r["steps"]).run(
+            state, start_step=saved, install_sigterm=False)
+        got = host(final)
+        times["interrupted_and_resumed_s"] = time.perf_counter() - t0
+        del final, state, step_fn
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if step_a != step_b or sorted(want) != sorted(got) or differ:
+        raise AssertionError(f"resume check: the resumed run differs from "
+                             f"the uninterrupted one in {differ[:5]} "
+                             f"({len(differ)} leaves)")
+    log("train_resume", json.dumps(dict(
+        arch=TRAIN_ARCH, **r, dtype=cfg.param_dtype, compress_grads=True,
+        leaves=len(want), elements=sum(t.numel() for t in want.values()),
+        bitwise_equal=True, final_step=step_b, resumed_from=saved,
+        **times)))
+    torch.cuda.empty_cache()
+
+
+def _flat_state(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_state(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tree}
+
+
 def matern_entry(rows, post_rows, by_path, main):
     """``matern_score``'s item of the ``kernels`` line. The main path
     launches the posterior entry, so the item's times are its cold and
@@ -2965,13 +3500,13 @@ def matern_entry(rows, post_rows, by_path, main):
                     for s in (MAIN_SHAPE, CEILING_SHAPE)})
 
 
-def kernel_entry(name, replaces, rows, main, by_path):
+def kernel_entry(name, replaces, rows, main, by_path, source=None):
     """A kernel's item of the ``kernels`` line; ``ms`` is the cold time
     where the phase took one (``ms_warm`` then beside it)."""
     row = next(r for r in rows if r["name"] == main)
     warm = {"ms_warm": row["ms"]} if "ms_cold" in row else {}
     return dict(name=name, route="cuda",
-                source=f"src/repro_torch/kernels/{name}/{name}.cu",
+                source=source or f"src/repro_torch/kernels/{name}/{name}.cu",
                 replaces=replaces, launches=sum(by_path.values()),
                 launches_by_path=by_path,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -3007,6 +3542,7 @@ def main() -> int:
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)))
     libs = {"matern_score": ms_kernel.LIB, "flash_attention": fa_kernel.LIB,
+            "flash_attention_bwd": fa_kernel.BWD_LIB,
             "decode_attention": da_kernel.LIB, "rglru_scan": rg_kernel.LIB,
             "rwkv6_scan": rw_kernel.LIB}
     t0 = time.perf_counter()
@@ -3046,6 +3582,7 @@ def main() -> int:
     post_rows = timed("2 matern_posterior", posterior_phase, kernels,
                       shapes, main_shapes)
     flash_rows = timed("2 flash_attention", flash_phase, kernels)
+    flash_bwd_rows = timed("2 flash_attention_bwd", flash_bwd_phase, kernels)
     decode_rows = timed("2 decode_attention", decode_phase, kernels)
     rglru_rows = timed("2 rglru_scan", rglru_phase, kernels)
     rwkv_rows = timed("2 rwkv6_scan", rwkv6_phase, kernels)
@@ -3085,6 +3622,16 @@ def main() -> int:
             for name, n in counts.items():
                 if n:
                     by_path[name][f"{path}:{run.arch}"] = n
+
+    # phase 6: training
+    fwd, bwd = timed("6a train", train_phase, kernels)
+    step_counts = timed("6b step check", step_check_phase, kernels)
+    timed("6c resume", resume_phase, kernels)
+    for name, train_counts in (("flash_attention", fwd),
+                               ("flash_attention_bwd", bwd)):
+        by_path[name].update({f"{path}:{TRAIN_ARCH}": n for path, n
+                              in train_counts.items()})
+        by_path[name][f"train_step_check:{TRAIN_ARCH}"] = step_counts[name]
     for name, paths in by_path.items():
         if not paths:
             raise AssertionError(f"{name} was launched on no main path")
@@ -3102,6 +3649,14 @@ def main() -> int:
         kernel_entry("flash_attention",
                      "src/repro/kernels/flash_attention/kernel.py:84",
                      flash_rows, FLASH_MAIN, by_path["flash_attention"]),
+        kernel_entry(
+            "flash_attention_bwd",
+            "src/repro/kernels/flash_attention/kernel.py:84 (the forward; "
+            "the reference has no backward kernel: it differentiates its "
+            "jnp naive_attention with XLA)",
+            flash_bwd_rows, FLASH_BWD_MAIN, by_path["flash_attention_bwd"],
+            source="src/repro_torch/kernels/flash_attention/"
+                   "flash_attention_bwd.cu"),
         kernel_entry("decode_attention",
                      "src/repro/kernels/decode_attention/kernel.py:63",
                      decode_rows, DECODE_MAIN, by_path["decode_attention"]),

@@ -12,7 +12,8 @@ A tree is nested dicts, lists and tuples whose leaves are tensors,
 numpy arrays or Python scalars. Its flat keys are the reference's: the
 path of a leaf joined with ``/``, dict keys visited in sorted order (as
 ``jax.tree_util`` visits them), sequence positions as ``str(i)``.
-Tensors are written as ``.cpu().numpy()``. ``process_index`` and
+Tensors are written as ``.cpu().numpy()``, bfloat16 ones as their bit
+patterns (``BF16_HOST``), restored bit for bit. ``process_index`` and
 ``process_count`` come from ``torch.distributed`` when it is
 initialised, else 0 and 1.
 
@@ -64,10 +65,28 @@ def _flatten(tree, prefix=()):
     return flat
 
 
+# numpy has no bfloat16: a bfloat16 tensor is written as its 16-bit
+# patterns under a one-field structured dtype that names it, and read
+# back bit for bit
+BF16_HOST = np.dtype([("bfloat16", "<i2")])
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(BF16_HOST)
+        return t.cpu().numpy()
     return np.asarray(leaf)
+
+
+def to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A saved leaf as a tensor on ``device`` with the dtype it was saved
+    with (``BF16_HOST`` leaves as bfloat16)."""
+    if a.dtype == BF16_HOST:
+        bits = np.array(a, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
 
 
 def _map_leaves(fn, tree, prefix=()):
@@ -264,8 +283,7 @@ def restore(ckpt_dir: str, step: int, template: Any,
     ``device`` with the dtype it was saved with."""
     dev = resolve_device(device)
     flat = load_flat(ckpt_dir, step)
-    return _map_leaves(lambda k, _: torch.as_tensor(flat[k], device=dev),
-                       template)
+    return _map_leaves(lambda k, _: to_tensor(flat[k], dev), template)
 
 
 class CheckpointManager:

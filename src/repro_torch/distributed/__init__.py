@@ -1,3 +1,4 @@
 """Distribution helpers of the port: scenario packing, admission
-placement (``sharding``) and the lane pools' heartbeat monitor
-(``fault_tolerance``)."""
+placement (``sharding``), the heartbeat monitor, elastic data assignment
+and the training controller (``fault_tolerance``), and int8 gradient
+compression (``collectives``)."""

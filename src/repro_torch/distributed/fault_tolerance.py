@@ -1,11 +1,18 @@
-"""Liveness and straggler tracking for the streaming server's lane pools:
-``HeartbeatMonitor``, the port's own copy of the monitor in
-``repro/distributed/fault_tolerance.py`` (host code, no device work).
-``elastic_assignment`` and ``TrainController`` belong to training and
-are not ported yet.
+"""Fault tolerance and elasticity, the port's own copy of
+``repro/distributed/fault_tolerance.py`` (host code, no device work):
+
+  * ``HeartbeatMonitor`` — liveness and straggler tracking (the
+    streaming server's lane pools, the fleet);
+  * ``elastic_assignment`` — the deterministic, stateless (step, alive
+    hosts) -> data shard map;
+  * ``TrainController`` — checkpoint every k steps, auto-resume,
+    SIGTERM-safe shutdown and a failure-injection hook; the crash path
+    saves the last completed step.
 """
 from __future__ import annotations
 
+import dataclasses
+import signal
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -80,3 +87,68 @@ class HeartbeatMonitor:
         for h in out:
             self.step_times[h] = []
         return out
+
+
+# ---------------------------------------------------------------------------
+# elastic data assignment
+# ---------------------------------------------------------------------------
+
+
+def elastic_assignment(step: int, alive_hosts: List[int],
+                       global_batch: int) -> Dict[int, tuple]:
+    """Deterministic (step, alive-set) -> {host: (offset, size)} split of
+    the global batch. Pure function of its inputs: every host computes the
+    same map with no coordination; when a host dies, the next step's map
+    redistributes its share."""
+    alive = sorted(alive_hosts)
+    n = len(alive)
+    base = global_batch // n
+    rem = global_batch % n
+    out, off = {}, 0
+    # rotate the remainder so the extra sample load round-robins over steps
+    for i, h in enumerate(alive):
+        size = base + (1 if (i + step) % n < rem else 0)
+        out[h] = (off, size)
+        off += size
+    return out
+
+
+# ---------------------------------------------------------------------------
+# controller
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TrainController:
+    """Preemption-safe training driver around a step function."""
+    step_fn: Callable                      # (state, batch) -> (state, metrics)
+    batch_fn: Callable                     # (step) -> batch
+    ckpt_manager: "object"                 # checkpoint.CheckpointManager
+    max_steps: int = 1000
+    failure_injector: Optional[Callable] = None  # (step) -> None | raises
+
+    def run(self, state, start_step: int = 0, install_sigterm: bool = True):
+        self._stop = False
+
+        def on_term(signum, frame):
+            self._stop = True
+
+        prev = None
+        if install_sigterm:
+            prev = signal.signal(signal.SIGTERM, on_term)
+        metrics = None
+        step = start_step
+        try:
+            while step < self.max_steps and not self._stop:
+                if self.failure_injector is not None:
+                    self.failure_injector(step)
+                state, metrics = self.step_fn(state, self.batch_fn(step))
+                step += 1
+                self.ckpt_manager.maybe_save(step, state)
+        finally:
+            # preemption / crash path: persist the last completed step
+            self.ckpt_manager.maybe_save(step, state, force=True)
+            self.ckpt_manager.wait()
+            if install_sigterm and prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+        return state, step, metrics

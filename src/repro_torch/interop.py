@@ -11,7 +11,9 @@ both packages the same GP and constraint surface.
 
 :func:`model_from_reference` carries a ``repro`` model's parameter
 pytree (``transformer.init_model``) into the port's ``Transformer``,
-keeping each leaf's dtype, and :func:`vgg19_from_reference` a VGG19's
+keeping each leaf's dtype; :func:`params_to_reference` is its inverse,
+which the training tests use to hold gradients and updated parameters
+to the reference's leaf by leaf; and :func:`vgg19_from_reference` a VGG19's
 into ``models.vgg``'s layout. A JAX bfloat16 leaf arrives as numpy with
 dtype ``ml_dtypes.bfloat16``, which neither ``np.issubdtype(...,
 np.floating)`` nor ``torch.tensor`` accepts: it goes through float32,
@@ -97,6 +99,53 @@ def model_from_reference(cfg, np_params, device):
                 put_tree(model.layers[layer], group[f"b{i}"],
                          take=r if reps > 1 else None)
     return model
+
+
+def params_to_reference(model, cfg, tensors=None) -> dict:
+    """The reference's parameter pytree, numpy leaves, from the port's
+    model: the inverse of :func:`model_from_reference`. ``tensors`` maps
+    the model's parameter names to tensors of their shapes (gradients,
+    say) and defaults to the parameters themselves. Each group's layers
+    are stacked on a leading axis in the reference's layer order where
+    the group repeats; bfloat16 leaves come back as float32 (which holds
+    them exactly), the others in their own dtype."""
+    from repro_torch.models import transformer as tfm
+
+    src = dict(model.named_parameters()) if tensors is None else tensors
+
+    def host(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    def nest(flat: dict) -> dict:
+        out: dict = {}
+        for name, leaf in flat.items():
+            *path, last = name.split(".")
+            d = out
+            for k in path:
+                d = d.setdefault(k, {})
+            d[last] = leaf
+        return out
+
+    tree = {"embed": host(src["embed"]),
+            "final_norm": nest({n: host(src[f"final_norm.{n}"]) for n, _ in
+                                model.final_norm.named_parameters()})}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = host(src["unembed"])
+    groups = {}
+    for gi, kinds, reps, idx in tfm.group_layers(cfg):
+        group = {}
+        for i in range(len(kinds)):
+            layers = [row[i] for row in idx]
+            names = [n for n, _ in model.layers[layers[0]].named_parameters()]
+            leaves = {}
+            for n in names:
+                vals = [host(src[f"layers.{layer}.{n}"]) for layer in layers]
+                leaves[n] = np.stack(vals) if reps > 1 else vals[0]
+            group[f"b{i}"] = nest(leaves)
+        groups[f"g{gi}"] = group
+    tree["groups"] = groups
+    return tree
 
 
 def vgg19_from_reference(np_params, device) -> dict:

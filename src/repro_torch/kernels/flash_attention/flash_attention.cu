@@ -76,6 +76,7 @@
 namespace {
 
 constexpr float kMasked = -1e30f;  // the reference's mask value
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {  // in elements
   long long b, s, h;
@@ -176,9 +177,10 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
 flash_attention_kernel_tc(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                          Strides qs, Strides ks, Strides vs, Strides os,
-                          int Sq, int Skv, int hd, int group, int causal,
-                          int window, float scale_log2) {
+                          float* __restrict__ lse, Strides qs, Strides ks,
+                          Strides vs, Strides os, int Sq, int Skv, int hd,
+                          int group, int causal, int window,
+                          float scale_log2) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ;
   constexpr int BK = C::BK;
@@ -357,6 +359,11 @@ flash_attention_kernel_tc(const bf16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     den[r] = (l == 0.0f) ? 1.0f : l;
+    // the row's log-sum-exp of the log2-scaled scores, for the backward
+    const int qi = row0 + r * 8;
+    if (lse != nullptr && (lane & 3) == 0 && qi < Sq)
+      lse[((long long)b * gridDim.y + h) * Sq + qi] =
+          l > 0.0f ? m_r[r] + log2f(l) : m_r[r];
   }
   bf16* o_w = q_s + warp * 16 * LD;
   const int g = lane >> 2;
@@ -382,9 +389,9 @@ flash_attention_kernel_tc(const bf16* __restrict__ q,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-           Strides ks, Strides vs, Strides os, int B, int Sq, int Skv,
-           int Hq, int Hkv, int hd, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Strides qs, Strides ks, Strides vs, Strides os, int B, int Sq,
+           int Skv, int Hq, int Hkv, int hd, int causal, int window,
            cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -395,8 +402,8 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
   flash_attention_kernel_tc<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), qs, ks, vs, os, Sq,
-      Skv, hd, Hq / Hkv, causal, window, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, qs, ks, vs, os,
+      Sq, Skv, hd, Hq / Hkv, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,9 +425,9 @@ __global__ void __launch_bounds__(kBQ * (MAXD / kSlice))
 flash_attention_kernel_f32(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           Strides qs, Strides ks, Strides vs, Strides os,
-                           int Sq, int Skv, int hd, int group, int causal,
-                           int window, float scale) {
+                           float* __restrict__ lse, Strides qs, Strides ks,
+                           Strides vs, Strides os, int Sq, int Skv, int hd,
+                           int group, int causal, int window, float scale) {
   constexpr int TPR = MAXD / kSlice;      // threads per q row
   constexpr int NT = kBQ * TPR;
   extern __shared__ float smem[];
@@ -510,6 +517,9 @@ flash_attention_kernel_f32(const float* __restrict__ q,
     }
   }
 
+  if (live && lse != nullptr && sl == 0)  // in log2 units, as the bf16 kernel
+    lse[((long long)b * gridDim.y + h) * Sq + qi] =
+        (l > 0.0f ? m + logf(l) : m) * kLog2e;
   if (live) {
     const float den = (l == 0.0f) ? 1.0f : l;
     float* op = o + b * os.b + (long long)qi * os.s + h * os.h;
@@ -522,9 +532,9 @@ flash_attention_kernel_f32(const float* __restrict__ q,
 }
 
 template <int MAXD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-           Strides ks, Strides vs, Strides os, int B, int Sq, int Skv,
-           int Hq, int Hkv, int hd, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Strides qs, Strides ks, Strides vs, Strides os, int B, int Sq,
+           int Skv, int Hq, int Hkv, int hd, int causal, int window,
            cudaStream_t stream) {
   constexpr int threads = kBQ * (MAXD / kSlice);
   const size_t smem = 2 * (size_t)kBK * MAXD * sizeof(float);
@@ -535,8 +545,8 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_attention_kernel_f32<MAXD><<<grid, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
-      Sq, Skv, hd, Hq / Hkv, causal, window, 1.0f / sqrtf((float)hd));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs,
+      os, Sq, Skv, hd, Hq / Hkv, causal, window, 1.0f / sqrtf((float)hd));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,12 +554,12 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
 
 // the 64-, 128- or 256-wide instance of one dtype's kernel
 #define FLASH_DISPATCH(NS)                                                   \
-  (hd <= 64 ? NS::launch<64>(q, k, v, o, qs, ks, vs, os, B, Sq, Skv, Hq,    \
-                             Hkv, hd, causal, window, st)                    \
-   : hd <= 128 ? NS::launch<128>(q, k, v, o, qs, ks, vs, os, B, Sq, Skv, Hq, \
-                                 Hkv, hd, causal, window, st)                \
-               : NS::launch<256>(q, k, v, o, qs, ks, vs, os, B, Sq, Skv, Hq, \
-                                 Hkv, hd, causal, window, st))
+  (hd <= 64 ? NS::launch<64>(q, k, v, o, lse, qs, ks, vs, os, B, Sq, Skv,   \
+                             Hq, Hkv, hd, causal, window, st)                \
+   : hd <= 128 ? NS::launch<128>(q, k, v, o, lse, qs, ks, vs, os, B, Sq,     \
+                                 Skv, Hq, Hkv, hd, causal, window, st)       \
+               : NS::launch<256>(q, k, v, o, lse, qs, ks, vs, os, B, Sq,     \
+                                 Skv, Hq, Hkv, hd, causal, window, st))
 
 }  // namespace
 
@@ -561,8 +571,11 @@ extern "C" {
 // contiguous head dim. dtype: 0 = float32, 1 = bfloat16. hd must be a
 // multiple of 8 up to 256, and Hq a multiple of Hkv. For bfloat16 every
 // base pointer must be 16-byte aligned and every stride a multiple of 8.
+// lse, when not null, receives each row's log-sum-exp of the scores times
+// log2(e) / sqrt(hd) (base 2), float32 (B,Hq,Sq) contiguous: what the
+// backward recomputes P from. Null at inference: nothing more is written.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, long long qsb, long long qss,
+                           void* o, float* lse, long long qsb, long long qss,
                            long long qsh, long long ksb, long long kss,
                            long long ksh, long long vsb, long long vss,
                            long long vsh, long long osb, long long oss,

@@ -1,21 +1,34 @@
-"""Public wrapper of the ``flash_attention`` kernel. Counterpart of
+"""Public wrappers of the ``flash_attention`` kernels. Counterpart of
 ``repro/kernels/flash_attention/ops.py``.
 
-For tensors on the CPU it returns the plain PyTorch version
-(``ref.py``). For CUDA tensors it launches the hand-written kernel
-(``kernel.py``) or raises: there is no fallback. Unlike the TPU wrapper
-it pads nothing; the kernel masks ragged Sq and Skv itself. bfloat16
-runs on the tensor cores with 16-byte copies, so its tensors must be
-16-byte aligned with strides in 16-byte steps; a tensor that is not
-raises, it never takes a slower path.
-``flash_attention.launches`` counts the kernel's launches.
+For tensors on the CPU they return the plain PyTorch versions
+(``ref.py``), and autograd runs through them. For CUDA tensors they
+launch the hand-written kernels (``kernel.py``) or raise: there is no
+fallback. Unlike the TPU wrapper they pad nothing; the kernels mask
+ragged Sq and Skv themselves. bfloat16 runs the forward on the tensor
+cores with 16-byte copies, so its tensors must be 16-byte aligned with
+strides in 16-byte steps; a tensor that is not raises, it never takes a
+slower path.
+
+``flash_attention`` is the model's entry. On CUDA tensors, when autograd
+records (grad enabled and an input requires grad), it goes through
+``FlashAttention``, a ``torch.autograd.Function`` whose forward also
+writes each row's log-sum-exp and whose backward is the backward kernel
+(``flash_attention_bwd``); otherwise it launches the forward alone.
+``flash_attention_fwd`` and ``flash_attention_bwd`` are the two kernels
+as plain calls. ``flash_attention.launches`` counts the forward's
+launches, ``flash_attention_bwd.launches`` the backward's (one call of
+its four CUDA kernels is one launch).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import needs_backward
 from repro_torch.kernels.flash_attention import kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -54,13 +67,89 @@ def _check(q, k, v, window):
                                  "16-byte steps")
 
 
+def _device(q, what):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {q.device}")
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
+    """The forward with its second output: (out (B,Sq,Hq,hd) in q's
+    dtype, lse float32 (B,Hq,Sq), each row's log-sum-exp in base 2)."""
+    _device(q, "flash_attention")
+    if q.device.type == "cpu":
+        return (attention_ref(q, k, v, causal=causal, window=window),
+                attention_lse_ref(q, k, causal=causal, window=window))
+    _check(q, k, v, window)
+    B, Sq, Hq, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    kernel.launch(q, k, v, out, causal, window, lse=lse)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, out, lse, dout):
+    B, Sq, Hq, _ = q.shape
+    for name, t in dict(out=out, dout=dout).items():
+        if (t.device != q.device or t.dtype != q.dtype
+                or t.shape != q.shape or t.stride(-1) != 1):
+            raise ValueError(f"flash_attention_bwd: {name} must match q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device} "
+                             "with a contiguous head dim")
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (B, Hq, Sq) or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(B, Hq, Sq)} on {q.device}")
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` at cotangent ``dout``, in the
+    inputs' dtypes. ``out`` and ``lse`` are the forward's outputs
+    (``flash_attention_fwd``); the plain version for CPU tensors
+    recomputes what it needs from q, k and v. ``dout`` may be strided:
+    it is made contiguous."""
+    _device(q, "flash_attention_bwd")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, dout, causal=causal,
+                                 window=window)
+    _check(q, k, v, window)
+    dout = dout.contiguous()
+    _check_bwd(q, k, out, lse, dout)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    kernel.launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernels under autograd: the forward keeps q, k, v, its output
+    and its log-sum-exp; the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q (B,Sq,Hq,hd); k, v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd) in q's dtype."""
+    _device(q, "flash_attention")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
-                         f"{q.device}")
+    if needs_backward(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)
     _check(q, k, v, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kernel.launch(q, k, v, out, causal, window)
@@ -69,3 +158,4 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -6,10 +6,11 @@ For tensors on the CPU it returns the plain PyTorch version
 (``kernel.py``) or raises: there is no fallback. Unlike the TPU wrapper
 it pads nothing; the kernel walks any S and masks ragged R itself.
 ``h_out``, when given, receives ``h_last`` (it may be ``h0`` itself, so
-a recurrent state is updated in place). ``rglru_scan.launches`` counts
-the kernel's launches. ``scan_plan`` gives, from shapes alone, the
-kernel's chunks, pieces, grid, shared memory, blocks an SM and waves, as
-``rglru_scan.cu`` chooses them.
+a recurrent state is updated in place). The kernel has no backward yet:
+a CUDA call that autograd would record raises (``kernels.autograd``).
+``rglru_scan.launches`` counts the kernel's launches. ``scan_plan``
+gives, from shapes alone, the kernel's chunks, pieces, grid, shared
+memory, blocks an SM and waves, as ``rglru_scan.cu`` chooses them.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.autograd import refuse_backward
 from repro_torch.kernels.rglru_scan import kernel
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -127,6 +129,7 @@ def rglru_scan(a, b, h0, h_out=None):
         if h_out is None:
             return hs, h_last
         return hs, h_out.copy_(h_last)
+    refuse_backward("rglru_scan", a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CUDA or the CPU, not "
                          f"{a.device}")

@@ -7,10 +7,12 @@ For tensors on the CPU it returns the plain PyTorch version
 it pads nothing; the kernel walks any S and any head dim up to 256.
 ``s_out``, when given, receives the final state (it may be ``s0``
 itself, so a recurrent state is updated in place: each block of the
-kernel reads its tile of the state before it writes it).
-``rwkv6_scan.launches`` counts the kernel's launches. ``scan_plan``
-gives, from shapes alone, the kernel's instance, tiles, chunk, grid and
-shared memory, as ``rwkv6_scan.cu`` chooses them.
+kernel reads its tile of the state before it writes it). The kernel
+has no backward yet: a CUDA call that autograd would record raises
+(``kernels.autograd``). ``rwkv6_scan.launches`` counts the kernel's
+launches. ``scan_plan`` gives, from shapes alone, the kernel's
+instance, tiles, chunk, grid and shared memory, as ``rwkv6_scan.cu``
+chooses them.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.autograd import refuse_backward
 from repro_torch.kernels.rwkv6_scan import kernel
 from repro_torch.kernels.rwkv6_scan.kernel import MAX_HEAD_DIM
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
@@ -135,6 +138,7 @@ def rwkv6_scan(r, k, v, logw, u, s0, s_out=None):
         if s_out is None:
             return o, s_last
         return o, s_out.copy_(s_last)
+    refuse_backward("rwkv6_scan", r, k, v, logw, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on CUDA or the CPU, not "
                          f"{r.device}")

@@ -22,7 +22,9 @@ def torch_dtype(name) -> torch.dtype:
 
 def new_param(shape, init: str = "normal", scale: float = 1.0, *,
               device, dtype) -> nn.Parameter:
-    """An uninitialized inference parameter that records its init rule."""
+    """An uninitialized parameter that records its init rule. It is
+    created frozen, for serving; training turns every parameter on
+    (``train.trainer.trainable_params``)."""
     p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                      requires_grad=False)
     p.init, p.init_scale = init, scale

@@ -65,7 +65,7 @@ class MoE(nn.Module):
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """cuBLAS float32 products at full precision inside the block."""
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,7 +87,7 @@ def _route(xt, router_w, cfg):
     (T, k) float32, (T, k) int64, and the Switch-style load-balance loss
     E * sum_e f_e p_e, f_e the share of top-k assignments to e."""
     T, k, E = xt.shape[0], cfg.top_k, cfg.n_experts
-    with _no_tf32():
+    with no_tf32():
         logits = xt.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)

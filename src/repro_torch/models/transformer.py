@@ -25,6 +25,14 @@ Unlike the reference, which returns a new cache, prefill and decode
 write the cache in place (and return it), so a decode step moves no more
 bytes than its one token and the recurrent states.
 
+Training (``mode="train"`` with grad enabled, ``train/trainer.py``)
+differentiates the same modules: on CUDA tensors through
+``flash_attention``'s backward kernel; the recurrent scans have no
+backward kernel yet and raise there (``kernels.autograd``), so
+RecurrentGemma and RWKV6 train on the CPU only. Parameters are created
+frozen (serving runs under ``inference_mode``); the trainer turns them
+on.
+
 Not ported yet: the mesh paths (``ShardCtx``, the vocab-sharded
 embedding lookup, padded heads, MoE's ``shard_map`` modes), which wait
 for the mesh tooling.
@@ -35,6 +43,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
@@ -381,11 +390,22 @@ def forward(model: Transformer, *, tokens=None, embeds=None, positions,
 def apply_layers(model: Transformer, x, positions, lo: int, hi: int,
                  cache=None, t=None, mode: str = "train"):
     """Layers [lo, hi) -> (x, the sum of their MoE aux losses, float32
-    zero without MoE)."""
+    zero without MoE). With ``cfg.remat``, a training forward that
+    autograd records keeps only each layer's input and runs the layer
+    again in the backward (``torch.utils.checkpoint``, non-reentrant), as
+    the reference's ``jax.checkpoint`` of each scanned cycle does: the
+    same values, each attention forward launched twice a step."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = (model.cfg.remat and mode == "train" and cache is None
+             and torch.is_grad_enabled())
     for i in range(lo, hi):
-        x, a = model.layers[i](x, positions,
-                               None if cache is None else cache[i], t, mode)
+        layer = model.layers[i]
+        if remat:
+            x, a = checkpoint(layer, x, positions, None, t, mode,
+                              use_reentrant=False)
+        else:
+            x, a = layer(x, positions, None if cache is None else cache[i],
+                         t, mode)
         if a is not None:
             aux = aux + a
     return x, aux

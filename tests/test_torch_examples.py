@@ -1,8 +1,11 @@
 """The port's examples (``examples/quickstart_torch.py``,
-``examples/serve_split_torch.py``) on the CPU (``--device cpu``), each
-against its reference counterpart: the quickstart finds the reference's
-Table 1 operating point, and split serving picks the split and power the
-reference's ``launch.serve`` picks for the same reduced architecture."""
+``examples/serve_split_torch.py``, ``examples/train_100m_torch.py`` and
+``examples/elastic_restart_torch.py``) on the CPU (``--device cpu``),
+each against its reference counterpart: the quickstart finds the
+reference's Table 1 operating point, split serving picks the split and
+power the reference's ``launch.serve`` picks for the same reduced
+architecture, the quick training preset's loss falls, and a preempted
+training run resumes from its checkpoint and finishes."""
 import runpy
 import types
 from pathlib import Path
@@ -41,3 +44,19 @@ def test_serve_split_picks_the_reference_s_split(arch, capsys):
     assert res.n_evals == ref.n_evals <= 15
     assert res.best_accuracy == ref.best_accuracy
     assert res.accuracies == ref.accuracies
+
+
+def test_train_100m_quick_preset_loss_falls(tmp_path, capsys):
+    losses = example("train_100m_torch.py").main(
+        ["--preset", "quick", "--steps", "40", "--device", "cpu",
+         "--ckpt", str(tmp_path / "ckpt")])
+    assert len(losses) == 40 and losses[-1] < losses[0]
+    assert "[example] ok" in capsys.readouterr().out
+
+
+def test_elastic_restart_resumes_training(tmp_path, capsys):
+    out = example("elastic_restart_torch.py").main(
+        ["--device", "cpu", "--ckpt", str(tmp_path / "ckpt")])
+    assert "resumed from step 12" in out
+    assert "done at step 25" in out
+    assert "[example] ok" in capsys.readouterr().out

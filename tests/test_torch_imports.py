@@ -26,15 +26,17 @@ from repro_torch.runtime.fleet import (FleetWorker, SimTransport, sim_fleet,
                                        socket_fleet)
 from repro_torch.runtime.stream import StreamingBayesSplitEdge
 from repro_torch.models.vgg import init_vgg19
+from repro_torch.launch import train as train_launch
 from benchmarks import (fig6_convergence_torch, fig7_space_torch,
                         fig8_regret_torch, fig9_ablation_torch,
                         fig10_seeds_torch, run_torch, table1_torch,
                         trace_robustness_torch)
 
 ROOT = Path(__file__).resolve().parents[1]
-quickstart_torch, serve_split_torch = (
+quickstart_torch, serve_split_torch, train_100m_torch = (
     types.SimpleNamespace(**runpy.run_path(str(ROOT / "examples" / name)))
-    for name in ("quickstart_torch.py", "serve_split_torch.py"))
+    for name in ("quickstart_torch.py", "serve_split_torch.py",
+                 "train_100m_torch.py"))
 
 PORT = ROOT / "src" / "repro_torch"
 
@@ -140,6 +142,26 @@ def test_scan_covers_the_figures_vgg19_and_the_examples():
     assert "repro_torch.models.vgg" in set(_port_modules())
 
 
+def test_scan_covers_training():
+    names = {str(p.relative_to(ROOT)) for p in SCANNED}
+    assert {"src/repro_torch/train/__init__.py",
+            "src/repro_torch/train/losses.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/trainer.py",
+            "src/repro_torch/data/__init__.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/tree.py",
+            "src/repro_torch/kernels/autograd.py",
+            "examples/train_100m_torch.py",
+            "examples/elastic_restart_torch.py"} <= names
+    assert {"repro_torch.train.trainer", "repro_torch.train.losses",
+            "repro_torch.train.optimizer", "repro_torch.data.pipeline",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.train"} <= set(_port_modules())
+
+
 @pytest.mark.parametrize("path", PORT_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_script_imports_with_jax_blocked(path):
@@ -226,6 +248,8 @@ def _vgg_batch():
     lambda: run_torch.main(["fig10_seeds"]),
     lambda: quickstart_torch.main([]),
     lambda: serve_split_torch.main([]),
+    lambda: train_launch.main(["--reduced", "--steps", "1", "--ckpt", ""]),
+    lambda: train_100m_torch.main(["--steps", "1", "--ckpt", ""]),
 ], ids=["BayesSplitEdge", "BasicBO", "BatchedBayesSplitEdge",
         "WholeRunBayesSplitEdge", "run_packed_shards", "device_params",
         "StreamingBayesSplitEdge", "sim_fleet", "FleetWorker",
@@ -235,7 +259,7 @@ def _vgg_batch():
         "fig9_ablation_torch", "fig9_ablation_torch-batched",
         "fig10_seeds_torch", "fig10_seeds_torch-batched",
         "trace_robustness_torch", "run_torch", "quickstart_torch",
-        "serve_split_torch"])
+        "serve_split_torch", "launch.train", "train_100m_torch"])
 def test_default_device_raises_without_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")

@@ -101,7 +101,10 @@ def test_rglru_apply_matches_reference(S, with_state, pallas):
                              (2, cw - 1, R))
     rstate = (dict(h=jnp.asarray(h), conv=jnp.asarray(conv))
               if with_state else None)
-    state = (dict(h=torch.as_tensor(h), conv=torch.as_tensor(conv))
+    # copies: the port writes its state in place, and jnp.asarray may
+    # alias a 64-byte-aligned numpy buffer that the reference's
+    # asynchronously dispatched computation has not read yet
+    state = (dict(h=torch.tensor(h), conv=torch.tensor(conv))
              if with_state else None)
     want, wstate = ref_rglru.rglru_apply(p, jnp.asarray(x), cfg, rstate)
     got, gstate = port_rglru.rglru_apply(mod, torch.as_tensor(x), state)
@@ -155,8 +158,9 @@ def test_rwkv_mixes_match_reference(S, with_state):
     H, hd, D = cfg.n_rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
     x, s, xp_tm, xp_cm = _rng_arrays(23, (2, S, D), (2, H, hd, hd), (2, D),
                                      (2, D))
-    state = (dict(s=torch.as_tensor(s), x_prev_tm=torch.as_tensor(xp_tm),
-                  x_prev_cm=torch.as_tensor(xp_cm)) if with_state else None)
+    # copies, as in test_rglru_apply_matches_reference
+    state = (dict(s=torch.tensor(s), x_prev_tm=torch.tensor(xp_tm),
+                  x_prev_cm=torch.tensor(xp_cm)) if with_state else None)
     rtm = (dict(s=jnp.asarray(s), x_prev=jnp.asarray(xp_tm))
            if with_state else None)
     rcm = dict(x_prev=jnp.asarray(xp_cm)) if with_state else None
