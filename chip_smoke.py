@@ -30,9 +30,12 @@ Phases, each of which raises on failure (non-zero exit):
    layer over its 2048 window at S 4096, Qwen1.5-MoE-A2.7B's and Kimi
    K2's heads, and the reference's kernel cases; against the float32
    plain backward on the same inputs and the plain emulation of its own
-   arithmetic within ``BWD_TOL`` of each tensor's largest magnitude, the
-   forward's log-sum-exp within ``LSE_ATOL``, twice bit for bit, timed
-   warm and cold beside SDPA's backward), ``decode_attention``
+   arithmetic (bf16: the tensor-core kernels, P and dS rounded to bf16)
+   within ``BWD_TOL`` of each tensor's largest magnitude, the forward's
+   log-sum-exp within ``LSE_ATOL``, twice bit for bit, timed warm and
+   cold beside SDPA's backward and the CUDA-core kernels' earlier time,
+   with the registers and spills of the kernels each row runs; its
+   tensor-core instances must build without spills), ``decode_attention``
    (also against the plain emulation of its splits, a row with no allowed
    slot among the shapes, and twice, bit for bit), both timed cold as
    well as warm,
@@ -161,8 +164,11 @@ Phases, each of which raises on failure (non-zero exit):
    float32, through the kernels and through the plain versions on the
    same weights and batch, the loss, every gradient leaf and the updated
    parameters within ``STEP_GRAD_TOL``, ``STEP_ATOL``/``STEP_SHARE`` and
-   ``STEP_ATOL_ALL``; (c) 2 layers at full width with the vocab cut to
-   32,000, bf16, int8 gradient compression, 6 steps with a checkpoint
+   ``STEP_ATOL_ALL``, and the same step in bf16 through the kernels (the
+   tensor-core backward), every gradient leaf within
+   ``STEP_GRAD_TOL_BF16`` of the float32 plain step's; (c) 2 layers at
+   full width with the vocab cut to 32,000, bf16, int8 gradient
+   compression, 6 steps with a checkpoint
    every 2 and a failure injected at step 3 through
    ``TrainController``: the resumed run equals the uninterrupted one bit
    for bit in every parameter, moment and error-feedback leaf.
@@ -266,9 +272,15 @@ FLASH_BWD_SHAPES = [
 FLASH_BWD_MAIN = "train"
 # backward vs the float32 plain backward on the same inputs, of each
 # tensor's largest magnitude: float32 differs in summation order only;
-# bfloat16 rounds the inputs' products nowhere but the outputs round to
-# bf16 (2^-9 relative) and D uses the bf16 output
+# bfloat16 rounds P and dS to bf16 before their tensor-core products (2^-9
+# relative each), the outputs round to bf16 (2^-9) and D uses the bf16
+# output: 3.0-6.6e-3 in the plain emulation of that arithmetic
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the backward's cold ms before its tensor-core redesign (final run of the
+# CUDA-core kernels on an H100 80GB HBM3 at 700 W, PERF.md)
+BWD_EARLIER_COLD_MS = dict(train=0.6948, train_f32=0.7017, ragged=0.6765,
+                           recurrentgemma_local=19.13, moe_train=0.8990,
+                           kimi_train=1.423)
 LSE_ATOL = 1e-4      # base-2 log-sum-exp, float32 sums in another order
 # decode attention: (name, B, T, last, q_pos, window, dtype, Hq, Hkv,
 # hd); slot p % T holds position p for p <= last, the rest are empty
@@ -2103,14 +2115,45 @@ def check_rel(name, shape, what, got, want, tol):
     return err, err / scale if scale else 0.0
 
 
-def flash_bwd_phase(kernels):
+def bwd_build(instances, hd, dtype):
+    """Registers and spills of the kernels a row runs that hold its
+    products: bf16 the tensor-core dq + dk/dv kernel, float32 the
+    CUDA-core dq and dk/dv kernels, of width 64, 128 or 256, from the
+    build log's ``-Xptxas -v``; None where this process did not build the
+    library. Raises where the instance is missing, or where a tensor-core
+    instance spills: its design keeps the accumulators in registers."""
+    if not instances:
+        return None
+    width = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    kinds = ((f"dqkv_kernel_tcILi{width}E",) if dtype == torch.bfloat16
+             else (f"dq_kernelILi{width}E", f"dkv_kernelILi{width}E"))
+    out = {}
+    for kind in kinds:
+        r = next((r for r in instances
+                  if f"flash_bwd_{kind}" in r["entry"]), None)
+        if r is None:
+            raise AssertionError(f"flash_attention_bwd: no instance {kind} "
+                                 "in the build log")
+        if dtype == torch.bfloat16 and (r.get("spill_stores")
+                                        or r.get("spill_loads")):
+            raise AssertionError(f"flash_attention_bwd instance "
+                                 f"{r['entry']} spills: {r}")
+        out[kind.split("_kernel")[0]] = {
+            k: r.get(k) for k in ("registers", "spill_stores", "spill_loads")}
+    return out
+
+
+def flash_bwd_phase(kernels, instances=()):
     """Each FLASH_BWD_SHAPES row: the forward's log-sum-exp against
     ``attention_lse_ref``; the backward kernel's dq, dk and dv against
     the plain backward (``attention_bwd_ref``, autograd through the
     plain forward, in float32 on the same inputs) and against the plain
-    emulation of its own arithmetic (``attention_bwd_tiled_ref``), each
-    within BWD_TOL of the tensor's largest magnitude; run twice, bit for
-    bit; timed warm and cold beside its bound and SDPA's backward."""
+    emulation of its own arithmetic (``attention_bwd_tiled_ref``, P and
+    dS rounded to bf16 on bf16 rows), each within BWD_TOL of the tensor's
+    largest magnitude; run twice, bit for bit; timed warm and cold beside
+    its bound, SDPA's backward and the CUDA-core kernels' earlier cold
+    time, with the registers and spills of the kernels it runs
+    (``instances``: the build log's ``ptxas_summary``)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_tiled_ref, attention_lse_ref)
@@ -2118,6 +2161,7 @@ def flash_bwd_phase(kernels):
     F = torch.nn.functional
     rows = []
     for name, B, S, window, dtype, Hq, Hkv, hd in FLASH_BWD_SHAPES:
+        t_row = time.perf_counter()
         rng = np.random.default_rng(S + hd + window + 1)
         q, k, v, do = (torch.as_tensor(rng.standard_normal(sh),
                                        dtype=torch.float32,
@@ -2130,9 +2174,13 @@ def flash_bwd_phase(kernels):
         want = kernels.attention_bwd_ref(q.float(), k.float(), v.float(),
                                          do.float(), causal=True,
                                          window=window)
-        emu = attention_bwd_tiled_ref(q, k, v, out, lse, do, True, window)
+        torch.cuda.synchronize()
+        t_emu = time.perf_counter()
+        emu = attention_bwd_tiled_ref(q, k, v, out, lse, do, True, window,
+                                      p_dtype=dtype)
         lse_want = attention_lse_ref(q, k, True, window)
         torch.cuda.synchronize()
+        t_emu = time.perf_counter() - t_emu
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"flash_attention_bwd at {name}: two calls "
                                  "on the same inputs differ")
@@ -2186,7 +2234,10 @@ def flash_bwd_phase(kernels):
                    ms_cold=ms_cold, plain_ms=ms["plain"],
                    library_ms=ms["library"], bound_ms=bound_ms,
                    bound_by=bound_by, bound_terms=terms, bytes=nbytes,
-                   pairs_per_head=pairs)
+                   pairs_per_head=pairs,
+                   earlier_ms_cold=BWD_EARLIER_COLD_MS.get(name),
+                   build=bwd_build(instances, hd, dtype),
+                   emulation_s=t_emu, seconds=time.perf_counter() - t_row)
         log("flash_attention_bwd", json.dumps(row))
         rows.append(row)
         del lib_out, want, emu
@@ -2668,9 +2719,11 @@ def kernel_class(name: str) -> str:
 
 
 # CUDA kernels one launch of a wrapper runs: a decode_attention call is
-# its splits and their merge (both names match kernel_class), a
-# flash_attention_bwd call its D, dq, dk/dv and group-sum kernels
-CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2, flash_attention_bwd=4)
+# its splits and their merge (both names match kernel_class), a bf16
+# flash_attention_bwd call its D, dq + dk/dv and group-sum kernels at
+# every shape (float32 runs dq and dk/dv apart, four; every profiled path
+# is bf16)
+CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2, flash_attention_bwd=3)
 PROFILE_RETRIES = 2
 # calls of a phase-5 path under the profiler: its events (tens of
 # thousands a call for the LMs) take Python tens of microseconds each to
@@ -3103,6 +3156,13 @@ STEP_CHECK = dict(layers=2, batch=2, seq=512, lr=1e-3)
 # gradients of the two routes: float32 sums in another order, through 2
 # layers and the CE; of each leaf's largest magnitude
 STEP_GRAD_TOL = 1e-4
+# 6b in bf16 (the same weights rounded to bf16, through the kernels)
+# against the float32 plain step: the attention kernels may carry into a
+# leaf's gradient the bf16 forward's error (ATTN_ATOL, 2e-2 of an output
+# of magnitude ~1) and the backward's (BWD_TOL, 2e-2 of each gradient's
+# largest magnitude), 4e-2 in all; bf16 rounding elsewhere in the step
+# adds less (at most 1.6e-2 through the plain attention on the card)
+STEP_GRAD_TOL_BF16 = ATTN_ATOL[torch.bfloat16] + BWD_TOL[torch.bfloat16]
 # the updated parameters: Adam's first step is g / (|g| + eps) an
 # element, so an element whose gradient is float32 noise (1e-7 of its
 # leaf's largest) may move anywhere within a sign flip (2 lr) between
@@ -3287,7 +3347,8 @@ def step_check_phase(kernels):
     through the kernels and through the plain versions (``attention_ref``
     called in ``flash_attention``'s place, autograd through it), on the
     same weights and batch: the loss, every gradient leaf and the updated
-    parameters agree within the stated bars."""
+    parameters agree within the stated bars; and the gradients of the
+    step in bf16 through the kernels (``step_check_bf16``)."""
     import copy
 
     from repro_torch.configs import get_config
@@ -3334,6 +3395,7 @@ def step_check_phase(kernels):
             raise AssertionError(f"train step check: gradient of {name} "
                                  f"differs by {err}, {STEP_GRAD_TOL} of "
                                  f"{scale} allowed")
+    bf16 = step_check_bf16(kernels, cfg, model, batch, gp)
     opt.update(gk, sk, pk)
     opt.update(gp, sp, pp)
     with torch.no_grad():
@@ -3354,10 +3416,54 @@ def step_check_phase(kernels):
         grad_leaves=len(grad_rel), param_abs_err_max=worst,
         param_share_beyond=share, launches=counts,
         tol=dict(grad=STEP_GRAD_TOL, param_atol_lr=STEP_ATOL,
-                 param_share=STEP_SHARE, param_atol_all_lr=STEP_ATOL_ALL))))
+                 param_share=STEP_SHARE, param_atol_all_lr=STEP_ATOL_ALL),
+        bf16=bf16)))
     del model, plain_model, gk, gp, sk, sp
     torch.cuda.empty_cache()
+    counts = dict(counts)
+    for name, n in bf16["launches"].items():
+        counts[name] = counts.get(name, 0) + n
     return counts
+
+
+def step_check_bf16(kernels, cfg, model, batch, want):
+    """6b in bf16: the float32 model's weights rounded to bf16 and the
+    same batch through the kernels (the bf16 forward and the tensor-core
+    backward), each gradient leaf within STEP_GRAD_TOL_BF16 of its
+    largest magnitude in the float32 plain step's (``want``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import value_and_grad
+
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    model16 = tfm.Transformer(cfg16, DEVICE)
+    with torch.no_grad():
+        for (name, p16), (name32, p32) in zip(model16.named_parameters(),
+                                              model.named_parameters()):
+            assert name == name32
+            p16.copy_(p32)
+    with plain_calls_counted() as plain:
+        kernels.reset_launch_counts()
+        (loss, _), got = value_and_grad(model16, batch, cfg16)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    check_launches("train step check (bf16 kernels)", counts,
+                   train_launches(cfg16, 1), plain)
+    rel = {}
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[name].float() - w).abs().max())
+        rel[name] = err / scale if scale else err
+    worst = max(rel, key=rel.get)
+    line = dict(loss=float(loss), grad_rel_err_max=rel[worst],
+                grad_worst_leaf=worst, grad_rel_err=rel,
+                tol=STEP_GRAD_TOL_BF16, launches=counts)
+    if rel[worst] > STEP_GRAD_TOL_BF16:
+        log("train_step_check_bf16", json.dumps(line))
+        raise AssertionError(f"train step check (bf16): gradient of {worst} "
+                             f"differs by {rel[worst]} of its largest "
+                             f"magnitude, {STEP_GRAD_TOL_BF16} allowed")
+    del model16, got
+    return line
 
 
 def resume_phase(kernels):
@@ -3500,9 +3606,11 @@ def matern_entry(rows, post_rows, by_path, main):
                     for s in (MAIN_SHAPE, CEILING_SHAPE)})
 
 
-def kernel_entry(name, replaces, rows, main, by_path, source=None):
+def kernel_entry(name, replaces, rows, main, by_path, source=None,
+                 **extra):
     """A kernel's item of the ``kernels`` line; ``ms`` is the cold time
-    where the phase took one (``ms_warm`` then beside it)."""
+    where the phase took one (``ms_warm`` then beside it); ``extra``
+    joins it."""
     row = next(r for r in rows if r["name"] == main)
     warm = {"ms_warm": row["ms"]} if "ms_cold" in row else {}
     return dict(name=name, route="cuda",
@@ -3513,7 +3621,7 @@ def kernel_entry(name, replaces, rows, main, by_path, source=None):
                 ms=row.get("ms_cold", row["ms"]), **warm,
                 plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], shape=main)
+                library_ms=row["library_ms"], shape=main, **extra)
 
 
 def main() -> int:
@@ -3559,6 +3667,12 @@ def main() -> int:
             log(f"build {name}: an instance spills registers")
     check_rwkv6_build(ptxas_summary(rw_kernel.LIB.build_log))
     check_matern_build(ptxas_summary(ms_kernel.LIB.build_log))
+    bwd_instances = ptxas_summary(fa_kernel.BWD_LIB.build_log)
+    if bwd_instances:  # each tensor-core width is built and spills nothing
+        for width in (64, 128, 256):
+            bwd_build(bwd_instances, width, torch.bfloat16)
+    else:
+        log("build flash_attention_bwd: already built, spills not checked")
     sass = sass_counts(fa_kernel.LIB.library_path())
     log("sass flash_attention", json.dumps(sass))
     if sass is not None and sass["HMMA"] + sass["HGMMA"] == 0:
@@ -3582,7 +3696,8 @@ def main() -> int:
     post_rows = timed("2 matern_posterior", posterior_phase, kernels,
                       shapes, main_shapes)
     flash_rows = timed("2 flash_attention", flash_phase, kernels)
-    flash_bwd_rows = timed("2 flash_attention_bwd", flash_bwd_phase, kernels)
+    flash_bwd_rows = timed("2 flash_attention_bwd", flash_bwd_phase, kernels,
+                           bwd_instances)
     decode_rows = timed("2 decode_attention", decode_phase, kernels)
     rglru_rows = timed("2 rglru_scan", rglru_phase, kernels)
     rwkv_rows = timed("2 rwkv6_scan", rwkv6_phase, kernels)
@@ -3656,7 +3771,10 @@ def main() -> int:
             "jnp naive_attention with XLA)",
             flash_bwd_rows, FLASH_BWD_MAIN, by_path["flash_attention_bwd"],
             source="src/repro_torch/kernels/flash_attention/"
-                   "flash_attention_bwd.cu"),
+                   "flash_attention_bwd.cu",
+            design="bf16 redesigned for the tensor cores: deterministic "
+                   "dK/dV and dQ kernels on mma.sync (bf16 in, f32 "
+                   "accumulate), no atomics; float32 on the CUDA cores"),
         kernel_entry("decode_attention",
                      "src/repro/kernels/decode_attention/kernel.py:63",
                      decode_rows, DECODE_MAIN, by_path["decode_attention"]),

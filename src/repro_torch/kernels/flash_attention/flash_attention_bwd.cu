@@ -20,44 +20,96 @@
 // window is set; keys past Skv do not exist). A masked score is -1e30 in
 // the plain version, so its P is exactly 0 there too.
 //
-// Four kernels on one stream, in this order, with no atomics, so a call
-// gives the same bits every time (a resumed training run equals an
-// uninterrupted one):
-//   1. D = rowsum(do * o) in float32, one warp a row;
+// Each output element is summed by one block in a fixed order (no two
+// blocks add into one address), so a call gives the same bits every time
+// (a resumed training run equals an uninterrupted one). The kernels run
+// on one stream, in this order:
+//   1. D = rowsum(do * o) in float32 (one warp a row; 8 threads a row
+//      with 16-byte loads in bfloat16);
 //   2. dq: one block per (q tile, q head, batch row) walks the key tiles
-//      the mask allows, staged through shared memory;
+//      the mask allows;
 //   3. dk, dv per q head: one block per (key tile, q head, batch row)
 //      walks the q tiles that attend to its keys and writes its head's
 //      float32 partial into scratch (B,Skv,Hq,hd);
 //   4. the partials of a kv head's group summed in the order g = 0..G-1
 //      and cast to the output's dtype.
-// Splitting the group's heads over blocks (3) and summing them in a fixed
-// order (4) keeps Hq blocks in flight where a block per kv head would
-// have only Hkv (2 at Qwen2-1.5B's 12/2 heads: 32 blocks on 132 SMs).
+// bfloat16 runs 2 and 3 as one launch (three CUDA kernels a call),
+// float32 as two (four). Splitting the group's heads over blocks (3) and
+// summing them in a fixed order (4) keeps Hq blocks a key tile in flight
+// where a block per kv head would have only Hkv: at Qwen2-1.5B's training
+// shape (B 2 x S 512, Hq 12, Hkv 2) 192 dk/dv blocks instead of 32 on 132
+// SMs, for 12.6 MB of float32 partials written and read again, most of it
+// from the L2.
 //
-// The arithmetic runs on the float32 CUDA cores for both dtypes, as the
-// forward's float32 kernel does: a row (or key) belongs to MAXD / 32
-// neighbouring threads, each holding 32 of its head dims as 8 runs of 4
-// (dims (c * TPR + sl) * 4 .. + 3), so that one 16-byte shared-memory
-// read feeds four FMAs; the dot products reduce with xor shuffles, which
-// give every thread of a row the same bits. bfloat16 inputs widen to
-// float32 on load (P and dS are never rounded), and the outputs round to
-// the input dtype once, at the end.
+// bfloat16: FlashAttention-2's backward on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, f32 accumulate), built from the forward's
+// pieces (flash_attention.cu): 16-byte cp.async copies into rows padded
+// by 16 bytes, a two-stage ring, ldmatrix and ldmatrix.trans, and
+// accumulator fragments repacked in registers as the A fragments of the
+// next product. Blocks of 4 warps, 16 rows a warp.
+//   dk/dv (3) works key-major, so that P^T and dS^T are born in the
+//   layout of an A operand. A block owns 64 keys. K and V stay in shared
+//   memory and are read with ldmatrix at every step: the 16 x hd f32
+//   accumulators of dK and dV take 128 registers a thread at hd 128, so
+//   K and V cannot also sit in registers. Q, dO and the rows' L and D
+//   stream through the ring in tiles of BQ rows. Per q tile: S^T = K Q^T,
+//   P^T = exp2(S^T scale log2(e) - L), dP^T = V dO^T, dS^T = P^T (dP^T -
+//   D), dV += P^T dO and dK += dS^T Q, Q and dO read by ldmatrix for the
+//   first two products and by ldmatrix.trans for the last two. At hd 256
+//   one warp's dK and dV would need 256 accumulators a thread, so a key
+//   tile has two blocks: a dV block (S^T, P^T, dV) and a dK block (S^T,
+//   dP^T, dK), 128 accumulators each.
+//   dq (2) owns 64 q rows. Q and dO load once (A fragments in registers
+//   up to hd 128, read from shared memory at hd 256), K and V stream
+//   through the ring in tiles of BK keys, and tiles wholly masked are
+//   never loaded. Per key tile: S = Q K^T, dP = dO V^T, dS, and dQ += dS
+//   K with K read by ldmatrix.trans. Recomputing S and dP there costs 14
+//   hd operations a pair in all (16 at hd 256) against the function's 10:
+//   the price of that fixed order: dk/dv blocks cannot also add into dq.
+//   P and dS are rounded to bf16 before their products (P^T for dV, dS for
+//   dq and dk): the roundings the plain version does not have. Every sum
+//   is f32. Masks are applied only on tiles that cross the diagonal, the
+//   window edge, Sq or Skv. The scale 1/sqrt(hd) multiplies dq and dk
+//   once, in f32, at the end. Any hd that is a multiple of 8 runs in the
+//   64-, 128- or 256-wide instance, zero-padded on load. The 16-byte
+//   copies need 16-byte-aligned base pointers and batch, sequence and
+//   head strides that are multiples of 8 elements (the wrapper checks,
+//   and the launch refuses what is not).
 //
-// What bounds it on an H100: at Qwen2-1.5B's training shape (B 2 x S
-// 512, Hq 12, Hkv 2, hd 128, causal, bf16) the 3,151,872 allowed (q, k)
-// pairs need 10 hd operations each, 4.03 GFLOP, 4.08 us at the
-// tensor-core rate, and q, k, v, o and do read plus dq, dk and dv written
-// move 14.7 MB, 4.39 us at 3.35 TB/s: the bytes bound it. This kernel is
-// far from both: it runs 14 hd operations a pair (dq recomputes P and
-// dP) on the CUDA cores, whose float32 rate is 67 TFLOP/s, and moves the
-// float32 partials of 3 and 4 besides. A tensor-core redesign (mma.sync
-// or wgmma tiles, P and dS in registers, the forward's layout) is later
-// work; this one is the simple kernel that is right.
+// float32: the CUDA-core kernels. TF32 would break the float32 tolerance,
+// so float32 inputs keep kernels whose products run on the f32 CUDA
+// cores: a row (or key) belongs to MAXD / 32 neighbouring threads, each
+// holding 32 of its head dims as 8 runs of 4 (dims (c * TPR + sl) * 4 ..
+// + 3), so that one 16-byte shared-memory read feeds four FMAs; the dot
+// products reduce with xor shuffles, which give every thread of a row the
+// same bits; key and q tiles of 32 rows are staged through shared memory
+// in f32. The dtype picks the kernels; there is no fallback between them.
+//
+// What bounds it on an H100 (80GB HBM3, 700 W): at Qwen2-1.5B's training
+// shape (B 2 x S 512, Hq 12, Hkv 2, hd 128, causal, bf16) the 3,151,872
+// allowed (q, k) pairs need 10 hd operations each, 4.03 GFLOP, 4.08 us
+// at the tensor-core rate, and q, k, v, o and do read plus dq, dk and dv
+// written move 14.7 MB, 4.39 us at 3.35 TB/s: the bytes bound it. The
+// kernels take 55 us cold, 1.2 times PyTorch's SDPA backward. Neither
+// bound holds them back: 384 blocks of 2 to 16 steps, two an SM (246
+// registers a thread), each step a chain of ldmatrix reads, tensor-core
+// products, exp2 and a barrier, in which each ldmatrix of a B fragment
+// feeds only two mma of a 16-row warp. The latency of those chains sets
+// the time. At RecurrentGemma-2B's local layer (hd 256, window 2048, S
+// 4096, 10 q heads and 1 kv head) the 161 GFLOP of the function bind
+// (163 us); the kernels run 258 GFLOP of mma in 1.56 ms, 17 % of the
+// tensor-core rate, for the same reason.
+// Tried on an H100 and lost: dq and dk/dv as two launches (84 us at the
+// training shape: each kind alone leaves SMs idle at S 512); tiles of 32
+// at hd 256 (1.84 ms: one block an SM); q steps of 64 in dk/dv at hd 64
+// (spills). A wgmma version with TMA and a producer warp is the next
+// step, as for the forward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -71,9 +123,6 @@ constexpr int kThreads = 128;  // a block of kernels 2 and 3
 constexpr int kSlice = 32;     // head dims a thread holds
 constexpr int kTile = 32;      // rows of a shared-memory tile
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
-
 template <typename T>
 __device__ __forceinline__ T narrow(float x);
 template <>
@@ -86,15 +135,15 @@ __device__ __forceinline__ bf16 narrow<bf16>(float x) {
 }
 
 // this thread's 32 of a row's MAXD dims, zero past hd
-template <typename T, int TPR>
-__device__ __forceinline__ void load_slice(float (&r)[kSlice], const T* row,
+template <int TPR>
+__device__ __forceinline__ void load_slice(float (&r)[kSlice], const float* row,
                                            bool live, int hd, int sl) {
 #pragma unroll
   for (int c = 0; c < kSlice / 4; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = (c * TPR + sl) * 4 + e;
-      r[4 * c + e] = (live && d < hd) ? widen(row[d]) : 0.0f;
+      r[4 * c + e] = (live && d < hd) ? row[d] : 0.0f;
     }
   }
 }
@@ -141,16 +190,16 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// rows [0, n) x dims [0, hd) of a kTile-row tile into shared memory as
-// float32, the rest zero
-template <typename T, int MAXD>
-__device__ __forceinline__ void stage_tile(float* s, const T* g,
+// rows [0, n) x dims [0, hd) of a kTile-row tile into shared memory, the
+// rest zero
+template <int MAXD>
+__device__ __forceinline__ void stage_tile(float* s, const float* g,
                                            long long row_stride, int n,
                                            int hd, int tid) {
   for (int e = tid; e < kTile * MAXD; e += kThreads) {
     const int r = e / MAXD;
     const int d = e % MAXD;
-    s[e] = (r < n && d < hd) ? widen(g[r * row_stride + d]) : 0.0f;
+    s[e] = (r < n && d < hd) ? g[r * row_stride + d] : 0.0f;
   }
 }
 
@@ -160,9 +209,9 @@ __device__ __forceinline__ bool allowed(int i, int j, int causal,
 }
 
 // 1. D[b,h,i] = do[b,i,h] . o[b,i,h], one warp a row
-template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_dot_kernel(const float* __restrict__ o,
+                     const float* __restrict__ dout,
                      float* __restrict__ dsum, Strides os, Strides dos,
                      int B, int Sq, int Hq, int hd) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
@@ -171,11 +220,10 @@ flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const int i = (int)(row % Sq);
   const int h = (int)((row / Sq) % Hq);
   const int b = (int)(row / ((long long)Sq * Hq));
-  const T* op = o + b * os.b + (long long)i * os.s + h * os.h;
-  const T* dp = dout + b * dos.b + (long long)i * dos.s + h * dos.h;
+  const float* op = o + b * os.b + (long long)i * os.s + h * os.h;
+  const float* dp = dout + b * dos.b + (long long)i * dos.s + h * dos.h;
   float acc = 0.0f;
-  for (int d = lane; d < hd; d += 32)
-    acc = fmaf(widen(op[d]), widen(dp[d]), acc);
+  for (int d = lane; d < hd; d += 32) acc = fmaf(op[d], dp[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -184,12 +232,13 @@ flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // 2. dq: block (q tile, q head, batch row); key tiles through shared
 // memory, K then V, kTile rows each
-template <typename T, int MAXD>
+template <int MAXD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dsum, T* __restrict__ dq,
+                    const float* __restrict__ dsum, float* __restrict__ dq,
                     Strides qs, Strides ks, Strides vs, Strides dos,
                     Strides dqs, int Sq, int Skv, int hd, int group,
                     int causal, int window, float scale_log2, float scale) {
@@ -210,11 +259,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qrow = live ? qi : 0;
 
   float qr[kSlice], dor[kSlice], acc[kSlice];
-  load_slice<T, TPR>(qr, q + b * qs.b + (long long)qrow * qs.s + h * qs.h,
-                     live, hd, sl);
-  load_slice<T, TPR>(dor,
-                     dout + b * dos.b + (long long)qrow * dos.s + h * dos.h,
-                     live, hd, sl);
+  load_slice<TPR>(qr, q + b * qs.b + (long long)qrow * qs.s + h * qs.h, live,
+                  hd, sl);
+  load_slice<TPR>(dor, dout + b * dos.b + (long long)qrow * dos.s + h * dos.h,
+                  live, hd, sl);
 #pragma unroll
   for (int i = 0; i < kSlice; ++i) acc[i] = 0.0f;
   const long long row = ((long long)b * gridDim.y + h) * Sq + qrow;
@@ -225,13 +273,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + RB, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
   const int kv_begin = window ? max(0, q0 - window + 1) : 0;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
   for (int k0 = kv_begin / kTile * kTile; k0 < kv_end; k0 += kTile) {
     const int n = min(kTile, Skv - k0);
     __syncthreads();  // the previous tile is consumed
-    stage_tile<T, MAXD>(k_s, kb + (long long)k0 * ks.s, ks.s, n, hd, tid);
-    stage_tile<T, MAXD>(v_s, vb + (long long)k0 * vs.s, vs.s, n, hd, tid);
+    stage_tile<MAXD>(k_s, kb + (long long)k0 * ks.s, ks.s, n, hd, tid);
+    stage_tile<MAXD>(v_s, vb + (long long)k0 * vs.s, vs.s, n, hd, tid);
     __syncthreads();
     for (int jj = 0; jj < n; ++jj) {
       const float s = row_sum<TPR>(slice_dot<TPR>(qr, k_s + jj * MAXD, sl));
@@ -243,13 +291,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (live) {
-    T* dqp = dq + b * dqs.b + (long long)qi * dqs.s + h * dqs.h;
+    float* dqp = dq + b * dqs.b + (long long)qi * dqs.s + h * dqs.h;
 #pragma unroll
     for (int c = 0; c < kSlice / 4; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = (c * TPR + sl) * 4 + e;
-        if (d < hd) dqp[d] = narrow<T>(acc[4 * c + e] * scale);
+        if (d < hd) dqp[d] = acc[4 * c + e] * scale;
       }
     }
   }
@@ -257,10 +305,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // 3. dk, dv of one q head: block (key tile, q head, batch row); q, do,
 // L and D tiles through shared memory; float32 partials (B,Skv,Hq,hd)
-template <typename T, int MAXD>
+template <int MAXD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum, float* __restrict__ dkp,
                      float* __restrict__ dvp, Strides qs, Strides ks,
@@ -287,10 +337,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int krow = live ? kj : 0;
 
   float kr[kSlice], vr[kSlice], dk[kSlice], dv[kSlice];
-  load_slice<T, TPR>(kr, k + b * ks.b + (long long)krow * ks.s + hk * ks.h,
-                     live, hd, sl);
-  load_slice<T, TPR>(vr, v + b * vs.b + (long long)krow * vs.s + hk * vs.h,
-                     live, hd, sl);
+  load_slice<TPR>(kr, k + b * ks.b + (long long)krow * ks.s + hk * ks.h,
+                  live, hd, sl);
+  load_slice<TPR>(vr, v + b * vs.b + (long long)krow * vs.s + hk * vs.h,
+                  live, hd, sl);
 #pragma unroll
   for (int i = 0; i < kSlice; ++i) dk[i] = dv[i] = 0.0f;
 
@@ -298,14 +348,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_last = min(k0 + KB, Skv) - 1;
   const int q_begin = causal ? k0 : 0;
   const int q_end = window ? min(Sq, k_last + window) : Sq;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* db = dout + b * dos.b + h * dos.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* db = dout + b * dos.b + h * dos.h;
   const long long row0 = ((long long)b * Hq + h) * Sq;
   for (int q0 = q_begin / kTile * kTile; q0 < q_end; q0 += kTile) {
     const int n = min(kTile, Sq - q0);
     __syncthreads();  // the previous tile is consumed
-    stage_tile<T, MAXD>(q_s, qb + (long long)q0 * qs.s, qs.s, n, hd, tid);
-    stage_tile<T, MAXD>(do_s, db + (long long)q0 * dos.s, dos.s, n, hd, tid);
+    stage_tile<MAXD>(q_s, qb + (long long)q0 * qs.s, qs.s, n, hd, tid);
+    stage_tile<MAXD>(do_s, db + (long long)q0 * dos.s, dos.s, n, hd, tid);
     if (tid < kTile) {
       l_s[tid] = tid < n ? lse[row0 + q0 + tid] : 0.0f;
       d_s[tid] = tid < n ? dsum[row0 + q0 + tid] : 0.0f;
@@ -361,10 +411,650 @@ flash_bwd_reduce_kernel(const float* __restrict__ dkp,
   dv[b * dvs.b + (long long)j * dvs.s + hk * dvs.h + d] = narrow<T>(sv);
 }
 
-template <typename T, int MAXD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dsum, float* dkp,
-           float* dvp, void* dq, void* dk, void* dv, const Strides* st,
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+// Blocks of 4 warps, 16 rows (keys in 3, q rows in 2) a warp. BQ and BK
+// are the tiles streamed through the two-stage ring: small enough that
+// the S and dP fragments (BQ / 2 or BK / 2 f32 registers a thread each)
+// fit beside the accumulators without spilling, and 16 at hd 256, so
+// that two blocks share an SM's shared memory. On an H100 16 at hd 256
+// beat 32 (1.56 against 1.84 ms at RecurrentGemma-2B's local layer).
+template <int D>
+struct Cfg {
+  static constexpr int kThreads = 128;
+  static constexpr int LD = D + 8;        // padded smem row, in bf16
+  // dk/dv: 64 keys a block; q tiles of BQ rows
+  static constexpr int BKV = 64;
+  static constexpr int BQ = D > 128 ? 16 : 32;
+  static constexpr bool kSplit = D > 128;  // a dV and a dK block a tile
+  // dq: 64 q rows a block; key tiles of BK keys
+  static constexpr int BQD = 64;
+  static constexpr int BK = D <= 64 ? 64 : D > 128 ? 16 : 32;
+  static constexpr bool kQInRegs = D <= 128;  // Q, dO as A fragments
+  // k steps of a product over hd unrolled at once where A is read from
+  // shared memory: all up to hd 128, 4 at hd 256 (as the forward), so
+  // that hoisted fragments do not crowd out the accumulators
+  static constexpr int kKUnroll = D >= 256 ? 4 : D / 16;
+  // K, V, then two stages of Q and of dO, then two of L and of D
+  static constexpr size_t kSmemKV =
+      (size_t)(2 * BKV + 4 * BQ) * LD * sizeof(bf16) + 4 * BQ * sizeof(float);
+  // Q, dO, then two stages of K and of V
+  static constexpr size_t kSmemQ =
+      (size_t)(2 * BQD + 4 * BK) * LD * sizeof(bf16);
+  static constexpr size_t kSmem = kSmemKV > kSmemQ ? kSmemKV : kSmemQ;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when `pred` is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+// 4 bytes global -> shared; zero-filled when `pred` is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b on the tensor cores: a 16x16 (row), b 16x8 (col), f32 c
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [0, n_rows) x dims [0, hd) of an R-row tile into shared memory,
+// the rest zero; 16 bytes per copy
+template <int D, int R>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          long long row_stride, int n_rows,
+                                          int hd, int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kThreads = Cfg<D>::kThreads;
+#pragma unroll
+  for (int e = tid; e < R * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * 8;
+    const bool in = r < n_rows && c < hd;
+    cp_async16(s + r * Cfg<D>::LD + c, in ? g + r * row_stride + c : g, in);
+  }
+}
+
+// The A fragment of k step j of a product whose A is the 16 x 16j..16j+15
+// block of an accumulator (S^T, P^T, dS^T or dS), rounded to bf16
+template <int N>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
+                                       const float (&c)[N][4], int j) {
+  a[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+  a[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+  a[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+  a[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+}
+
+// c[0..NT) += A . B^T over D dims: A 16 x D (this warp's rows) read by
+// ldmatrix from `a_w` (a_lane) at each k step, B's NT * 8 rows read by
+// ldmatrix from `b_w` (b_lane); k steps unrolled KU at a time
+template <int D, int NT, int LD, int KU>
+__device__ __forceinline__ void gemm_abt(float (&c)[NT][4], const bf16* a_w,
+                                         const bf16* b_w) {
+#pragma unroll(KU)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_w + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_w + np * 16 * LD + kk * 16);
+      mma_bf16(c[2 * np], a, b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+// ... A's k-step fragments held in registers
+template <int D, int NT, int LD>
+__device__ __forceinline__ void gemm_abt(float (&c)[NT][4],
+                                         const uint32_t (&a)[D / 16][4],
+                                         const bf16* b_w) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_w + np * 16 * LD + kk * 16);
+      mma_bf16(c[2 * np], a[kk], b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc[0..D/8) += A . B, A the bf16 rounding of accumulator `p` (16 x
+// 8 NP), B the NP * 8 rows of a row-major tile read by ldmatrix.trans
+// from `b_w` (the lane's address of rows 0..15, dims 0)
+template <int D, int NP, int LD>
+__device__ __forceinline__ void gemm_pb(float (&acc)[D / 8][4],
+                                        const float (&p)[NP][4],
+                                        const bf16* b_w) {
+#pragma unroll
+  for (int j = 0; j < NP / 2; ++j) {
+    uint32_t a[4];
+    a_frag<NP>(a, p, j);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, b_w + j * 16 * LD + dp * 16);
+      mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// a lane's address for B fragments read by ldmatrix (non-trans) from a
+// row-major tile: rows (lane / 16) * 8 + lane % 8 of a pair of n tiles,
+// dims + 8 * ((lane / 8) % 2)
+template <int LD>
+__device__ __forceinline__ const bf16* b_lane(const bf16* tile, int lane) {
+  return tile + ((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+}
+// ... for A fragments by ldmatrix, or B fragments by ldmatrix.trans:
+// rows lane % 16, dims + 8 * (lane / 16)
+template <int LD>
+__device__ __forceinline__ const bf16* a_lane(const bf16* tile, int lane) {
+  return tile + (lane & 15) * LD + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ bool pair_ok(int i, int j, int Sq, int Skv,
+                                        int causal, int window) {
+  return i < Sq && j < Skv && (!causal || j <= i) &&
+         (!window || i - j < window);
+}
+
+// 1. D[b,h,i] = do[b,i,h] . o[b,i,h], 8 threads a row, 16 bytes a load
+// (the float32 path's one warp a row with 2-byte loads took 5 us at the
+// training shape, for 3.1 MB)
+__global__ void __launch_bounds__(256)
+flash_bwd_dot_kernel_tc(const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout,
+                        float* __restrict__ dsum, Strides os, Strides dos,
+                        int B, int Sq, int Hq, int hd) {
+  // the warp's four rows shuffle together: a row past the end idles
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+  const bool live = row < (long long)B * Hq * Sq;
+  const long long r = live ? row : 0;
+  const int sl = threadIdx.x & 7;
+  const int i = (int)(r % Sq);
+  const int h = (int)((r / Sq) % Hq);
+  const int b = (int)(r / ((long long)Sq * Hq));
+  const bf16* op = o + b * os.b + (long long)i * os.s + h * os.h;
+  const bf16* dp = dout + b * dos.b + (long long)i * dos.s + h * dos.h;
+  float acc = 0.0f;
+  for (int c = sl * 8; live && c < hd; c += 64) {
+    const uint4 x = *reinterpret_cast<const uint4*>(op + c);
+    const uint4 y = *reinterpret_cast<const uint4*>(dp + c);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(x2[e]);
+      const float2 d = __bfloat1622float2(y2[e]);
+      acc = fmaf(a.x, d.x, acc);
+      acc = fmaf(a.y, d.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && sl == 0) dsum[row] = acc;
+}
+
+// what the dq and dk/dv blocks read and write
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  const float* lse;   // (B,Hq,Sq), base 2
+  const float* dsum;  // D, (B,Hq,Sq)
+  bf16* dq;
+  float* dkp;         // (B,Skv,Hq,hd) float32 partials
+  float* dvp;
+  Strides qs, ks, vs, dos, dqs;
+  int Sq, Skv, Hq, hd, group, causal, window;
+  float scale_log2, scale;
+  int n_dq, n_dkv;    // blocks of each kind along the grid's z
+};
+
+// 3. dk and/or dv of one q head and 64 keys (DO_V, DO_K pick which)
+template <int D, bool DO_V, bool DO_K>
+__device__ __forceinline__ void dkv_block(unsigned char* smem_raw,
+                                          const Args& A, int h, int b,
+                                          int kt) {
+  using C = Cfg<D>;
+  constexpr int BKV = C::BKV;
+  constexpr int BQ = C::BQ;
+  constexpr int LD = C::LD;
+  constexpr int NT = BQ / 8;    // n tiles of S^T a warp
+  constexpr int DT = D / 8;     // n tiles of dK, dV a warp
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // BKV x LD
+  bf16* v_s = k_s + BKV * LD;                        // BKV x LD
+  bf16* q_s = v_s + BKV * LD;                        // 2 x BQ x LD
+  bf16* do_s = q_s + 2 * BQ * LD;                    // 2 x BQ x LD
+  float* l_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);  // 2 x BQ
+  float* d_s = l_s + 2 * BQ;                         // 2 x BQ
+
+  const int Sq = A.Sq, Skv = A.Skv, hd = A.hd;
+  const int causal = A.causal, window = A.window;
+  const int hk = h / A.group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k0 = kt * BKV;
+
+  // the q tiles some row of which attends to a key of this tile
+  const int k_last = min(k0 + BKV, Skv) - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window ? min(Sq, k_last + window) : Sq;
+  const int t_lo = q_begin / BQ;
+  const int t_hi = (q_end + BQ - 1) / BQ;
+
+  const bf16* qb = A.q + b * A.qs.b + h * A.qs.h;
+  const bf16* db = A.dout + b * A.dos.b + h * A.dos.h;
+  const long long row0 = ((long long)b * A.Hq + h) * Sq;  // L, D of q row 0
+  auto load_q = [&](int stage, int t) {
+    const int q0 = t * BQ;
+    load_tile<D, BQ>(q_s + stage * BQ * LD, qb + (long long)q0 * A.qs.s,
+                     A.qs.s, Sq - q0, hd, tid);
+    load_tile<D, BQ>(do_s + stage * BQ * LD, db + (long long)q0 * A.dos.s,
+                     A.dos.s, Sq - q0, hd, tid);
+    for (int e = tid; e < 2 * BQ; e += C::kThreads) {
+      const int r = e % BQ;
+      const bool in = q0 + r < Sq;
+      const float* src = (e < BQ ? A.lse : A.dsum) + row0 + (in ? q0 + r : 0);
+      cp_async4((e < BQ ? l_s : d_s) + stage * BQ + r, src, in);
+    }
+  };
+
+  load_tile<D, BKV>(k_s, A.k + b * A.ks.b + (long long)k0 * A.ks.s +
+                             hk * A.ks.h,
+                    A.ks.s, Skv - k0, hd, tid);
+  if (DO_K)
+    load_tile<D, BKV>(v_s, A.v + b * A.vs.b + (long long)k0 * A.vs.s +
+                               hk * A.vs.h,
+                      A.vs.s, Skv - k0, hd, tid);
+  if (t_lo < t_hi) load_q(0, t_lo);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float dk[DO_K ? DT : 1][4], dv[DO_V ? DT : 1][4];
+#pragma unroll
+  for (int i = 0; i < (DO_K ? DT : 1); ++i)
+    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (DO_V ? DT : 1); ++i)
+    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.0f;
+  const bf16* k_w = a_lane<LD>(k_s + warp * 16 * LD, lane);
+  const bf16* v_w = a_lane<LD>(v_s + warp * 16 * LD, lane);
+  const int kj = k0 + warp * 16 + (lane >> 2);   // keys kj and kj + 8
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) & 1;
+    if (t + 1 < t_hi) {  // the next tile loads while this one is computed
+      load_q(stage ^ 1, t + 1);
+      cp_async_commit();
+    }
+    const bf16* q_t = q_s + stage * BQ * LD;
+    const bf16* do_t = do_s + stage * BQ * LD;
+    const float* l_t = l_s + stage * BQ;
+    const float* d_t = d_s + stage * BQ;
+    const int q0 = t * BQ;
+
+    // S^T = K Q^T, then P^T in place
+    float s[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+    gemm_abt<D, NT, LD, C::kKUnroll>(s, k_w, b_lane<LD>(q_t, lane));
+    const bool need_mask = k0 + BKV > Skv || q0 + BQ > Sq ||
+                           (causal && k0 + BKV - 1 > q0) ||
+                           (window && q0 + BQ - 1 - k0 >= window);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = nt * 8 + 2 * (lane & 3);
+      const float2 L = *reinterpret_cast<const float2*>(l_t + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[nt][e] * A.scale_log2 - ((e & 1) ? L.y : L.x));
+        if (need_mask &&
+            !pair_ok(q0 + c + (e & 1), kj + (e >> 1) * 8, Sq, Skv, causal,
+                     window))
+          p = 0.0f;
+        s[nt][e] = p;
+      }
+    }
+
+    // dV += P^T dO
+    if constexpr (DO_V) gemm_pb<D, NT, LD>(dv, s, a_lane<LD>(do_t, lane));
+
+    if constexpr (DO_K) {
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - D) in place
+      float dp[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.0f;
+      gemm_abt<D, NT, LD, C::kKUnroll>(dp, v_w, b_lane<LD>(do_t, lane));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 Dq =
+            *reinterpret_cast<const float2*>(d_t + nt * 8 + 2 * (lane & 3));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[nt][e] = s[nt][e] * (dp[nt][e] - ((e & 1) ? Dq.y : Dq.x));
+      }
+      // dK += dS^T Q
+      gemm_pb<D, NT, LD>(dk, dp, a_lane<LD>(q_t, lane));
+    }
+
+    if (t + 1 < t_hi) cp_async_wait_all();
+    __syncthreads();  // tile t + 1 has landed; stage t is free again
+  }
+
+  // the head's float32 partials (B,Skv,Hq,hd); dk scaled by 1/sqrt(hd)
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * (lane & 3);
+    if (c >= hd) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = kj + r * 8;
+      if (j >= Skv) continue;
+      const long long at = (((long long)b * Skv + j) * A.Hq + h) * hd + c;
+      if constexpr (DO_K)
+        *reinterpret_cast<float2*>(A.dkp + at) =
+            make_float2(dk[dt][2 * r] * A.scale, dk[dt][2 * r + 1] * A.scale);
+      if constexpr (DO_V)
+        *reinterpret_cast<float2*>(A.dvp + at) =
+            make_float2(dv[dt][2 * r], dv[dt][2 * r + 1]);
+    }
+  }
+}
+
+// the i-th dk/dv block of a (q head, batch row): key tile i, or at hd 256
+// key tile i / 2's dV (i even) or dK (i odd) block
+template <int D>
+__device__ __forceinline__ void dkv_role(unsigned char* smem_raw,
+                                         const Args& A, int h, int b,
+                                         int i) {
+  if constexpr (Cfg<D>::kSplit) {
+    if (i & 1)
+      dkv_block<D, false, true>(smem_raw, A, h, b, i >> 1);
+    else
+      dkv_block<D, true, false>(smem_raw, A, h, b, i >> 1);
+  } else {
+    dkv_block<D, true, true>(smem_raw, A, h, b, i);
+  }
+}
+
+// 2. dq of 64 q rows (tile qt) of one q head
+template <int D>
+__device__ __forceinline__ void dq_block(unsigned char* smem_raw,
+                                         const Args& A, int h, int b,
+                                         int qt) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQD;
+  constexpr int BK = C::BK;
+  constexpr int LD = C::LD;
+  constexpr int NT = BK / 8;    // n tiles of S a warp
+  constexpr int DT = D / 8;     // n tiles of dQ a warp
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
+  bf16* do_s = q_s + BQ * LD;                     // BQ x LD
+  bf16* k_s = do_s + BQ * LD;                     // 2 x BK x LD
+  bf16* v_s = k_s + 2 * BK * LD;                  // 2 x BK x LD
+
+  const int Sq = A.Sq, Skv = A.Skv, hd = A.hd;
+  const int causal = A.causal, window = A.window;
+  const int q0 = qt * BQ;
+  const int hk = h / A.group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // the key tiles some row of this q tile may attend to
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kv_begin = window ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_begin / BK;
+  const int t_hi = (kv_end + BK - 1) / BK;
+
+  const bf16* kb = A.k + b * A.ks.b + hk * A.ks.h;
+  const bf16* vb = A.v + b * A.vs.b + hk * A.vs.h;
+  auto load_kv = [&](int stage, int t) {
+    const int k0 = t * BK;
+    load_tile<D, BK>(k_s + stage * BK * LD, kb + (long long)k0 * A.ks.s,
+                     A.ks.s, Skv - k0, hd, tid);
+    load_tile<D, BK>(v_s + stage * BK * LD, vb + (long long)k0 * A.vs.s,
+                     A.vs.s, Skv - k0, hd, tid);
+  };
+  load_tile<D, BQ>(q_s, A.q + b * A.qs.b + (long long)q0 * A.qs.s +
+                            h * A.qs.h,
+                   A.qs.s, Sq - q0, hd, tid);
+  load_tile<D, BQ>(do_s, A.dout + b * A.dos.b + (long long)q0 * A.dos.s +
+                             h * A.dos.h,
+                   A.dos.s, Sq - q0, hd, tid);
+  if (t_lo < t_hi) load_kv(0, t_lo);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's 16 rows of Q and dO as A fragments
+  const bf16* q_w = a_lane<LD>(q_s + warp * 16 * LD, lane);
+  const bf16* do_w = a_lane<LD>(do_s + warp * 16 * LD, lane);
+  uint32_t qf[C::kQInRegs ? D / 16 : 1][4];
+  uint32_t df[C::kQInRegs ? D / 16 : 1][4];
+  if constexpr (C::kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldmatrix_x4(qf[kk], q_w + kk * 16);
+      ldmatrix_x4(df[kk], do_w + kk * 16);
+    }
+  }
+  const int row = q0 + warp * 16 + (lane >> 2);  // rows row and row + 8
+  const long long lrow = ((long long)b * A.Hq + h) * Sq;
+  float L[2], Dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + r * 8 < Sq;
+    L[r] = in ? A.lse[lrow + row + r * 8] : 0.0f;
+    Dr[r] = in ? A.dsum[lrow + row + r * 8] : 0.0f;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) & 1;
+    if (t + 1 < t_hi) {  // the next tile loads while this one is computed
+      load_kv(stage ^ 1, t + 1);
+      cp_async_commit();
+    }
+    const bf16* k_t = k_s + stage * BK * LD;
+    const bf16* v_t = v_s + stage * BK * LD;
+    const int k0 = t * BK;
+
+    // S = Q K^T, dP = dO V^T
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.0f;
+    }
+    if constexpr (C::kQInRegs) {
+      gemm_abt<D, NT, LD>(s, qf, b_lane<LD>(k_t, lane));
+      gemm_abt<D, NT, LD>(dp, df, b_lane<LD>(v_t, lane));
+    } else {
+      gemm_abt<D, NT, LD, C::kKUnroll>(s, q_w, b_lane<LD>(k_t, lane));
+      gemm_abt<D, NT, LD, C::kKUnroll>(dp, do_w, b_lane<LD>(v_t, lane));
+    }
+
+    // dS = P (dP - D), P = exp2(S scale log2(e) - L), 0 where masked
+    const bool need_mask = k0 + BK > Skv || q0 + BQ > Sq ||
+                           (causal && k0 + BK - 1 > q0) ||
+                           (window && q0 + BQ - 1 - k0 >= window);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[nt][e] * A.scale_log2 - L[e >> 1]);
+        const int j = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+        if (need_mask &&
+            !pair_ok(row + (e >> 1) * 8, j, Sq, Skv, causal, window))
+          p = 0.0f;
+        s[nt][e] = p * (dp[nt][e] - Dr[e >> 1]);
+      }
+    }
+
+    // dQ += dS K
+    gemm_pb<D, NT, LD>(acc, s, a_lane<LD>(k_t, lane));
+
+    if (t + 1 < t_hi) cp_async_wait_all();
+    __syncthreads();  // tile t + 1 has landed; stage t is free again
+  }
+
+  // epilogue: dq = acc / sqrt(hd), through this warp's rows of q_s
+  bf16* o_w = q_s + warp * 16 * LD;
+  const int g = lane >> 2;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(o_w + g * LD + c) =
+        pack_bf16(acc[dt][0] * A.scale, acc[dt][1] * A.scale);
+    *reinterpret_cast<uint32_t*>(o_w + (g + 8) * LD + c) =
+        pack_bf16(acc[dt][2] * A.scale, acc[dt][3] * A.scale);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * (D / 8); e += 32) {
+    const int r = e / (D / 8);
+    const int c = (e % (D / 8)) * 8;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < Sq && c < hd)
+      *reinterpret_cast<uint4*>(A.dq + b * A.dqs.b + (long long)qi * A.dqs.s +
+                                h * A.dqs.h + c) =
+          *reinterpret_cast<const uint4*>(o_w + r * LD + c);
+  }
+}
+
+// 2 and 3 as one launch, block (q head, batch row, z). The hardware
+// starts blocks in that order, so z takes each head's blocks longest
+// first (the last q tile of dq, the first key tile of dk/dv under a
+// causal mask), alternating a dk/dv and a dq block: one launch keeps both
+// kinds in flight and fills the SMs that a kind alone leaves idle at S
+// 512 (57 against 84 us at Qwen2-1.5B's training shape on an H100).
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads)
+flash_bwd_dqkv_kernel_tc(const Args A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int z = blockIdx.z;
+  const int m = min(A.n_dq, A.n_dkv);
+  int i, is_dq;
+  if (z < 2 * m) {
+    i = z >> 1;
+    is_dq = z & 1;
+  } else {
+    i = z - m;
+    is_dq = A.n_dq > A.n_dkv;
+  }
+  if (is_dq)
+    dq_block<D>(smem_raw, A, blockIdx.x, blockIdx.y, A.n_dq - 1 - i);
+  else
+    dkv_role<D>(smem_raw, A, blockIdx.x, blockIdx.y, i);
+}
+
+template <int D>
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+           const bf16* dout, const float* lse, float* dsum, float* dkp,
+           float* dvp, bf16* dq, bf16* dk, bf16* dv, const Strides* st,
+           int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
+           int window, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const Strides &os = st[3], &dks = st[6], &dvs = st[7];
+  const int group = Hq / Hkv;
+  const float scale = 1.0f / sqrtf((float)hd);
+  Args A{q, k, v, dout, lse, dsum, dq, dkp, dvp,
+         st[0], st[1], st[2], st[4], st[5],
+         Sq, Skv, Hq, hd, group, causal, window,
+         1.4426950408889634f * scale, scale,
+         (Sq + C::BQD - 1) / C::BQD,
+         (Skv + C::BKV - 1) / C::BKV * (C::kSplit ? 2 : 1)};
+
+  const long long rows = (long long)B * Hq * Sq;
+  flash_bwd_dot_kernel_tc<<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(
+      o, dout, dsum, os, st[4], B, Sq, Hq, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(flash_bwd_dqkv_kernel_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dqkv_kernel_tc<D><<<dim3(Hq, B, A.n_dq + A.n_dkv), C::kThreads,
+                                C::kSmem, stream>>>(A);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const long long n = (long long)B * Skv * Hkv * hd;
+  flash_bwd_reduce_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0,
+                                  stream>>>(dkp, dvp, dk, dv, dks, dvs, B,
+                                            Skv, Hkv, hd, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// float32: the CUDA-core kernels above
+template <int MAXD>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, const float* lse, float* dsum, float* dkp,
+           float* dvp, float* dq, float* dk, float* dv, const Strides* st,
            int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
            int window, cudaStream_t stream) {
   constexpr int TPR = MAXD / kSlice;
@@ -373,63 +1063,93 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int group = Hq / Hkv;
   const float scale = 1.0f / sqrtf((float)hd);
   const float scale_log2 = 1.4426950408889634f * scale;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dt = static_cast<const T*>(dout);
 
   const long long rows = (long long)B * Hq * Sq;
-  flash_bwd_dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), dt, dsum, os, dos, B, Sq, Hq, hd);
+  flash_bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      o, dout, dsum, os, dos, B, Sq, Hq, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem_dq = 2 * (size_t)kTile * MAXD * sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, MAXD>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<MAXD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rb = kThreads / TPR;
-  flash_bwd_dq_kernel<T, MAXD>
+  flash_bwd_dq_kernel<MAXD>
       <<<dim3((Sq + rb - 1) / rb, Hq, B), kThreads, smem_dq, stream>>>(
-          qt, kt, vt, dt, lse, dsum, static_cast<T*>(dq), qs, ks, vs, dos,
-          dqs, Sq, Skv, hd, group, causal, window, scale_log2, scale);
+          q, k, v, dout, lse, dsum, dq, qs, ks, vs, dos, dqs, Sq, Skv, hd,
+          group, causal, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem_dkv = (2 * (size_t)kTile * MAXD + 2 * kTile) * sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, MAXD>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<MAXD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dkv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<T, MAXD>
+  flash_bwd_dkv_kernel<MAXD>
       <<<dim3((Skv + rb - 1) / rb, Hq, B), kThreads, smem_dkv, stream>>>(
-          qt, kt, vt, dt, lse, dsum, dkp, dvp, qs, ks, vs, dos, Sq, Skv, hd,
+          q, k, v, dout, lse, dsum, dkp, dvp, qs, ks, vs, dos, Sq, Skv, hd,
           group, causal, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long n = (long long)B * Skv * Hkv * hd;
-  flash_bwd_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      dkp, dvp, static_cast<T*>(dk), static_cast<T*>(dv), dks, dvs, B, Skv,
-      Hkv, hd, group);
+  flash_bwd_reduce_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0,
+                                   stream>>>(dkp, dvp, dk, dv, dks, dvs, B,
+                                             Skv, Hkv, hd, group);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// the 64-, 128- or 256-wide instance of the CUDA-core kernels
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* dsum, float* dkp,
              float* dvp, void* dq, void* dk, void* dv, const Strides* st,
              int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
              int window, cudaStream_t stream) {
+  const float *qt = static_cast<const float*>(q),
+              *kt = static_cast<const float*>(k),
+              *vt = static_cast<const float*>(v),
+              *ot = static_cast<const float*>(o),
+              *dt = static_cast<const float*>(dout);
+  float *dqt = static_cast<float*>(dq), *dkt = static_cast<float*>(dk),
+        *dvt = static_cast<float*>(dv);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, dout, lse, dsum, dkp, dvp, dq, dk, dv,
-                         st, B, Sq, Skv, Hq, Hkv, hd, causal, window, stream);
+    return launch<64>(qt, kt, vt, ot, dt, lse, dsum, dkp, dvp, dqt, dkt, dvt,
+                      st, B, Sq, Skv, Hq, Hkv, hd, causal, window, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, dout, lse, dsum, dkp, dvp, dq, dk, dv,
-                          st, B, Sq, Skv, Hq, Hkv, hd, causal, window, stream);
-  return launch<T, 256>(q, k, v, o, dout, lse, dsum, dkp, dvp, dq, dk, dv,
-                        st, B, Sq, Skv, Hq, Hkv, hd, causal, window, stream);
+    return launch<128>(qt, kt, vt, ot, dt, lse, dsum, dkp, dvp, dqt, dkt,
+                       dvt, st, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                       stream);
+  return launch<256>(qt, kt, vt, ot, dt, lse, dsum, dkp, dvp, dqt, dkt, dvt,
+                     st, B, Sq, Skv, Hq, Hkv, hd, causal, window, stream);
+}
+
+// the 64-, 128- or 256-wide instance of the tensor-core kernels
+int dispatch_tc(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* dsum, float* dkp,
+                float* dvp, void* dq, void* dk, void* dv, const Strides* st,
+                int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
+                int window, cudaStream_t stream) {
+  const bf16 *qt = static_cast<const bf16*>(q),
+             *kt = static_cast<const bf16*>(k),
+             *vt = static_cast<const bf16*>(v),
+             *ot = static_cast<const bf16*>(o),
+             *dt = static_cast<const bf16*>(dout);
+  bf16 *dqt = static_cast<bf16*>(dq), *dkt = static_cast<bf16*>(dk),
+       *dvt = static_cast<bf16*>(dv);
+  if (hd <= 64)
+    return tc::launch<64>(qt, kt, vt, ot, dt, lse, dsum, dkp, dvp, dqt, dkt,
+                          dvt, st, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                          stream);
+  if (hd <= 128)
+    return tc::launch<128>(qt, kt, vt, ot, dt, lse, dsum, dkp, dvp, dqt, dkt,
+                           dvt, st, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                           stream);
+  return tc::launch<256>(qt, kt, vt, ot, dt, lse, dsum, dkp, dvp, dqt, dkt,
+                         dvt, st, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                         stream);
 }
 
 }  // namespace
@@ -454,6 +1174,15 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   if (hd <= 0 || hd > 256 || hd % 8 || Hkv <= 0 || Hq % Hkv || B > 65535 ||
       Hq > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {  // the tensor-core kernels' 16-byte copies
+    for (int t = 0; t < 24; ++t)
+      if (strides[t] % 8) return static_cast<int>(cudaErrorMisalignedAddress);
+    for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq),
+                          static_cast<const void*>(dk),
+                          static_cast<const void*>(dv)})
+      if (reinterpret_cast<uintptr_t>(p) % 16)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hq <= 0) return 0;
   Strides st[8];
   for (int t = 0; t < 8; ++t)
@@ -464,10 +1193,10 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   float* kp = static_cast<float*>(dkp);
   float* vp = static_cast<float*>(dvp);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, dout, l, ds, kp, vp, dq, dk, dv, st,
-                           B, Sq, Skv, Hq, Hkv, hd, causal, window, s);
-  return dispatch<bf16>(q, k, v, o, dout, l, ds, kp, vp, dq, dk, dv, st, B,
-                        Sq, Skv, Hq, Hkv, hd, causal, window, s);
+    return dispatch(q, k, v, o, dout, l, ds, kp, vp, dq, dk, dv, st, B, Sq,
+                    Skv, Hq, Hkv, hd, causal, window, s);
+  return dispatch_tc(q, k, v, o, dout, l, ds, kp, vp, dq, dk, dv, st, B, Sq,
+                     Skv, Hq, Hkv, hd, causal, window, s);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

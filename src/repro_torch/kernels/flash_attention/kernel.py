@@ -66,9 +66,11 @@ def launch(q, k, v, out, causal: bool, window: int, lse=None) -> None:
 
 def launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal: bool,
                window: int) -> None:
-    """Launch the backward's four kernels on the current stream of
-    ``dq``'s device, with float32 scratch from ``torch.empty``. Checked
-    by the caller (``ops.flash_attention_bwd``)."""
+    """Launch the backward's kernels (three CUDA kernels in bfloat16,
+    four in float32) on the current stream of ``dq``'s device, with
+    float32 scratch from ``torch.empty``: D (B, Hq, Sq) and the per-q-head
+    dk and dv partials (B, Skv, Hq, hd) that the last kernel sums over
+    each group. Checked by the caller (``ops.flash_attention_bwd``)."""
     import torch
 
     lib = BWD_LIB.load()

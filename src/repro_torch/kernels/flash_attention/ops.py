@@ -5,8 +5,9 @@ For tensors on the CPU they return the plain PyTorch versions
 (``ref.py``), and autograd runs through them. For CUDA tensors they
 launch the hand-written kernels (``kernel.py``) or raise: there is no
 fallback. Unlike the TPU wrapper they pad nothing; the kernels mask
-ragged Sq and Skv themselves. bfloat16 runs the forward on the tensor
-cores with 16-byte copies, so its tensors must be 16-byte aligned with
+ragged Sq and Skv themselves. bfloat16 runs the forward and the backward
+on the tensor cores with 16-byte copies, so its tensors (q, k, v, and
+the backward's ``out`` and ``dout``) must be 16-byte aligned with
 strides in 16-byte steps; a tensor that is not raises, it never takes a
 slower path.
 
@@ -17,8 +18,8 @@ writes each row's log-sum-exp and whose backward is the backward kernel
 (``flash_attention_bwd``); otherwise it launches the forward alone.
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the two kernels
 as plain calls. ``flash_attention.launches`` counts the forward's
-launches, ``flash_attention_bwd.launches`` the backward's (one call of
-its four CUDA kernels is one launch).
+launches, ``flash_attention_bwd.launches`` the backward's (one call is
+one launch: three CUDA kernels in bfloat16, four in float32).
 """
 from __future__ import annotations
 
@@ -100,6 +101,12 @@ def _check_bwd(q, k, out, lse, dout):
             or tuple(lse.shape) != (B, Hq, Sq) or not lse.is_contiguous()):
         raise ValueError("flash_attention_bwd: lse must be contiguous "
                          f"float32 {(B, Hq, Sq)} on {q.device}")
+    if q.dtype == torch.bfloat16:
+        for name, t in dict(out=out, dout=dout).items():
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(f"flash_attention_bwd: bfloat16 {name} "
+                                 "must be 16-byte aligned with strides in "
+                                 "16-byte steps")
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,

@@ -118,68 +118,142 @@ def attention_bwd_ref(q, k, v, dout, causal: bool = True, window: int = 0):
         return torch.autograd.grad(out, leaves, dout)
 
 
-BWD_TILE = 32       # the backward's shared-memory tiles, rows or keys
+BWD_TILE = 32       # the float32 kernels' shared-memory tiles, rows or keys
+
+
+def bwd_tiles(hd: int, dtype) -> dict:
+    """The backward kernels' tiles: ``dkv`` (keys a block, q rows a step)
+    and ``dq`` (q rows a block, keys a step). bfloat16 runs the
+    tensor-core kernels (``tc::Cfg`` of flash_attention_bwd.cu: 64 keys
+    or rows a block; q steps of 32 and key steps of 64 up to hd 64, both
+    32 up to hd 128 and 16 above), float32 the CUDA-core kernels (steps
+    of ``BWD_TILE``)."""
+    if dtype == torch.bfloat16:
+        step = 64 if hd <= 64 else 32 if hd <= 128 else 16
+        return dict(dkv=(64, min(step, 32)), dq=(64, step))
+    return dict(dkv=(BWD_TILE, BWD_TILE), dq=(BWD_TILE, BWD_TILE))
+
+
+def _visits(n_out, b_out, b_in, lo, hi):
+    """Per output tile of ``b_out`` rows: the first input tile of ``b_in``
+    it visits and how many, from [lo(r0, r1), hi(r0, r1)) of its rows
+    [r0, r1)."""
+    first, count = [], []
+    for t in range(n_out):
+        r0, r1 = t * b_out, min((t + 1) * b_out, n_out * b_out)
+        a, b = lo(r0, r1), hi(r0, r1)
+        first.append(a // b_in)
+        count.append(max(0, -(-b // b_in) - a // b_in))
+    return first, count
 
 
 def attention_bwd_tiled_ref(q, k, v, out, lse, dout, causal: bool = True,
-                            window: int = 0):
-    """The backward kernel's arithmetic, step by step, in plain PyTorch:
+                            window: int = 0, p_dtype=torch.float32):
+    """The backward kernels' arithmetic, step by step, in plain PyTorch:
     D = rowsum(dO * O) from the forward's rounded output; P recomputed
     from the forward's base-2 ``lse`` as exp2(q.k log2(e)/sqrt(hd) -
-    lse), 0 where masked; dq over key tiles of ``BWD_TILE`` from the
+    lse), 0 where masked; dq over the key tiles of ``bwd_tiles`` from the
     first that some row of the q tile may attend to; dk and dv per q
     head over q tiles from the first that attends to the key tile, in
-    float32, then summed over the group's heads in order; P and dS never
-    rounded. Used by the tests and the card check, never by the model.
-    Returns (dq, dk, dv) in the inputs' dtypes."""
+    float32, then summed over the group's heads in order. P (before dv)
+    and dS (before dq and dk) are rounded to ``p_dtype``: bfloat16 is the
+    tensor-core kernels' arithmetic on bfloat16 inputs, float32 (no
+    rounding) the CUDA-core kernels'. Every output tile takes its steps
+    in the kernels' order; the tiles of one step run side by side (a
+    tile past its last step adds exact zeros). Used by the tests and the
+    card check, never by the model. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     dev = q.device
+    tiles = bwd_tiles(hd, q.dtype)
+    (bq, bk), (bkv, bqs) = tiles["dq"], tiles["dkv"]
     scale = 1.0 / math.sqrt(hd)
     scale_log2 = torch.tensor(LOG2E * scale, dtype=torch.float32)
-    qf = q.float().reshape(B, Sq, Hkv, G, hd)
-    kf, vf = k.float(), v.float()
-    dof = dout.float().reshape(B, Sq, Hkv, G, hd)
-    L = lse.reshape(B, Hkv, G, Sq)
+    # rows and keys padded to whole tiles: zeros, masked
+    mq, mk = max(bq, bqs), max(bk, bkv)
+    Rq, Rk = -(-Sq // mq) * mq, -(-Skv // mk) * mk
+
+    def pad(x, n):
+        return torch.nn.functional.pad(x, (0, 0) * (x.ndim - 2)
+                                       + (0, n - x.shape[1]))
+
+    qf = pad(q.float(), Rq).reshape(B, Rq, Hkv, G, hd)
+    dof = pad(dout.float(), Rq).reshape(B, Rq, Hkv, G, hd)
+    kf, vf = pad(k.float(), Rk), pad(v.float(), Rk)
+    L = torch.nn.functional.pad(lse.reshape(B, Hkv, G, Sq), (0, Rq - Sq))
     D = torch.einsum("bqhgd,bqhgd->bhgq", dof,
-                     out.float().reshape(B, Sq, Hkv, G, hd))
+                     pad(out.float(), Rq).reshape(B, Rq, Hkv, G, hd))
+    allowed = torch.zeros(Rq, Rk, dtype=torch.bool, device=dev)
+    allowed[:Sq, :Skv] = _mask(Sq, Skv, causal, window, dev)
 
-    def probs(q0, q1, k0, k1):
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, q0:q1], kf[:, k0:k1])
-        p = torch.exp2(s * scale_log2 - L[..., q0:q1, None])
-        ok = _mask(q1 - q0, k1 - k0, causal, window, dev, q0, k0)
-        p = torch.where(ok, p, torch.zeros_like(p))
-        dp = torch.einsum("bqhgd,bkhd->bhgqk", dof[:, q0:q1], vf[:, k0:k1])
-        return p, p * (dp - D[..., q0:q1, None])
+    def rounded(x):
+        return x.to(p_dtype).float()
 
-    dq = torch.zeros(B, Hkv, G, Sq, hd, device=dev)
-    for q0 in range(0, Sq, BWD_TILE):
-        q1 = min(q0 + BWD_TILE, Sq)
-        kv_end = min(Skv, q1) if causal else Skv
-        kv_begin = max(0, q0 - window + 1) if window else 0
-        for k0 in range(kv_begin // BWD_TILE * BWD_TILE, kv_end, BWD_TILE):
-            k1 = min(k0 + BWD_TILE, Skv)
-            _, ds = probs(q0, q1, k0, k1)
-            dq[..., q0:q1, :] += torch.einsum("bhgqk,bkhd->bhgqd", ds,
-                                              kf[:, k0:k1])
-    dkp = torch.zeros(B, Hkv, G, Skv, hd, device=dev)
+    def take(x, idx):
+        """x (B, R, ...) at rows idx (T, n) -> (B, T, n, ...)"""
+        return x[:, idx.reshape(-1)].reshape(x.shape[0], *idx.shape,
+                                             *x.shape[2:])
+
+    def step_of(first, count, s, n_in, b_in):
+        """Input rows (T, b_in) of step s, and which tiles are live."""
+        live = torch.tensor([s < c for c in count], device=dev)
+        t = torch.tensor([min(f + s, n_in - 1) for f in first], device=dev)
+        return t[:, None] * b_in + torch.arange(b_in, device=dev), live
+
+    # dq: q tiles of bq rows, key tiles of bk
+    nq = Rq // bq
+    first, count = _visits(
+        nq, bq, bk,
+        lambda r0, r1: max(0, r0 - window + 1) if window else 0,
+        lambda r0, r1: min(Skv, min(r1, Sq)) if causal else Skv)
+    qt = qf.reshape(B, nq, bq, Hkv, G, hd)
+    dot = dof.reshape(B, nq, bq, Hkv, G, hd)
+    Lt, Dt = L.reshape(B, Hkv, G, nq, bq), D.reshape(B, Hkv, G, nq, bq)
+    rows = torch.arange(Rq, device=dev).reshape(nq, bq)
+    dq = torch.zeros(B, Hkv, G, nq, bq, hd, device=dev)
+    for s in range(max(count, default=0)):
+        keys, live = step_of(first, count, s, Rk // bk, bk)
+        kg, vg = take(kf, keys), take(vf, keys)     # (B, nq, bk, Hkv, hd)
+        ok = allowed[rows[:, :, None], keys[:, None, :]] & live[:, None, None]
+        sc = torch.einsum("btqhgd,btkhd->bhgtqk", qt, kg)
+        p = torch.exp2(sc * scale_log2 - Lt[..., None]).masked_fill(~ok, 0.0)
+        dp = torch.einsum("btqhgd,btkhd->bhgtqk", dot, vg)
+        ds = p * (dp - Dt[..., None])
+        dq += torch.einsum("bhgtqk,btkhd->bhgtqd", rounded(ds), kg)
+
+    # dk, dv per q head: key tiles of bkv, q tiles of bqs
+    nk = Rk // bkv
+    first, count = _visits(
+        nk, bkv, bqs,
+        lambda r0, r1: r0 if causal else 0,
+        lambda r0, r1: (min(Sq, min(r1, Skv) - 1 + window) if window
+                        else Sq))
+    kt = kf.reshape(B, nk, bkv, Hkv, hd)
+    vt = vf.reshape(B, nk, bkv, Hkv, hd)
+    cols = torch.arange(Rk, device=dev).reshape(nk, bkv)
+    dkp = torch.zeros(B, Hkv, G, nk, bkv, hd, device=dev)
     dvp = torch.zeros_like(dkp)
-    for k0 in range(0, Skv, BWD_TILE):
-        k1 = min(k0 + BWD_TILE, Skv)
-        q_begin = k0 if causal else 0
-        q_end = min(Sq, k1 - 1 + window) if window else Sq
-        for q0 in range(q_begin // BWD_TILE * BWD_TILE, q_end, BWD_TILE):
-            q1 = min(q0 + BWD_TILE, Sq)
-            p, ds = probs(q0, q1, k0, k1)
-            dvp[..., k0:k1, :] += torch.einsum("bhgqk,bqhgd->bhgkd", p,
-                                               dof[:, q0:q1])
-            dkp[..., k0:k1, :] += torch.einsum("bhgqk,bqhgd->bhgkd", ds,
-                                               qf[:, q0:q1])
+    for s in range(max(count, default=0)):
+        qrows, live = step_of(first, count, s, Rq // bqs, bqs)
+        qg, dg = take(qf, qrows), take(dof, qrows)  # (B, nk, bqs, Hkv, G, hd)
+        lg, dsg = L[..., qrows], D[..., qrows]      # (B, Hkv, G, nk, bqs)
+        ok = allowed[qrows[:, :, None], cols[:, None, :]] & live[:, None, None]
+        sc = torch.einsum("btqhgd,btkhd->bhgtqk", qg, kt)
+        p = torch.exp2(sc * scale_log2 - lg[..., None]).masked_fill(~ok, 0.0)
+        dp = torch.einsum("btqhgd,btkhd->bhgtqk", dg, vt)
+        ds = p * (dp - dsg[..., None])
+        dvp += torch.einsum("bhgtqk,btqhgd->bhgtkd", rounded(p), dg)
+        dkp += torch.einsum("bhgtqk,btqhgd->bhgtkd", rounded(ds), qg)
+
+    dkp = dkp.reshape(B, Hkv, G, Rk, hd)[:, :, :, :Skv]
+    dvp = dvp.reshape(B, Hkv, G, Rk, hd)[:, :, :, :Skv]
     dk, dv = dkp[:, :, 0] * scale, dvp[:, :, 0]
     for g in range(1, G):
         dk = dk + dkp[:, :, g] * scale
         dv = dv + dvp[:, :, g]
-    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd)
+    dq = (dq.reshape(B, Hkv, G, Rq, hd)[:, :, :, :Sq] * scale)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd)
     return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
             dv.transpose(1, 2).to(v.dtype))

@@ -16,7 +16,9 @@ reference's float32 gradient on the same rounded inputs: the plain
 backward on float32 copies within 1e-5, and the bfloat16 gradients of
 the plain backward and the emulation within 4e-3 (their outputs round
 once to bf16, 2^-8 relative, and the emulation's D uses the bf16
-output)."""
+output). The emulation with P and dS rounded to bf16 (the tensor-core
+kernels' arithmetic) is held within 8e-3: see
+``test_rounded_emulation_matches_reference_vjp``."""
 import functools
 
 import jax
@@ -43,8 +45,21 @@ CASES = [
     (2, 48, 4, 2, 32, 0, "bfloat16"),
     (1, 40, 4, 1, 64, 16, "bfloat16"),
 ]
-IDS = [f"B{c[0]}_S{c[1]}_{c[2]}x{c[3]}_hd{c[4]}_w{c[5]}_{c[6]}"
-       for c in CASES]
+# the tensor-core kernels' arithmetic: the bf16 CASES, and hd 128 and 256
+# (their instances' own tiles: 32 and 16 rows a step)
+ROUNDED_CASES = [c for c in CASES if c[6] == "bfloat16"] + [
+    (1, 96, 4, 2, 128, 0, "bfloat16"),
+    (1, 80, 2, 1, 256, 40, "bfloat16"),
+]
+BF16_ROUNDED_TOL = 8e-3
+
+
+def _ids(cases):
+    return [f"B{c[0]}_S{c[1]}_{c[2]}x{c[3]}_hd{c[4]}_w{c[5]}_{c[6]}"
+            for c in cases]
+
+
+IDS = _ids(CASES)
 
 
 def _inputs(B, S, Hq, Hkv, hd, dt, seed=7):
@@ -108,6 +123,66 @@ def test_tiled_emulation_matches_reference_vjp(case):
     for g, w, t in zip(got, want, tx):
         assert g.dtype == t.dtype
         assert _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("case", ROUNDED_CASES, ids=_ids(ROUNDED_CASES))
+def test_rounded_emulation_matches_reference_vjp(case):
+    """The emulation of the bfloat16 kernels' arithmetic: P rounded to
+    bf16 before dV += P^T dO and dS before dq and dk, on their tiles.
+    Against the reference's float32 gradient on the same rounded inputs,
+    two bf16 roundings of 2^-8 relative each bound it: 2 x 2^-8 = 7.8e-3,
+    so 8e-3 (the worst of 32 draws of four small shapes, 8 seeds each,
+    was 6.6e-3). Each output is also within 8e-3 of the unrounded
+    emulation: the two differ by those roundings only."""
+    B, S, Hq, Hkv, hd, window, dt = case
+    _, tx = _inputs(B, S, Hq, Hkv, hd, dt)
+    q, k, v, do = tx
+    out, lse = ops.flash_attention_fwd(q, k, v, True, window)
+    got = ref.attention_bwd_tiled_ref(q, k, v, out, lse, do, True, window,
+                                      p_dtype=torch.bfloat16)
+    plain = ref.attention_bwd_tiled_ref(q, k, v, out, lse, do, True, window)
+    want = _case_grads(case)
+    for g, p, w, t in zip(got, plain, want, tx):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _rel(g, w) <= BF16_ROUNDED_TOL
+        assert _rel(g, p.float().numpy()) <= BF16_ROUNDED_TOL
+        assert not torch.equal(g, p)    # the roundings took place
+
+
+@pytest.mark.parametrize("hd,tiles", [
+    (64, dict(dkv=(64, 32), dq=(64, 64))),
+    (112, dict(dkv=(64, 32), dq=(64, 32))),
+    (256, dict(dkv=(64, 16), dq=(64, 16))),
+])
+def test_bwd_tiles_follow_the_instances(hd, tiles):
+    """The emulation's tiles are the tensor-core instance's (hd 64, 128,
+    256: hd 112 runs in the 128-wide one) for bfloat16, the CUDA-core
+    kernels' 32 for float32."""
+    assert ref.bwd_tiles(hd, torch.bfloat16) == tiles
+    assert ref.bwd_tiles(hd, torch.float32) == dict(dkv=(32, 32),
+                                                    dq=(32, 32))
+
+
+@pytest.mark.parametrize("name", ["out", "dout"])
+def test_check_bwd_refuses_misaligned_bf16(name):
+    """bfloat16 ``out`` and ``dout`` feed the tensor-core kernels' 16-byte
+    copies: a base that is not 16-byte aligned or a stride that is not a
+    multiple of 8 elements raises, as for q, k and v; float32 passes."""
+    B, S, Hq, hd = 1, 8, 2, 16
+    q = torch.zeros(B, S, Hq, hd, dtype=torch.bfloat16)
+    lse = torch.zeros(B, Hq, S)
+    good = dict(out=torch.zeros_like(q), dout=torch.zeros_like(q))
+    ops._check_bwd(q, q, good["out"], lse, good["dout"])
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(
+        q.shape)
+    with pytest.raises(ValueError, match=f"bfloat16 {name}"):
+        ops._check_bwd(q, q, **{**good, name: shifted}, lse=lse)
+    wide = torch.zeros(B, S, Hq, hd + 4, dtype=torch.bfloat16)[..., :hd]
+    assert wide.stride(-1) == 1 and wide.stride(2) % 8
+    with pytest.raises(ValueError, match=f"bfloat16 {name}"):
+        ops._check_bwd(q, q, **{**good, name: wide}, lse=lse)
+    q32, o32 = q.float(), torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    ops._check_bwd(q32, q32, o32, lse, o32)
 
 
 @pytest.mark.parametrize("causal", [True, False])
