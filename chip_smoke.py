@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
+(``python3 chip_smoke.py --bo-group G OUT.json`` runs one group of phases
+4b-4f alone and writes its launches to OUT.json: the script starts one
+such process for each group.)
+
 Phases, each of which raises on failure (non-zero exit):
 
 1. setup: the card's name and power limit, torch/CUDA versions, TF32 off,
    and the build of every kernel from the sources in the checkout (one
-   nvcc per source, all six at once; seconds, and each instance's
-   registers and spills, logged); ``flash_attention``'s SASS must hold
+   nvcc per source, all seven at once; seconds, and each instance's
+   registers and spills, logged; the scans' float32 backward instances
+   must not spill); ``flash_attention``'s SASS must hold
    tensor-core instructions (``cuobjdump``, where the toolkit has it);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with error and CUDA-event times beside
@@ -47,8 +52,21 @@ Phases, each of which raises on failure (non-zero exit):
    L2 size) and ``rwkv6_scan`` (RWKV6-3B's
    shapes in f32 and bf16, the reference's cases and a ragged hd 100,
    the state written in place, twice bit for bit, with its plan, blocks
-   an SM and waves, timed cold as well as warm; its hd-160 build must
-   not spill);
+   an SM and waves, timed cold as well as warm, and in float32 with the
+   backward's saved states written equal to the forward without them bit
+   for bit; its hd-160 build and the float32 instances that save the
+   states must not spill), and the scans' float32 backwards
+   ``rglru_scan_bwd`` (RecurrentGemma-2B's training microbatch, the
+   split-serving length, one step, the reference's cases) and
+   ``rwkv6_scan_bwd`` (RWKV6-3B's training microbatch and split-serving
+   length, the reference's cases, a ragged hd 100, a logw whose w
+   underflows to 0; the forward's saved states against the plain
+   forward's): each gradient against the plain reverse loop within
+   ``BWD_TOL`` and the plain emulation of the kernels' order within
+   ``SCAN_BWD_EMU_TOL`` of its largest magnitude, with and without a
+   cotangent for the last state, twice bit for bit, timed warm and
+   cold beside the bound and the plain loop (no PyTorch call computes
+   them);
 3. the sequential engine, ``BayesSplitEdge(default_vgg19_problem(),
    budget=20).run(seed=0)``, must reach 87.5 % at split layer 7;
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
@@ -88,8 +106,9 @@ Phases, each of which raises on failure (non-zero exit):
    router cycles, the transport's sent/delivered/dropped/duplicated
    counts, retries, dispatches, acquisition iterations and chunks, host
    reads, synchronisations, posterior launches): (a) zero-fault over the
-   hetero mix, cold, equal to 4c's 8-lane single-host stream in every
-   result leaf and so to the reference's answers; (b) a lossy network
+   hetero mix, cold, equal to 4c's 8-lane single-host stream (run again
+   in 4d's process) in every result leaf and so to the reference's
+   answers; (b) a lossy network
    (``NetworkChaos``: 5 % drop, 5 % duplication, reordering, delay, a
    partition of ``w0`` healed later) over a 16-arrival bursty deadlined
    trace: every request exactly once, the deadline hit rate at least 0.9
@@ -117,6 +136,10 @@ Phases, each of which raises on failure (non-zero exit):
    at the reference's default seeds (3, 3, 10); trace robustness (5
    frames). The figures' sequential modes are held on the CPU only
    (``tests/test_torch_figures_{regret,ablation}.py``);
+   4b-4f wait on the host between small launches, so they run side by
+   side, a process each (``BO_GROUPS``) on the one card, while the
+   script measures nothing else; each process's lines are printed when
+   all have ended, and their wall times are those of a shared host;
 4g. VGG19 at full width (``models/vgg.py``: 1000 classes, 224 x 224 x
    3, float32, 143.7 M parameters from ``torch.Generator`` seed 0, one
    seeded image, cuDNN deterministic): ``split_forward`` at every split
@@ -154,7 +177,7 @@ Phases, each of which raises on failure (non-zero exit):
    at a capacity factor under which nothing drops, and says so;
 6. training, Qwen2-1.5B (``TRAIN_ARCH``): (a) ``launch.train`` at full
    width and depth, bf16, remat, AdamW, B 4 x S 512 in 2 microbatches,
-   30 steps (``TRAIN_RUN``): the loss falls (the mean of the last five
+   20 steps (``TRAIN_RUN``): the loss falls (the mean of the last five
    below the first five), each step launches exactly
    ``train_launches`` (28 x 2 x 2 flash forwards, 28 x 2 backwards) and
    no plain version; a ``profile`` line of one step and a ``train`` line
@@ -171,12 +194,22 @@ Phases, each of which raises on failure (non-zero exit):
    compression, 6 steps with a checkpoint
    every 2 and a failure injected at step 3 through
    ``TrainController``: the resumed run equals the uninterrupted one bit
-   for bit in every parameter, moment and error-feedback leaf.
+   for bit in every parameter, moment and error-feedback leaf; then,
+   one model at a time, RWKV6-3B and RecurrentGemma-2B (``RECURRENT_ARCHS``):
+   (a) as 6a (``RECURRENT_RUN``: 10 and 20 steps at lr 1e-5),
+   the loss held over the first and last three, each step launching
+   exactly ``train_launches``
+   (RecurrentGemma-2B: 72 ``rglru_scan``, 36 ``rglru_scan_bwd``, 32
+   flash forwards and 16 backwards; RWKV6-3B: 128 ``rwkv6_scan``, 64
+   ``rwkv6_scan_bwd``), with its ``profile`` and ``train`` lines; (b)
+   as 6b in float32 on one pattern cycle of RecurrentGemma-2B (rglru,
+   rglru, local) and 2 layers of RWKV6-3B, the plain route the plain
+   scans under autograd.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
 each figure of 4f, the executor run of 4g, each model's split,
-serving and generation runs, and the training run and step check of
+serving and generation runs, and each training run and step check of
 phase 6) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
@@ -340,6 +373,32 @@ RWKV_MAIN = "prefill"
 # order only; bfloat16 takes the reference's kernel-test bar (5 x its
 # atol of 2e-2, rtol 3e-2), since outputs round to bf16 on both sides
 SCAN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-1, 3e-2)}
+# the scans' backwards, float32: (name, B, S, R) and (name, B, S, H, hd,
+# underflow); "train" is a microbatch of phase 6's RecurrentGemma-2B and
+# RWKV6-3B runs, "split_serving" the serving length, the cases the
+# reference's (tests/test_kernels.py) in float32; "underflow" draws logw
+# = -exp(8) (w = 0 in float32, the model's clip) on every other step
+RGLRU_BWD_SHAPES = [
+    ("train", 2, 512, 2560),
+    ("split_serving", 2, 32, 2560),
+    ("one_step", 2, 1, 2560),
+    ("case0", 2, 64, 32),
+    ("case1", 1, 100, 48),
+]
+RWKV_BWD_SHAPES = [
+    ("train", 2, 512, 16, 160, False),
+    ("split_serving", 2, 32, 16, 160, False),
+    ("case0", 2, 64, 2, 16, False),
+    ("case1", 1, 100, 4, 32, False),
+    ("case2", 2, 48, 2, 16, False),
+    ("hd100_ragged", 1, 77, 3, 100, False),
+    ("underflow", 2, 64, 16, 160, True),
+]
+SCAN_BWD_MAIN = "train"
+# a backward against the plain emulation of its own order: the same sums
+# in the same order, fused multiply-adds taken unfused (RWKV6) or
+# emulated in float64 (RG-LRU); of each tensor's largest magnitude
+SCAN_BWD_EMU_TOL = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -416,6 +475,9 @@ RAGGED_POINTS = (16, 32, 48, 64, 5, 20, 37)
 # cancellation in sv - |L^-1 ks|^2)
 POST_RTOL, POST_ATOL, POST_TERMS = 1e-5, 1e-5, 1e-6
 SLEEP_CYCLES = 50_000_000           # keeps the queue full while timing
+# the scans' plain loops take milliseconds a call (a Python loop over S):
+# timed with fewer calls than the kernels
+PLAIN_TIMING = dict(samples=3, inner=2)
 
 
 def log(*a):
@@ -1374,8 +1436,7 @@ def stream_phase(core, kernels):
     (b) the 128-arrival mixed CNN + LM trace, warm, through 8 and 64
     lanes; (c) chaos, cold: kill at round 2 and resume, and a NaN poison
     at round 2, each against the fault-free run bit for bit. Returns the
-    matern_score launches by run and the hetero cold results by request
-    (phase 4d's single host)."""
+    matern_score launches by run."""
     from repro_torch.core import wholerun as wr
     from repro_torch.core.engine_config import EngineConfig
     from repro_torch.runtime.chaos import FaultInjector
@@ -1403,7 +1464,6 @@ def stream_phase(core, kernels):
                                           archs=ha["archs"])
     got, (eng,) = run("hetero cold, 8 lanes", hetero, cold,
                       n_lanes=ha["n_lanes"])
-    hetero_cold = got
     offline = core.WholeRunBayesSplitEdge(
         hetero(), EngineConfig(warm_start=False, compact=False))
     off_res = offline.run()
@@ -1494,7 +1554,7 @@ def stream_phase(core, kernels):
     log("stream_phase", json.dumps(dict(
         seconds=time.perf_counter() - t_phase, lane_width=wr.LANE_WIDTH,
         launches_by_run=by_run)))
-    return by_run, hetero_cold
+    return by_run
 
 
 # --------------------------------------------------------------------------
@@ -1558,11 +1618,11 @@ def fleet_run(kernels, what, make_router):
     return rt, {r.index: r for r in emitted}
 
 
-def fleet_phase(core, kernels, single):
+def fleet_phase(core, kernels):
     """Phase 4d: the fleet (``runtime/fleet.py``) on the card. (a)
     zero-fault: 2 workers x 4 lanes over the hetero mix, cold, equal to
-    the 8-lane single-host stream (``single``, phase 4c's run) in every
-    result leaf, and so to the reference's answers; (b) lossy: 5 % drop,
+    the 8-lane single-host stream (phase 4c's first run, run again here)
+    in every result leaf, and so to the reference's answers; (b) lossy: 5 % drop,
     5 % duplication, reordering, delay and one partition/heal cycle over a
     bursty deadlined trace, every request exactly once, the deadline hit
     rate at least FLEET_HIT_RATE_FLOOR of the fault-free fleet's, and
@@ -1592,6 +1652,9 @@ def fleet_phase(core, kernels, single):
     # (a) zero-fault, against the single host bit for bit
     if FLEET_WORKERS * FLEET_LANES != want["n_lanes"]:
         raise AssertionError("the fleet's lanes are not the single host's")
+    single, _ = stream_run(core, kernels, "hetero cold, 8 lanes (4d's "
+                           "single host)", hetero, cold,
+                           n_lanes=want["n_lanes"])
     what = f"zero-fault, {FLEET_WORKERS} x {FLEET_LANES} lanes, hetero cold"
     rt, got = run(what, lambda: sim_fleet(
         hetero(), n_workers=FLEET_WORKERS, config=cold, n_lanes=FLEET_LANES,
@@ -1772,7 +1835,7 @@ def figure_run(kernels, what, run, bo=True):
     return out, finals, stats
 
 
-def figures_phase(kernels, table1_rows):
+def figures_phase(kernels, table1_rows, names):
     """Phase 4f: the paper's figures on the card, each held to the
     reference's answers by its script's ``mismatches``, a ``figure``
     line each: Figs 2-4 (host numbers); Figs 6 and 7 built from phase
@@ -1782,8 +1845,9 @@ def figures_phase(kernels, table1_rows):
     reference's default seeds (3, 3, 10); trace robustness (5 frames).
     The sequential modes of Figs 8-10 are held on the CPU only
     (``tests/test_torch_figures_{regret,ablation}.py``). Every line is
-    logged before a figure that disagrees fails the phase. Returns the
-    posterior launches by figure."""
+    logged before a figure that disagrees fails the phase. Runs the
+    figures in ``names`` (``table1_rows`` may be None without Figs 6 and
+    7). Returns the posterior launches by figure."""
     from benchmarks import fig6_convergence_torch as fig6
     from benchmarks import fig7_space_torch as fig7
     from benchmarks import fig8_regret_torch as fig8
@@ -1824,7 +1888,12 @@ def figures_phase(kernels, table1_rows):
          paper["trace_robustness"], False, True),
     ]
     by_run, failed = {}, {}
+    unknown = set(names) - {f[0] for f in figures}
+    if unknown:
+        raise ValueError(f"no figure {sorted(unknown)}")
     for what, mod, run, want, with_finals, bo in figures:
+        if what not in names:
+            continue
         out, finals, stats = figure_run(kernels, what, run, bo)
         got = mod.answers(out, finals) if with_finals else mod.answers(out)
         bad = (mod.mismatches(got, want, on_card=True)
@@ -1845,6 +1914,111 @@ def figures_phase(kernels, table1_rows):
         raise AssertionError(f"figures not held to the reference's "
                              f"answers: {failed}")
     return by_run
+
+
+# --------------------------------------------------------------------------
+# phases 4b-4f side by side
+# --------------------------------------------------------------------------
+
+# The BO phases wait on the host between small launches, so each group
+# runs in a process of its own on the one card while the parent waits.
+# The groups are near even in time: 4e takes Table 1 with the figures
+# built from its runs and Fig 10, 4f the other BO figures.
+HOST_FIGURES = ("fig2-4", "fig6", "fig7", "fig10 --batched")
+BO_FIGURES = ("fig8 --mixed-arch", "fig9 --batched", "trace_robustness")
+BO_GROUPS = ("4b", "4c", "4d", "4e", "4f")
+
+
+def bo_group(group, core, kernels) -> dict:
+    """Run one of ``BO_GROUPS`` in this process: the matern_score
+    launches by path (the keys of the ``kernels`` line's
+    ``launches_by_path``)."""
+    if group == "4b":
+        return {"wholerun": wholerun_phase(core, kernels)["matern_score"]}
+    if group == "4c":
+        runs = {"stream": stream_phase(core, kernels)}
+    elif group == "4d":
+        runs = {"fleet": fleet_phase(core, kernels)}
+    elif group == "4e":
+        table1, rows = table1_phase(kernels)
+        runs = {"table1": table1,
+                "figures": figures_phase(kernels, rows, HOST_FIGURES)}
+    elif group == "4f":
+        runs = {"figures": figures_phase(kernels, None, BO_FIGURES)}
+    else:
+        raise ValueError(f"no BO group {group!r}")
+    return {f"{path}:{what}": n for path, by_run in runs.items()
+            for what, n in by_run.items()}
+
+
+def bo_child(group: str, out: str) -> int:
+    """A group's process: TF32 off as in phase 1, the group run, its
+    launches by path, seconds and posterior shapes written to ``out``."""
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core as core
+    import repro_torch.kernels as kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    by_path = bo_group(group, core, kernels)
+    Path(out).write_text(json.dumps(dict(
+        by_path=by_path, seconds=time.perf_counter() - t0,
+        shapes=[[list(k), n] for k, n in LAUNCHED_SHAPES.items()])))
+    return 0
+
+
+def bo_phases(seconds: dict) -> dict:
+    """Phases 4b-4f: ``BO_GROUPS`` side by side, a process each; each
+    group's lines printed in order once all have ended (its standard
+    error after them), the posterior shapes merged into
+    ``LAUNCHED_SHAPES``, each group's seconds (from its start, imports
+    included) and the block's wall time into ``seconds``. A failed group
+    ends the others and fails the phase. Returns the matern_score
+    launches by path."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    by_path, procs = {}, {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        files = {g: [Path(d) / f"{g}.{x}" for x in ("out", "err", "json")]
+                 for g in BO_GROUPS}
+        try:
+            for g, (out, err, res) in files.items():
+                with open(out, "w") as o, open(err, "w") as e:
+                    procs[g] = subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--bo-group", g, str(res)],
+                        cwd=ROOT, stdout=o, stderr=e)
+            while (any(p.poll() is None for p in procs.values())
+                   and not any(p.poll() for p in procs.values())):
+                time.sleep(0.5)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for g, (out, err, res) in files.items():
+            sys.stdout.write(out.read_text())
+            sys.stdout.flush()
+            sys.stderr.write(err.read_text())
+            sys.stderr.flush()
+            if procs[g].returncode:
+                continue
+            got = json.loads(res.read_text())
+            by_path.update(got["by_path"])
+            seconds[g] = got["seconds"]
+            for shape, n in got["shapes"]:
+                LAUNCHED_SHAPES[tuple(shape)] = (
+                    LAUNCHED_SHAPES.get(tuple(shape), 0) + n)
+    seconds["4b-4f"] = time.perf_counter() - t0
+    codes = {g: p.returncode for g, p in procs.items() if p.returncode}
+    if codes:
+        raise AssertionError(f"BO groups failed (exit codes; negative: "
+                             f"ended by the script): {codes}")
+    return by_path
 
 
 # --------------------------------------------------------------------------
@@ -2410,8 +2584,9 @@ def rglru_phase(kernels):
             raise AssertionError(f"rglru_scan at {name}: the kernel "
                                  f"launches {built}, scan_plan says {plan}")
         per_sm = built["blocks_per_sm"]
-        ms = median_ms(dict(plain=lambda: kernels.rglru_scan_ref(*args),
-                            kernel=lambda: kernels.rglru_scan(*args)), ())
+        ms = median_ms(dict(kernel=lambda: kernels.rglru_scan(*args)), ())
+        ms.update(median_ms(dict(
+            plain=lambda: kernels.rglru_scan_ref(*args)), (), **PLAIN_TIMING))
         ms_cold = cold_ms(kernels.rglru_scan, cold_copies(args))
         n = B * S * R
         nbytes = a.element_size() * 3 * n + 4 * 2 * B * R
@@ -2433,10 +2608,14 @@ def rglru_phase(kernels):
 
 def rwkv6_phase(kernels):
     """Each RWKV_SHAPES row against the plain version, twice bit for bit,
-    in place as out of place, with the kernel's plan (``scan_plan``), the
+    in place as out of place, in float32 with the backward's saved
+    states written bit for bit as without (``rwkv6_scan_fwd``; the
+    instance that saves them is float32 only), with the kernel's plan
+    (``scan_plan``), the
     blocks an SM holds and the waves its grid needs on this card; timed
     warm (``ms``) and cold (``ms_cold``, ``cold_ms``)."""
     from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_fwd
     from repro_torch.kernels.rwkv6_scan.ops import scan_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2459,7 +2638,15 @@ def rwkv6_phase(kernels):
         state = s0.clone()                    # s_last written over s0
         o_in_place, _ = kernels.rwkv6_scan(r, k, v, logw, u, state,
                                            s_out=state)
-        torch.cuda.synchronize()
+        if dtype == torch.float32:           # the saving instance's type
+            with_states = rwkv6_scan_fwd(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(with_states[0], got[0])
+                    and torch.equal(with_states[1], got[1])):
+                raise AssertionError(f"rwkv6_scan at {name}: the forward "
+                                     "with the backward's saved states "
+                                     "differs from the one without them")
+            del with_states
         err = check_scan("rwkv6_scan", name, zip(got, want), dtype)
         if not (torch.equal(state, got[1]) and torch.equal(o_in_place,
                                                            got[0])):
@@ -2475,8 +2662,9 @@ def rwkv6_phase(kernels):
                 f"scan_plan says {plan.smem_bytes}")
         per_sm = rw_kernel.blocks_per_sm(hd, dtype)
         waves = -(-plan.blocks // (per_sm * sms))
-        ms = median_ms(dict(plain=lambda: kernels.rwkv6_scan_ref(*args),
-                            kernel=lambda: kernels.rwkv6_scan(*args)), ())
+        ms = median_ms(dict(kernel=lambda: kernels.rwkv6_scan(*args)), ())
+        ms.update(median_ms(dict(
+            plain=lambda: kernels.rwkv6_scan_ref(*args)), (), **PLAIN_TIMING))
         ms_cold = cold_ms(kernels.rwkv6_scan, cold_copies(args))
         # per (b, t, h): each state element takes k v (1), w S + k v (2)
         # and r S + acc (2); r . (u k) 3 hd and its v term 2 hd; one exp
@@ -2504,6 +2692,200 @@ def rwkv6_phase(kernels):
     return rows
 
 
+def rglru_bwd_phase(kernels):
+    """Each RGLRU_BWD_SHAPES row: the backward kernel's da, db and dh0 at
+    random cotangents (dh_last included) after the forward kernel,
+    against the plain reverse loop (``rglru_scan_bwd_ref``) within
+    BWD_TOL and the plain emulation of its chunks
+    (``rglru_scan_bwd_chunked_ref``) within SCAN_BWD_EMU_TOL of each
+    tensor's largest magnitude, and with no dh_last; twice bit for bit;
+    timed warm and cold beside its bound and the plain loop."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_chunked_ref
+
+    rows = []
+    for name, B, S, R in RGLRU_BWD_SHAPES:
+        t_row = time.perf_counter()
+        a, b, h0 = rglru_inputs(B, S, R, torch.float32, seed=S + R + 1)
+        rng = np.random.default_rng(S + R + 2)
+        dhs = torch.as_tensor(rng.standard_normal((B, S, R)),
+                              dtype=torch.float32, device=DEVICE)
+        dh_last = torch.as_tensor(rng.standard_normal((B, R)),
+                                  dtype=torch.float32, device=DEVICE)
+        hs, _ = kernels.rglru_scan(a, b, h0)
+        args = (a, h0, hs, dhs, dh_last)
+        got = kernels.rglru_scan_bwd(*args)
+        again = kernels.rglru_scan_bwd(*args)
+        no_last = kernels.rglru_scan_bwd(a, h0, hs, dhs)
+        want = kernels.rglru_scan_bwd_ref(*args)
+        want_nl = kernels.rglru_scan_bwd_ref(a, h0, hs, dhs)
+        emu = rglru_scan_bwd_chunked_ref(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"rglru_scan_bwd at {name}: two calls on "
+                                 "the same inputs differ")
+        errs, rel, emu_rel = {}, {}, {}
+        for label, g, w, e, gn, wn in zip(("da", "db", "dh0"), got, want,
+                                          emu, no_last, want_nl):
+            errs[label], rel[label] = check_rel(
+                "rglru_scan_bwd", name, label, g, w, BWD_TOL[torch.float32])
+            emu_rel[label] = check_rel("rglru_scan_bwd", name,
+                                       f"{label} (emulation)", g, e,
+                                       SCAN_BWD_EMU_TOL)[1]
+            check_rel("rglru_scan_bwd", name, f"{label} (no dh_last)", gn,
+                      wn, BWD_TOL[torch.float32])
+        ms = median_ms(dict(kernel=lambda: kernels.rglru_scan_bwd(*args)),
+                       ())
+        plain = median_ms(dict(
+            plain=lambda: kernels.rglru_scan_bwd_ref(*args)), (),
+            **PLAIN_TIMING)
+        ms_cold = cold_ms(kernels.rglru_scan_bwd, cold_copies(args))
+        n = B * S * R
+        # a, hs and dhs read, da and db written; h0 and dh_last read, dh0
+        # written; g's multiply-add and da's product an element
+        nbytes = 4 * (5 * n + 3 * B * R)
+        bound_ms, bound_by, terms = bound(nbytes, 3 * n)
+        row = dict(name=name, B=B, S=S, R=R, dtype="float32",
+                   max_abs_err=max(errs.values()), rel_err=rel,
+                   emulation_rel_err=emu_rel, tol=BWD_TOL[torch.float32],
+                   emulation_tol=SCAN_BWD_EMU_TOL, repeat_bitwise=True,
+                   ms=ms["kernel"], ms_cold=ms_cold, plain_ms=plain["plain"],
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_terms=terms, seconds=time.perf_counter() - t_row)
+        log("rglru_scan_bwd", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def rwkv_bwd_inputs(B, S, H, hd, underflow, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=DEVICE)
+
+    r, k, v, do = (t(rng.standard_normal((B, S, H, hd))) for _ in range(4))
+    logw = -np.exp(rng.standard_normal((B, S, H, hd))) * 0.5
+    if underflow:
+        logw[:, ::2] = -np.exp(8.0)
+    u = t(rng.standard_normal((H, hd)) * 0.1)
+    s0, ds_last = (t(rng.standard_normal((B, H, hd, hd)) * 0.1)
+                   for _ in range(2))
+    return r, k, v, t(logw), u, s0, do, ds_last
+
+
+def rwkv6_bwd_phase(kernels):
+    """Each RWKV_BWD_SHAPES row: the forward with its saved states
+    (``rwkv6_scan_fwd``) equal to the forward without them bit for bit
+    and its states the plain forward's within SCAN_TOL; the backward
+    kernels' dr, dk, dv, dlogw, du and ds0 at random cotangents
+    (ds_last included) against the plain reverse loop
+    (``rwkv6_scan_bwd_ref``) within BWD_TOL and the plain emulation of
+    their order (``rwkv6_scan_bwd_tiled_ref``) within SCAN_BWD_EMU_TOL
+    of each tensor's largest magnitude, and with no ds_last; twice bit
+    for bit; timed warm and cold beside the bound and the plain loop,
+    with the registers of the instances it runs."""
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_checkpoints_ref,
+                                                rwkv6_scan_bwd_tiled_ref,
+                                                rwkv6_scan_fwd)
+    from repro_torch.kernels.rwkv6_scan.ref import CKPT_STEPS
+
+    rows = []
+    labels = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+    for name, B, S, H, hd, underflow in RWKV_BWD_SHAPES:
+        t_row = time.perf_counter()
+        r, k, v, logw, u, s0, do, ds_last = rwkv_bwd_inputs(
+            B, S, H, hd, underflow, seed=S + hd + 3)
+        o, s_last = kernels.rwkv6_scan(r, k, v, logw, u, s0)
+        o_ck, s_ck, ckpt = rwkv6_scan_fwd(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o_ck) and torch.equal(s_last, s_ck)):
+            raise AssertionError(f"rwkv6_scan at {name}: the forward with "
+                                 "its saved states differs from the one "
+                                 "without them")
+        ck_err = check_scan("rwkv6_scan checkpoints", name, [
+            (ckpt, rwkv6_checkpoints_ref(r, k, v, logw, u, s0))],
+            torch.float32)
+        args = (r, k, v, logw, u, s0, ckpt, do, ds_last)
+        got = kernels.rwkv6_scan_bwd(*args)
+        again = kernels.rwkv6_scan_bwd(*args)
+        no_last = kernels.rwkv6_scan_bwd(*args[:-1])
+        want = kernels.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, do, ds_last)
+        want_nl = kernels.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, do)
+        emu = rwkv6_scan_bwd_tiled_ref(r, k, v, logw, u, s0, do, ds_last)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"rwkv6_scan_bwd at {name}: two calls on "
+                                 "the same inputs differ")
+        errs, rel, emu_rel = {}, {}, {}
+        for label, g, w, e, gn, wn in zip(labels, got, want, emu, no_last,
+                                          want_nl):
+            errs[label], rel[label] = check_rel(
+                "rwkv6_scan_bwd", name, label, g, w, BWD_TOL[torch.float32])
+            emu_rel[label] = check_rel("rwkv6_scan_bwd", name,
+                                       f"{label} (emulation)", g, e,
+                                       SCAN_BWD_EMU_TOL)[1]
+            check_rel("rwkv6_scan_bwd", name, f"{label} (no ds_last)", gn,
+                      wn, BWD_TOL[torch.float32])
+        del want, want_nl, emu
+        ms = median_ms(dict(kernel=lambda: kernels.rwkv6_scan_bwd(*args)),
+                       (), samples=3, inner=5)
+        plain = median_ms(dict(plain=lambda: kernels.rwkv6_scan_bwd_ref(
+            r, k, v, logw, u, s0, do, ds_last)), (), samples=3, inner=1)
+        ms_cold = cold_ms(kernels.rwkv6_scan_bwd, cold_copies(args),
+                          samples=3, inner=5)
+        # per (b, t, h): 14 operations a state element (the state's
+        # recompute 3, G's update 3, dr, dk, dv and dlogw 2 each) and
+        # 12 a row (v . do, r . (u k), the bonus terms, du); one exp a
+        # row. The function's own traffic: read once r, k, v, logw, do,
+        # u, s0 and ds_last; written once dr, dk, dv, dlogw, du and ds0.
+        # The saved states are this design's, not the function's: their
+        # bytes are logged beside the bound (checkpoint_bytes)
+        steps = B * S * H
+        flops = steps * (14 * hd * hd + 12 * hd)
+        state = B * H * hd * hd
+        nbytes = 4 * (9 * steps * hd + 2 * H * hd + 3 * state)
+        bound_ms, bound_by, terms = bound(nbytes, flops, sfu=steps * hd)
+        row = dict(name=name, B=B, S=S, H=H, hd=hd, dtype="float32",
+                   underflow=underflow, checkpoint_steps=CKPT_STEPS,
+                   checkpoint_bytes=4 * ckpt.numel(),
+                   checkpoint_max_abs_err=ck_err,
+                   max_abs_err=max(errs.values()), rel_err=rel,
+                   emulation_rel_err=emu_rel, tol=BWD_TOL[torch.float32],
+                   emulation_tol=SCAN_BWD_EMU_TOL, repeat_bitwise=True,
+                   ms=ms["kernel"], ms_cold=ms_cold, plain_ms=plain["plain"],
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_terms=terms, seconds=time.perf_counter() - t_row)
+        log("rwkv6_scan_bwd", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def check_scan_bwd_build(libs: dict) -> None:
+    """Registers and spills of the scans' backward instances and of the
+    RWKV6 forward that saves the states, from the build logs; each
+    float32 instance must build without spills. Checked where this
+    process built the libraries."""
+    found = []
+    for lib, pattern in ((libs["rglru_scan"], "rglru_bwd_kernel"),
+                         (libs["rwkv6_scan"], "rwkv6_scan_save_kernel"),
+                         (libs["rwkv6_scan"], "rwkv6_bwd_dv_kernel"),
+                         (libs["rwkv6_scan_bwd"], "rwkv6_bwd_")):
+        instances = ptxas_summary(lib.build_log)
+        if not instances:
+            log(f"build {lib.name}: already built, backward spills not "
+                "checked")
+            continue
+        mine = [r for r in instances if pattern in r["entry"]]
+        if not mine:
+            raise AssertionError(f"{lib.name}: no {pattern} instance in the "
+                                 "build log")
+        found += mine
+    log("build scan backwards", json.dumps(dict(instances=found)))
+    spilled = [r for r in found
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"scan backward instances spill: {spilled}")
+
+
 # --------------------------------------------------------------------------
 # phase 5: the LMs at full width
 # --------------------------------------------------------------------------
@@ -2522,7 +2904,9 @@ def plain_calls_counted():
     targets = [(mops, "matern_score_ref"), (mops, "matern_posterior_ref"),
                (fops, "attention_ref"), (fops, "attention_lse_ref"),
                (fops, "attention_bwd_ref"), (dops, "decode_attention_ref"),
-               (gops, "rglru_scan_ref"), (wops, "rwkv6_scan_ref")]
+               (gops, "rglru_scan_ref"), (gops, "rglru_scan_bwd_ref"),
+               (wops, "rwkv6_scan_ref"), (wops, "rwkv6_scan_bwd_ref"),
+               (wops, "rwkv6_checkpoints_ref")]
     counts = {name: 0 for _, name in targets}
 
     def counted(name, fn):
@@ -2701,12 +3085,19 @@ def generate_phase(kernels, run, cfg, model):
 
 
 PORT_KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
-                "matern_score", "rglru_scan", "rwkv6_scan")
+                "matern_score", "rglru_scan", "rglru_scan_bwd", "rwkv6_scan",
+                "rwkv6_scan_bwd")
 
 
 def kernel_class(name: str) -> str:
     if "flash_bwd_" in name:
         return "flash_attention_bwd"
+    if "rglru_bwd_" in name:
+        return "rglru_scan_bwd"
+    if "rwkv6_bwd_" in name:
+        return "rwkv6_scan_bwd"
+    if "rwkv6_scan_save_kernel" in name:
+        return "rwkv6_scan"
     for kernel in PORT_KERNELS:
         if f"{kernel}_kernel" in name:
             return kernel
@@ -2722,18 +3113,24 @@ def kernel_class(name: str) -> str:
 # its splits and their merge (both names match kernel_class), a bf16
 # flash_attention_bwd call its D, dq + dk/dv and group-sum kernels at
 # every shape (float32 runs dq and dk/dv apart, four; every profiled path
-# is bf16)
-CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2, flash_attention_bwd=3)
+# is bf16), an rwkv6_scan_bwd call its dv and ds0 (the forward's body in
+# reverse time), row and du kernels
+CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2, flash_attention_bwd=3,
+                               rwkv6_scan_bwd=3)
 PROFILE_RETRIES = 2
 # calls of a phase-5 path under the profiler: its events (tens of
-# thousands a call for the LMs) take Python tens of microseconds each to
-# read back, the larger part of a model's phase at 10-16 calls
+# thousands a call for the LMs) take Python time each to read back, the
+# larger part of a model's phase at 10-16 calls
 PROFILED_CALLS = 2
 
 
 def profiled(fn, n):
     """Device ms per call by kernel class and by name, and the CUDA
-    kernels of each class over ``n`` calls, from ``torch.profiler``."""
+    kernels of each class over ``n`` calls, from ``torch.profiler``. The
+    device records are read from the profiler's raw results: building
+    its event tree (``prof.events()``) for a training step's tens of
+    thousands of kernels and their ops took 14-24 s a step on an H100
+    host, the same records either way."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2742,13 +3139,16 @@ def profiled(fn, n):
             fn()
         torch.cuda.synchronize()
     busy, counts, by_name = {}, {}, {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms = ev.time_range.elapsed_us() / 1e3 / n
-            c = kernel_class(ev.name)
-            busy[c] = busy.get(c, 0.0) + ms
-            counts[c] = counts.get(c, 0) + 1
-            by_name[ev.name[:60]] = by_name.get(ev.name[:60], 0.0) + ms
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != torch.autograd.DeviceType.CUDA
+                or ev.name().startswith("[") or ev.is_hidden_event()):
+            continue
+        name = ev.name()
+        ms = (ev.end_ns() - ev.start_ns()) / 1e6 / n
+        c = kernel_class(name)
+        busy[c] = busy.get(c, 0.0) + ms
+        counts[c] = counts.get(c, 0) + 1
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
     return busy, counts, by_name
 
 
@@ -3147,12 +3547,32 @@ TRAIN_ARCH = "qwen2-1.5b"
 # its gradient's size, and from lr 1e-4 up the loss rises over 30 steps
 # (1e-3: the mean of the last five 0.59 above the first five's, the
 # held-out loss 0.71-0.86 up); 1e-5 lowers both the most of 3e-5, 1e-5
-# and 3e-6 (benchmarks/train_lr_sweep_torch.py on an H100)
-TRAIN_RUN = dict(steps=30, batch=4, seq=512, microbatches=2, lr=1e-5)
+# and 3e-6 (benchmarks/train_lr_sweep_torch.py on an H100); 20 steps
+# (cut from 30 for the script's time) lower both as well
+TRAIN_RUN = dict(steps=20, batch=4, seq=512, microbatches=2, lr=1e-5)
+# the recurrent LMs, after Qwen2-1.5B's runs, one model at a time: 6a as
+# TRAIN_RUN at lr 1e-5, the loss held over the first and last three
+# steps. The warm-up takes 20 steps, so 10 steps end at half the peak
+# lr. In 10 steps 1e-5 lowers RWKV6-3B's loss and held-out loss (1e-4
+# lowers them more); none of 3e-4, 1e-4, 3e-5 and 1e-5 lowers
+# RecurrentGemma-2B's held-out loss, which 1e-5 lowers over 20 steps
+# (benchmarks/train_lr_sweep_torch.py on an H100)
+RECURRENT_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
+RECURRENT_RUN = {
+    "recurrentgemma-2b": dict(steps=20, batch=4, seq=512, microbatches=2,
+                              lr=1e-5),
+    "rwkv6-3b": dict(steps=10, batch=4, seq=512, microbatches=2, lr=1e-5),
+}
+# steps at each end of a 6a run whose mean losses are compared; the lr
+# sweep (benchmarks/train_lr_sweep_torch.py) judges a rate by the same
+LOSS_WINDOW = {TRAIN_ARCH: 5, "recurrentgemma-2b": 3, "rwkv6-3b": 3}
 # two batches the run never sees: their mean loss must fall too
 HELD_OUT_STEPS = (1000, 1001)
-# 6b: one AdamW step at full width, 2 layers, float32, kernels vs plain
+# 6b: one AdamW step at full width, float32, kernels vs plain: 2 layers
+# of Qwen2-1.5B (and the same step in bf16), one pattern cycle of
+# RecurrentGemma-2B (rglru, rglru, local) and 2 layers of RWKV6-3B
 STEP_CHECK = dict(layers=2, batch=2, seq=512, lr=1e-3)
+STEP_CHECK_LAYERS = {TRAIN_ARCH: 2, "recurrentgemma-2b": 3, "rwkv6-3b": 2}
 # gradients of the two routes: float32 sums in another order, through 2
 # layers and the CE; of each leaf's largest magnitude
 STEP_GRAD_TOL = 1e-4
@@ -3179,12 +3599,21 @@ RESUME = dict(layers=2, vocab=32_000, steps=6, every=2, fail_at=3,
 
 
 def train_launches(cfg, microbatches):
-    """Kernel launches of one training step: each attention layer's
-    forward once a microbatch, twice under remat (the backward runs the
-    layer again), and its backward once."""
-    n = sum(k in ("attn", "local", "attn_dense") for k in cfg.layer_kinds())
-    return dict(flash_attention=n * microbatches * (2 if cfg.remat else 1),
-                flash_attention_bwd=n * microbatches)
+    """Kernel launches of one training step: each attention, RG-LRU or
+    RWKV6 layer's forward kernel once a microbatch, twice under remat
+    (the backward runs the layer again), and its backward kernel once."""
+    kinds = cfg.layer_kinds()
+    fwd = microbatches * (2 if cfg.remat else 1)
+    out = {}
+    for kernel, names in (("flash_attention", ("attn", "local",
+                                               "attn_dense")),
+                          ("rglru_scan", ("rglru",)),
+                          ("rwkv6_scan", ("rwkv",))):
+        n = sum(k in names for k in kinds)
+        if n:
+            out[kernel] = n * fwd
+            out[f"{kernel}_bwd"] = n * microbatches
+    return out
 
 
 def device_batch(pipe, step):
@@ -3254,24 +3683,30 @@ def train_breakdown(cfg, model, opt, opt_state, batch, microbatches):
     return dict(microbatch_ms=ms, step_ms=per_step)
 
 
-def train_phase(kernels):
-    """6a: ``launch.train`` on Qwen2-1.5B at full width and depth; the
-    loss must fall (the mean of the last five steps below the first
-    five's, and the held-out loss below the seeded weights'), each step
+def train_phase(kernels, arch=TRAIN_ARCH, a=TRAIN_RUN):
+    """6a: ``launch.train`` on ``arch`` at full width and depth; the loss
+    must fall (the mean of the last ``LOSS_WINDOW`` steps below the
+    first's, and the held-out loss below the seeded weights'), each step
     must launch exactly ``train_launches``' kernels and no plain
     version; a ``train`` line with step times,
     tokens/s, device busy and idle share of a profiled step, peak memory,
     the loss curve, MFU and the step split into forward, backward, CE and
-    optimizer."""
+    optimizer. Returns the launches of the run by kernel."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.launch import train as train_mod
     from repro_torch.models import transformer as tfm
 
-    cfg = get_config(TRAIN_ARCH)
-    a = TRAIN_RUN
+    cfg = get_config(arch)
     mb = a["microbatches"]
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(a["steps"]), "--batch",
+    t_part = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_part[0]
+        t_part[0] = time.perf_counter()
+
+    argv = ["--arch", arch, "--steps", str(a["steps"]), "--batch",
             str(a["batch"]), "--seq", str(a["seq"]), "--microbatches",
             str(mb), "--lr", str(a["lr"]), "--ckpt", ""]
     per_step = train_launches(cfg, mb)
@@ -3283,6 +3718,7 @@ def train_phase(kernels):
     del fresh
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    lap("held_out_before")
     with plain_calls_counted() as plain:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3290,16 +3726,19 @@ def train_phase(kernels):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-    check_launches("train", counts,
+    check_launches(f"train {arch}", counts,
                    {k: v * a["steps"] for k, v in per_step.items()}, plain)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = run.losses
-    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    w = LOSS_WINDOW[arch]
+    first, last = statistics.mean(losses[:w]), statistics.mean(losses[-w:])
     held_after = held_out_loss(run.model, cfg, held)
+    lap("run")
     if not (len(losses) == a["steps"] and last < first
             and held_after < held_before and all(np.isfinite(losses))):
-        raise AssertionError(f"train: the loss did not fall: {losses}, "
-                             f"held-out {held_before} -> {held_after}")
+        raise AssertionError(f"train {arch}: the loss did not fall: "
+                             f"{losses}, held-out {held_before} -> "
+                             f"{held_after}")
     n_params = sum(p.numel() for p in run.model.parameters())
     tokens = a["batch"] * a["seq"]
     steady = run.step_seconds[2:]
@@ -3314,52 +3753,84 @@ def train_phase(kernels):
     def one_step():
         state[0], _ = step_fn(state[0], batch)
 
-    prof = profile_calls(TRAIN_ARCH, "train_step", one_step, 2, per_step,
+    prof = profile_calls(arch, "train_step", one_step, 1, per_step,
                          profiled_n=1)
+    lap("profile")
     split = train_breakdown(cfg, run.model, opt, state[0][1], batch, mb)
+    lap("breakdown")
     flops = model_flops(cfg, n_params, a["batch"], a["seq"])
     busy = prof["device_busy_ms_per_call"]
     log("train", json.dumps(dict(
-        arch=TRAIN_ARCH, params=n_params, param_counts=cfg.param_counts(),
+        arch=arch, params=n_params, param_counts=cfg.param_counts(),
         dtype=cfg.param_dtype, remat=cfg.remat, optimizer="adamw",
         **a, tokens_per_step=tokens, wall_s=wall,
         step_ms=[1e3 * t for t in run.step_seconds],
         step_ms_median=1e3 * step_s, tokens_per_s=tokens / step_s,
         device_busy_ms_per_step=busy, idle_share=prof["idle_share"],
         host_ms_profiled_step=prof["host_ms_per_call"],
-        peak_memory_gb=peak_gb, losses=losses, first5_mean=first,
-        last5_mean=last, held_out_steps=HELD_OUT_STEPS,
+        peak_memory_gb=peak_gb, losses=losses, loss_window=w,
+        first_mean=first, last_mean=last, held_out_steps=HELD_OUT_STEPS,
         held_out_loss_before=held_before, held_out_loss_after=held_after,
         launches_per_step=per_step,
         launches=counts, plain_calls=plain, split=split,
         model_tflop_per_step=flops / 1e12,
         mfu=flops / step_s / PEAK_BF16_FLOPS,
         mfu_device_busy=(flops / (busy / 1e3) / PEAK_BF16_FLOPS
-                         if isinstance(busy, float) else "not measured"))))
+                         if isinstance(busy, float) else "not measured"),
+        seconds=seconds)))
     del run, state, step_fn, opt
     torch.cuda.empty_cache()
-    return {"train": a["steps"] * per_step["flash_attention"]}, \
-        {"train": a["steps"] * per_step["flash_attention_bwd"]}
+    return {k: a["steps"] * v for k, v in per_step.items()}
 
 
-def step_check_phase(kernels):
-    """6b: one AdamW step of Qwen2-1.5B at full width, 2 layers, float32,
-    through the kernels and through the plain versions (``attention_ref``
-    called in ``flash_attention``'s place, autograd through it), on the
-    same weights and batch: the loss, every gradient leaf and the updated
-    parameters agree within the stated bars; and the gradients of the
-    step in bf16 through the kernels (``step_check_bf16``)."""
+@contextlib.contextmanager
+def plain_route():
+    """The models' kernels replaced by their plain versions, autograd
+    through them: ``attention_ref`` for ``flash_attention`` and the
+    plain scans for ``rglru_scan`` and ``rwkv6_scan``."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import rwkv6 as rwkv6_mod
+    from repro_torch.models import transformer as tfm
+
+    with mock.patch.object(tfm, "flash_attention", attention_ref), \
+            mock.patch.object(rglru_mod, "rglru_scan",
+                              lambda a, b, h0, h_out=None:
+                              rglru_scan_ref(a, b, h0)), \
+            mock.patch.object(rwkv6_mod, "rwkv6_scan",
+                              lambda r, k, v, logw, u, s0, s_out=None:
+                              rwkv6_scan_ref(r, k, v, logw, u, s0)):
+        yield
+
+
+def step_check_phase(kernels, arch=TRAIN_ARCH):
+    """6b: one AdamW step of ``arch`` at full width and
+    ``STEP_CHECK_LAYERS`` layers, float32, through the kernels and
+    through the plain versions (``plain_route``: autograd through them),
+    on the same weights and batch: the loss, every gradient leaf and the
+    updated parameters agree within the stated bars; for Qwen2-1.5B also
+    the gradients of the step in bf16 through the kernels
+    (``step_check_bf16``). Returns the kernels' launches."""
     import copy
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenPipeline
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import transformer as tfm
     from repro_torch.train import optimizer as optim
     from repro_torch.train.trainer import trainable_params, value_and_grad
 
     c = STEP_CHECK
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=c["layers"],
+    t_part = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_part[0]
+        t_part[0] = time.perf_counter()
+
+    layers = STEP_CHECK_LAYERS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               dtype="float32", param_dtype="float32")
     model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
                            DEVICE)
@@ -3369,59 +3840,66 @@ def step_check_phase(kernels):
     opt = optim.adamw(optim.cosine_schedule(c["lr"], 0, 10))
     pk, pp = trainable_params(model), trainable_params(plain_model)
     sk, sp = opt.init(pk), opt.init(pp)
+    lap("setup")
     with plain_calls_counted() as plain:
         kernels.reset_launch_counts()
         (lk, _), gk = value_and_grad(model, batch, cfg)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-    check_launches("train step check (kernels)", counts,
+    lap("kernels")
+    check_launches(f"train step check {arch} (kernels)", counts,
                    train_launches(cfg, 1), plain)
     kernels.reset_launch_counts()
-    with mock.patch.object(tfm, "flash_attention", attention_ref):
+    with plain_route():
         (lp, _), gp = value_and_grad(plain_model, batch, cfg)
         torch.cuda.synchronize()
-    check_launches("train step check (plain)", kernels.launch_counts(), {},
-                   {})
+    lap("plain")
+    check_launches(f"train step check {arch} (plain)",
+                   kernels.launch_counts(), {}, {})
     loss_err = abs(float(lk) - float(lp))
     if loss_err > 1e-5 * abs(float(lp)):
-        raise AssertionError(f"train step check: loss {float(lk)} through "
-                             f"the kernels, {float(lp)} through plain")
+        raise AssertionError(f"train step check {arch}: loss {float(lk)} "
+                             f"through the kernels, {float(lp)} through "
+                             "plain")
     grad_rel = {}
     for name in gp:
         scale = float(gp[name].abs().max())
         err = float((gk[name] - gp[name]).abs().max())
         grad_rel[name] = err / scale if scale else err
         if err > STEP_GRAD_TOL * scale:
-            raise AssertionError(f"train step check: gradient of {name} "
-                                 f"differs by {err}, {STEP_GRAD_TOL} of "
-                                 f"{scale} allowed")
-    bf16 = step_check_bf16(kernels, cfg, model, batch, gp)
+            raise AssertionError(f"train step check {arch}: gradient of "
+                                 f"{name} differs by {err}, "
+                                 f"{STEP_GRAD_TOL} of {scale} allowed")
+    bf16 = (step_check_bf16(kernels, cfg, model, batch, gp)
+            if arch == TRAIN_ARCH else None)
+    lap("bf16")
     opt.update(gk, sk, pk)
     opt.update(gp, sp, pp)
     with torch.no_grad():
         diff = torch.cat([(pk[n] - pp[n]).abs().flatten() for n in pk])
+    lap("update")
     lr = c["lr"]
     share = float((diff > STEP_ATOL * lr).float().mean())
     worst = float(diff.max())
     if share > STEP_SHARE or worst > STEP_ATOL_ALL * lr:
-        raise AssertionError(f"train step check: updated parameters differ "
-                             f"by up to {worst} ({share} of the elements "
-                             f"beyond {STEP_ATOL * lr})")
+        raise AssertionError(f"train step check {arch}: updated parameters "
+                             f"differ by up to {worst} ({share} of the "
+                             f"elements beyond {STEP_ATOL * lr})")
     worst_leaf = max(grad_rel, key=grad_rel.get)
     log("train_step_check", json.dumps(dict(
-        arch=TRAIN_ARCH, layers=c["layers"], dtype="float32",
-        batch=c["batch"], seq=c["seq"], lr=lr, loss_kernels=float(lk),
-        loss_plain=float(lp), loss_abs_err=loss_err,
+        arch=arch, layers=layers, layer_kinds=list(cfg.layer_kinds()),
+        dtype="float32", batch=c["batch"], seq=c["seq"], lr=lr,
+        loss_kernels=float(lk), loss_plain=float(lp), loss_abs_err=loss_err,
         grad_rel_err_max=grad_rel[worst_leaf], grad_worst_leaf=worst_leaf,
         grad_leaves=len(grad_rel), param_abs_err_max=worst,
         param_share_beyond=share, launches=counts,
         tol=dict(grad=STEP_GRAD_TOL, param_atol_lr=STEP_ATOL,
                  param_share=STEP_SHARE, param_atol_all_lr=STEP_ATOL_ALL),
-        bf16=bf16)))
+        bf16=bf16, seconds=seconds)))
     del model, plain_model, gk, gp, sk, sp
     torch.cuda.empty_cache()
     counts = dict(counts)
-    for name, n in bf16["launches"].items():
+    for name, n in (bf16 or {}).get("launches", {}).items():
         counts[name] = counts.get(name, 0) + n
     return counts
 
@@ -3652,7 +4130,8 @@ def main() -> int:
     libs = {"matern_score": ms_kernel.LIB, "flash_attention": fa_kernel.LIB,
             "flash_attention_bwd": fa_kernel.BWD_LIB,
             "decode_attention": da_kernel.LIB, "rglru_scan": rg_kernel.LIB,
-            "rwkv6_scan": rw_kernel.LIB}
+            "rwkv6_scan": rw_kernel.LIB,
+            "rwkv6_scan_bwd": rw_kernel.BWD_LIB}
     t0 = time.perf_counter()
     nvcc.build_all(libs.values())
     for lib in libs.values():
@@ -3667,6 +4146,7 @@ def main() -> int:
             log(f"build {name}: an instance spills registers")
     check_rwkv6_build(ptxas_summary(rw_kernel.LIB.build_log))
     check_matern_build(ptxas_summary(ms_kernel.LIB.build_log))
+    check_scan_bwd_build(libs)
     bwd_instances = ptxas_summary(fa_kernel.BWD_LIB.build_log)
     if bwd_instances:  # each tensor-core width is built and spills nothing
         for width in (64, 128, 256):
@@ -3701,6 +4181,8 @@ def main() -> int:
     decode_rows = timed("2 decode_attention", decode_phase, kernels)
     rglru_rows = timed("2 rglru_scan", rglru_phase, kernels)
     rwkv_rows = timed("2 rwkv6_scan", rwkv6_phase, kernels)
+    rglru_bwd_rows = timed("2 rglru_scan_bwd", rglru_bwd_phase, kernels)
+    rwkv_bwd_rows = timed("2 rwkv6_scan_bwd", rwkv6_bwd_phase, kernels)
 
     # phases 3 and 4: the BO engines
     seq_counts, seq_res = timed("3", sequential_phase, core, kernels)
@@ -3710,26 +4192,15 @@ def main() -> int:
                              f"path (sequential {seq_counts}, batched "
                              f"{bat_counts})")
     timed("4 breakdown", breakdown_phase, core)
-    wr_counts = timed("4b", wholerun_phase, core, kernels)
-    stream_counts, hetero_cold = timed("4c", stream_phase, core, kernels)
-    fleet_counts = timed("4d", fleet_phase, core, kernels, hetero_cold)
-    table1_counts, table1_rows = timed("4e", table1_phase, kernels)
-    figure_counts = timed("4f", figures_phase, kernels, table1_rows)
+    bo_counts = bo_phases(seconds)
+    lap[0] = time.perf_counter()
     vgg_counts = timed("4g", vgg_phase, core, kernels, seq_counts, seq_res)
 
     # phase 5: the LMs at full width, bf16, one at a time
-    by_path = {name: {} for name in libs}
+    by_path = {name: {} for name in kernels.WRAPPERS}
     by_path["matern_score"].update(sequential=seq_counts["matern_score"],
                                    batched=bat_counts["matern_score"],
-                                   wholerun=wr_counts["matern_score"])
-    by_path["matern_score"].update({f"stream:{what}": n for what, n
-                                    in stream_counts.items()})
-    by_path["matern_score"].update({f"fleet:{what}": n for what, n
-                                    in fleet_counts.items()})
-    by_path["matern_score"].update({f"table1:{what}": n for what, n
-                                    in table1_counts.items()})
-    by_path["matern_score"].update({f"figures:{what}": n for what, n
-                                    in figure_counts.items()})
+                                   **bo_counts)
     by_path["matern_score"]["vgg:executor run"] = vgg_counts["matern_score"]
     for run in MODEL_RUNS:
         for path, counts in timed(f"5 {run.arch}", model_phase, kernels,
@@ -3738,15 +4209,22 @@ def main() -> int:
                 if n:
                     by_path[name][f"{path}:{run.arch}"] = n
 
-    # phase 6: training
-    fwd, bwd = timed("6a train", train_phase, kernels)
-    step_counts = timed("6b step check", step_check_phase, kernels)
+    # phase 6: training, one model at a time
+    train_counts = {TRAIN_ARCH: timed("6a train", train_phase, kernels)}
+    step_counts = {TRAIN_ARCH: timed("6b step check", step_check_phase,
+                                     kernels)}
     timed("6c resume", resume_phase, kernels)
-    for name, train_counts in (("flash_attention", fwd),
-                               ("flash_attention_bwd", bwd)):
-        by_path[name].update({f"{path}:{TRAIN_ARCH}": n for path, n
-                              in train_counts.items()})
-        by_path[name][f"train_step_check:{TRAIN_ARCH}"] = step_counts[name]
+    for arch in RECURRENT_ARCHS:
+        train_counts[arch] = timed(f"6a train {arch}", train_phase, kernels,
+                                   arch, RECURRENT_RUN[arch])
+        step_counts[arch] = timed(f"6b step check {arch}", step_check_phase,
+                                  kernels, arch)
+    for arch in train_counts:
+        for path, counts in (("train", train_counts[arch]),
+                             ("train_step_check", step_counts[arch])):
+            for name, n in counts.items():
+                if n:
+                    by_path[name][f"{path}:{arch}"] = n
     for name, paths in by_path.items():
         if not paths:
             raise AssertionError(f"{name} was launched on no main path")
@@ -3784,6 +4262,26 @@ def main() -> int:
         kernel_entry("rwkv6_scan",
                      "src/repro/kernels/rwkv6_scan/kernel.py:57",
                      rwkv_rows, RWKV_MAIN, by_path["rwkv6_scan"]),
+        kernel_entry(
+            "rglru_scan_bwd",
+            "src/repro/kernels/rglru_scan/kernel.py:46 (the forward; the "
+            "reference has no backward kernel: it differentiates its "
+            "associative scan, src/repro/models/rglru.py:105, with XLA)",
+            rglru_bwd_rows, SCAN_BWD_MAIN, by_path["rglru_scan_bwd"],
+            source="src/repro_torch/kernels/rglru_scan/rglru_scan.cu",
+            design="the forward's chunked scan with time reversed, "
+                   "float32, no atomics"),
+        kernel_entry(
+            "rwkv6_scan_bwd",
+            "src/repro/kernels/rwkv6_scan/kernel.py:57 (the forward; the "
+            "reference has no backward kernel: it differentiates its "
+            "jax.lax.scan, src/repro/models/rwkv6.py:55, with XLA)",
+            rwkv_bwd_rows, SCAN_BWD_MAIN, by_path["rwkv6_scan_bwd"],
+            source="src/repro_torch/kernels/rwkv6_scan/rwkv6_scan_bwd.cu "
+                   "and rwkv6_scan.cu (rwkv6_bwd_dv_kernel)",
+            design="dv and ds0 by the forward's body in reverse time; dr, "
+                   "dk, dlogw by a row kernel re-walking each 8-step span "
+                   "from the forward's saved state; float32, no atomics"),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -3793,4 +4291,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--bo-group"]:
+        sys.exit(bo_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -13,11 +13,11 @@ BO's candidate scoring; its source also gives a candidate block's whole
 posterior, ``matern_posterior``), ``flash_attention`` (full-sequence forward),
 ``decode_attention`` (one decode step), ``rglru_scan`` (RecurrentGemma's
 RG-LRU recurrence) and ``rwkv6_scan`` (RWKV6's wkv recurrence). Added
-with no TPU counterpart: ``flash_attention_bwd``, the backward of
-``flash_attention`` that training on the card runs (the reference
-differentiates its jnp attention with XLA). The recurrences have no
-backward kernel yet: on CUDA tensors that autograd records, their
-wrappers raise (``kernels.autograd``).
+with no TPU counterpart, the backwards that training on the card runs
+(the reference differentiates its jnp attention and scans with XLA):
+``flash_attention_bwd``, ``rglru_scan_bwd`` and ``rwkv6_scan_bwd``. On
+CUDA tensors that autograd records, each forward wrapper goes through
+its ``torch.autograd.Function`` (``kernels.autograd``).
 """
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: F401
@@ -29,17 +29,23 @@ from repro_torch.kernels.matern_score.ops import (  # noqa: F401
     matern_posterior, matern_score)
 from repro_torch.kernels.matern_score.ref import (  # noqa: F401
     matern_posterior_ref, matern_score_ref)
-from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: F401
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: F401
-from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: F401
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: F401
+from repro_torch.kernels.rglru_scan.ops import (  # noqa: F401
+    rglru_scan, rglru_scan_bwd)
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: F401
+    rglru_scan_bwd_ref, rglru_scan_ref)
+from repro_torch.kernels.rwkv6_scan.ops import (  # noqa: F401
+    rwkv6_scan, rwkv6_scan_bwd, rwkv6_scan_fwd)
+from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: F401
+    rwkv6_scan_bwd_ref, rwkv6_scan_ref)
 
 WRAPPERS = {"matern_score": matern_score,
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
             "rglru_scan": rglru_scan,
-            "rwkv6_scan": rwkv6_scan}
+            "rglru_scan_bwd": rglru_scan_bwd,
+            "rwkv6_scan": rwkv6_scan,
+            "rwkv6_scan_bwd": rwkv6_scan_bwd}
 
 
 def launch_counts() -> dict:

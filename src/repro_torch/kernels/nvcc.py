@@ -44,15 +44,20 @@ class CudaLibrary:
 
     ``declare(lib)`` sets the ``argtypes``/``restype`` of the library's
     launch functions; every library also exports
-    ``<stem>_error_string(int)``, declared here. After a build,
+    ``<stem>_error_string(int)``, declared here. ``defines`` are passed
+    to nvcc as ``-D`` flags (constants that Python code shares with the
+    source). After a build,
     ``build_log`` holds nvcc's output (``-Xptxas -v``: registers, shared
     memory, spills) and ``build_seconds`` its wall time; both stay empty
     when the library was already built.
     """
 
-    def __init__(self, source: Path, declare: Callable):
+    def __init__(self, source: Path, declare: Callable,
+                 defines: dict | None = None):
         self.source = Path(source)
         self.declare = declare
+        self.flags = NVCC_FLAGS + tuple(
+            f"-D{k}={v}" for k, v in (defines or {}).items())
         self.build_log = ""
         self.build_seconds = 0.0
         self._lib = None
@@ -63,7 +68,7 @@ class CudaLibrary:
 
     def library_path(self) -> Path:
         digest = hashlib.sha1(self.source.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                              + " ".join(self.flags).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}_{digest[:12]}.so"
 
     def build(self) -> Path:
@@ -74,7 +79,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.run([nvcc(), *self.flags, "-o", str(tmp),
                                str(self.source)], capture_output=True,
                               text=True)
         self.build_seconds = time.perf_counter() - t0

@@ -18,6 +18,8 @@ def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rglru_scan_launch.argtypes = [p] * 5 + [ll] * 4 + [i] * 4 + [p]
     lib.rglru_scan_launch.restype = i
+    lib.rglru_scan_bwd_launch.argtypes = [p] * 8 + [ll] * 4 + [i] * 3 + [p]
+    lib.rglru_scan_bwd_launch.restype = i
     for name in ("rglru_scan_chunk_steps", "rglru_scan_chunks"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
@@ -44,6 +46,24 @@ def launch(a, b, h0, hs, h_last) -> None:
             h_last.data_ptr(), a.stride(0), a.stride(1), b.stride(0),
             b.stride(1), B, S, R, dtype, stream)
     LIB.check(err, "rglru_scan")
+
+
+def launch_bwd(a, h0, hs, dhs, dh_last, da, db, dh0) -> None:
+    """Launch the float32 backward on the current stream of ``hs``'s
+    device; ``dh_last`` may be None (zero). The tensors are checked by
+    the caller (``ops.rglru_scan_bwd``)."""
+    import torch
+
+    lib = LIB.load()
+    B, S, R = a.shape
+    with torch.cuda.device(hs.device):
+        stream = torch.cuda.current_stream(hs.device).cuda_stream
+        err = lib.rglru_scan_bwd_launch(
+            a.data_ptr(), h0.data_ptr(), hs.data_ptr(), dhs.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr(), a.stride(0), a.stride(1),
+            dhs.stride(0), dhs.stride(1), B, S, R, stream)
+    LIB.check(err, "rglru_scan_bwd")
 
 
 def _dtype_code(dtype) -> int:

@@ -6,9 +6,14 @@ For tensors on the CPU it returns the plain PyTorch version
 (``kernel.py``) or raises: there is no fallback. Unlike the TPU wrapper
 it pads nothing; the kernel walks any S and masks ragged R itself.
 ``h_out``, when given, receives ``h_last`` (it may be ``h0`` itself, so
-a recurrent state is updated in place). The kernel has no backward yet:
-a CUDA call that autograd would record raises (``kernels.autograd``).
-``rglru_scan.launches`` counts the kernel's launches. ``scan_plan``
+a recurrent state is updated in place). On CUDA tensors that autograd
+records (grad enabled and an input requires grad) it goes through
+``RGLRUScan``, a ``torch.autograd.Function`` whose backward is the
+backward kernel (``rglru_scan_bwd``, float32 only: such a call in
+bfloat16 raises ``TypeError``, one with ``h_out``, a serving path,
+``ValueError``); CPU tensors keep autograd through the plain version.
+``rglru_scan.launches`` and ``rglru_scan_bwd.launches`` count the
+kernels' launches. ``scan_plan``
 gives, from shapes alone, the kernel's chunks, pieces, grid, shared
 memory, blocks an SM and waves, as ``rglru_scan.cu`` chooses them.
 """
@@ -18,9 +23,10 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.autograd import refuse_backward
+from repro_torch.kernels.autograd import needs_backward
 from repro_torch.kernels.rglru_scan import kernel
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                               rglru_scan_ref)
 
 DTYPES = (torch.float32, torch.bfloat16)
 CHANNELS = 16               # channels a block with more than one chunk
@@ -121,6 +127,73 @@ def _check(a, b, h0, h_out):
         raise ValueError("rglru_scan: batch must be at most 65535")
 
 
+def _check_bwd(a, h0, hs, dhs, dh_last):
+    B, S, R = a.shape
+    if a.dtype != torch.float32:
+        raise TypeError(f"rglru_scan_bwd: the backward kernel is float32 "
+                        f"only, not {a.dtype}")
+    for name, t, shape in (("h0", h0, (B, R)), ("hs", hs, (B, S, R)),
+                           ("dhs", dhs, (B, S, R)),
+                           ("dh_last", dh_last, (B, R))):
+        if t is None:
+            continue
+        if (t.device != a.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(f"rglru_scan_bwd: {name} must be float32 "
+                             f"{shape} on {a.device}")
+        if not (t.is_contiguous() or name == "dhs"):
+            raise ValueError(f"rglru_scan_bwd: {name} must be contiguous")
+    if a.ndim != 3 or a.stride(-1) != 1:
+        raise ValueError("rglru_scan_bwd: a must be (B,S,R) with a "
+                         "contiguous channel dim")
+    if B > 65535:
+        raise ValueError("rglru_scan: batch must be at most 65535")
+
+
+def rglru_scan_bwd(a, h0, hs, dhs, dh_last=None):
+    """(da, db, dh0) of ``rglru_scan(a, b, h0)`` = (hs, h_last) at the
+    cotangents (dhs, dh_last); ``dh_last`` None counts as zero. ``hs`` is
+    the forward's output. CPU tensors get the plain reverse loop
+    (``rglru_scan_bwd_ref``), CUDA tensors the float32 kernel. ``dhs``
+    may be strided: it is made contiguous where its channel dim is
+    not."""
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_ref(a, h0, hs, dhs, dh_last)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd runs on CUDA or the CPU, not "
+                         f"{a.device}")
+    if dhs.stride(-1) != 1:
+        dhs = dhs.contiguous()
+    _check_bwd(a, h0, hs, dhs, dh_last)
+    da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    dh0 = torch.empty(h0.shape, dtype=torch.float32, device=a.device)
+    kernel.launch_bwd(a, h0, hs, dhs, dh_last, da, db, dh0)
+    rglru_scan_bwd.launches += 1
+    return da, db, dh0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan under autograd: the forward keeps a, h0 and hs; the
+    backward is ``rglru_scan_bwd``, with a missing cotangent as zero. On
+    CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        hs, h_last = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, hs)
+        ctx.set_materialize_grads(False)
+        return hs, h_last
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        a, h0, hs = ctx.saved_tensors
+        if dhs is None:
+            dhs = torch.zeros_like(hs)
+        da, db, dh0 = rglru_scan_bwd(a, h0, hs, dhs, dh_last)
+        return da, db, dh0 if ctx.needs_input_grad[2] else None
+
+
 def rglru_scan(a, b, h0, h_out=None):
     """a, b (B,S,R) of one dtype; h0 (B,R) float32 -> (hs (B,S,R) in a's
     dtype, h_last (B,R) float32). ``h_last`` is ``h_out`` when given."""
@@ -129,10 +202,20 @@ def rglru_scan(a, b, h0, h_out=None):
         if h_out is None:
             return hs, h_last
         return hs, h_out.copy_(h_last)
-    refuse_backward("rglru_scan", a, b, h0)
+    recorded = needs_backward(a, b, h0)
+    if recorded:
+        if h_out is not None:
+            raise ValueError("rglru_scan: h_out writes a serving state in "
+                             "place; a call that autograd records takes "
+                             "none")
+        if a.dtype != torch.float32 or b.dtype != torch.float32:
+            raise TypeError(f"rglru_scan: the backward kernel is float32 "
+                            f"only; autograd records a {a.dtype} call")
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CUDA or the CPU, not "
                          f"{a.device}")
+    if recorded:
+        return RGLRUScan.apply(a, b, h0)
     _check(a, b, h0, h_out)
     hs = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     h_last = (torch.empty(h0.shape, dtype=torch.float32, device=a.device)
@@ -143,3 +226,4 @@ def rglru_scan(a, b, h0, h_out=None):
 
 
 rglru_scan.launches = 0
+rglru_scan_bwd.launches = 0

@@ -12,25 +12,48 @@ from pathlib import Path
 
 from repro_torch.kernels.nvcc import (DTYPE_BFLOAT16, DTYPE_FLOAT32,
                                       CudaLibrary)
+from repro_torch.kernels.rwkv6_scan.ref import CKPT_STEPS
 
 MAX_HEAD_DIM = 256        # the largest instance: 8 groups of 32 rows
 
 
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rwkv6_scan_launch.argtypes = [p] * 8 + [ll] * 12 + [i] * 5 + [p]
+    lib.rwkv6_scan_launch.argtypes = [p] * 9 + [ll] * 12 + [i] * 5 + [p]
     lib.rwkv6_scan_launch.restype = i
+    lib.rwkv6_scan_bwd_dv_launch.argtypes = [p] * 8 + [ll] * 12 + [i] * 4 \
+        + [p]
+    lib.rwkv6_scan_bwd_dv_launch.restype = i
     for name in ("rwkv6_scan_smem_bytes", "rwkv6_scan_blocks_per_sm"):
         getattr(lib, name).argtypes = [i, i]
         getattr(lib, name).restype = i
 
 
-LIB = CudaLibrary(Path(__file__).with_name("rwkv6_scan.cu"), _declare)
+def _declare_bwd(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_scan_bwd_rows_launch.argtypes = [p] * 13 + [i] * 4 + [p]
+    lib.rwkv6_scan_bwd_rows_launch.restype = i
 
 
-def launch(r, k, v, logw, u, s0, o, s_out) -> None:
-    """Launch on the current stream of ``o``'s device. The tensors are
-    checked by the caller (``ops.rwkv6_scan``)."""
+# the forward saves the state every CKPT_STEPS steps and the backward
+# re-walks those spans: both sources take the one constant from here
+_DEFINES = {"RWKV6_CKPT_STEPS": CKPT_STEPS}
+LIB = CudaLibrary(Path(__file__).with_name("rwkv6_scan.cu"), _declare,
+                  _DEFINES)
+BWD_LIB = CudaLibrary(Path(__file__).with_name("rwkv6_scan_bwd.cu"),
+                      _declare_bwd, _DEFINES)
+
+
+def _stream(device):
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(r, k, v, logw, u, s0, o, s_out, ckpt=None) -> None:
+    """Launch on the current stream of ``o``'s device; ``ckpt`` (float32
+    only), when given, receives the state before every ``CKPT_STEPS``-th
+    step. The tensors are checked by the caller (``ops.rwkv6_scan``)."""
     import torch
 
     lib = LIB.load()
@@ -38,12 +61,39 @@ def launch(r, k, v, logw, u, s0, o, s_out) -> None:
     strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]
     dtype = _dtype_code(r.dtype)
     with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
         err = lib.rwkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_out.data_ptr(),
-            *strides, B, S, H, hd, dtype, stream)
+            None if ckpt is None else ckpt.data_ptr(), *strides, B, S, H,
+            hd, dtype, _stream(o.device))
     LIB.check(err, "rwkv6_scan")
+
+
+def launch_bwd(r, k, v, logw, u, ckpt, do, ds_last, dr, dk, dv, dlogw,
+               du_part, du, ds0) -> None:
+    """The backward, float32, on the current stream of ``do``'s device:
+    dv and ds0 by the forward's body in reverse time (``LIB``), then dr,
+    dk, dlogw and du by the row kernel and the batch sum (``BWD_LIB``).
+    The tensors are contiguous and checked by the caller
+    (``ops.rwkv6_scan_bwd``)."""
+    import torch
+
+    lib, bwd = LIB.load(), BWD_LIB.load()
+    B, S, H, hd = r.shape
+    strides = [s for t in (k, r, do, logw) for s in t.stride()[:3]]
+    with torch.cuda.device(do.device):
+        stream = _stream(do.device)
+        err = lib.rwkv6_scan_bwd_dv_launch(
+            k.data_ptr(), r.data_ptr(), do.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), ds_last.data_ptr(), dv.data_ptr(), ds0.data_ptr(),
+            *strides, B, S, H, hd, stream)
+        LIB.check(err, "rwkv6_scan_bwd (dv)")
+        err = bwd.rwkv6_scan_bwd_rows_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), ckpt.data_ptr(), do.data_ptr(), ds_last.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dlogw.data_ptr(),
+            du_part.data_ptr(), du.data_ptr(), B, S, H, hd, stream)
+    BWD_LIB.check(err, "rwkv6_scan_bwd (rows)")
 
 
 def _dtype_code(dtype) -> int:

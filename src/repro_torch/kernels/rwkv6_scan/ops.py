@@ -7,10 +7,18 @@ For tensors on the CPU it returns the plain PyTorch version
 it pads nothing; the kernel walks any S and any head dim up to 256.
 ``s_out``, when given, receives the final state (it may be ``s0``
 itself, so a recurrent state is updated in place: each block of the
-kernel reads its tile of the state before it writes it). The kernel
-has no backward yet: a CUDA call that autograd would record raises
-(``kernels.autograd``). ``rwkv6_scan.launches`` counts the kernel's
-launches. ``scan_plan`` gives, from shapes alone, the kernel's
+kernel reads its tile of the state before it writes it).
+
+On CUDA tensors that autograd records (grad enabled and an input
+requires grad) it goes through ``RWKV6Scan``, a
+``torch.autograd.Function`` whose forward also saves the state before
+every ``CKPT_STEPS``-th step (``rwkv6_scan_fwd``) and whose backward is
+the backward kernels (``rwkv6_scan_bwd``, float32 only: such a call in
+bfloat16 raises ``TypeError``, one with ``s_out``, a serving path,
+``ValueError``); CPU tensors keep autograd through the plain version.
+``rwkv6_scan.launches`` and ``rwkv6_scan_bwd.launches`` count the
+launches (a backward launch is three CUDA kernels: dv and ds0, the rows,
+du's batch sum). ``scan_plan`` gives, from shapes alone, the kernel's
 instance, tiles, chunk, grid and shared memory, as ``rwkv6_scan.cu``
 chooses them.
 """
@@ -20,10 +28,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.autograd import refuse_backward
+from repro_torch.kernels.autograd import needs_backward
 from repro_torch.kernels.rwkv6_scan import kernel
 from repro_torch.kernels.rwkv6_scan.kernel import MAX_HEAD_DIM
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import (CKPT_STEPS,
+                                               rwkv6_checkpoints_ref,
+                                               rwkv6_scan_bwd_ref,
+                                               rwkv6_scan_ref)
 
 DTYPES = (torch.float32, torch.bfloat16)
 COLS = 20                       # state columns a block
@@ -129,6 +140,95 @@ def _check(r, k, v, logw, u, s0, s_out):
                          "65535")
 
 
+def _device(r, what):
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or the CPU, not {r.device}")
+
+
+def rwkv6_scan_fwd(r, k, v, logw, u, s0):
+    """The forward with the states the backward needs: (o, s_last,
+    ckpt), ckpt (B, ceil(S / CKPT_STEPS), H, hd, hd) float32 the state
+    before steps 0, CKPT_STEPS, ... (the plain version's on CPU
+    tensors). o and s_last are the forward's without them, bit for
+    bit. The kernel that saves the states is float32 only."""
+    _device(r, "rwkv6_scan")
+    if r.device.type == "cpu":
+        return (*rwkv6_scan_ref(r, k, v, logw, u, s0),
+                rwkv6_checkpoints_ref(r, k, v, logw, u, s0))
+    if r.dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan_fwd: the kernel that saves the states "
+                        f"is float32 only, not {r.dtype}")
+    _check(r, k, v, logw, u, s0, None)
+    B, S, H, hd = r.shape
+    o = torch.empty(r.shape, dtype=r.dtype, device=r.device)
+    s_last = torch.empty(s0.shape, dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(B, -(-S // CKPT_STEPS), H, hd, hd,
+                       dtype=torch.float32, device=r.device)
+    kernel.launch(r, k, v, logw, u, s0, o, s_last, ckpt)
+    rwkv6_scan.launches += 1
+    return o, s_last, ckpt
+
+
+def rwkv6_scan_bwd(r, k, v, logw, u, s0, ckpt, do, ds_last=None):
+    """(dr, dk, dv, dlogw, du, ds0) of ``rwkv6_scan`` at the cotangents
+    (do, ds_last); ``ds_last`` None counts as zero. ``ckpt`` is
+    ``rwkv6_scan_fwd``'s. CPU tensors get the plain reverse loop
+    (``rwkv6_scan_bwd_ref``, from s0), CUDA tensors the float32 kernels
+    (from ckpt, whose first state is s0). ``do`` may be strided: it is
+    made contiguous, as are ds_last and inputs that are not."""
+    _device(r, "rwkv6_scan_bwd")
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, do, ds_last)
+    if r.dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan_bwd: the backward kernels are float32 "
+                        f"only, not {r.dtype}")
+    r, k, v, logw, do = (t.contiguous() for t in (r, k, v, logw, do))
+    if ds_last is not None:
+        ds_last = ds_last.contiguous()
+    _check(r, k, v, logw, u, s0, ds_last)
+    _check(do, k, v, logw, u, s0, None)
+    B, S, H, hd = r.shape
+    if (ckpt.dtype != torch.float32 or not ckpt.is_contiguous()
+            or tuple(ckpt.shape) != (B, -(-S // CKPT_STEPS), H, hd, hd)
+            or ckpt.device != r.device):
+        raise ValueError("rwkv6_scan_bwd: ckpt must be rwkv6_scan_fwd's "
+                         "contiguous float32 states")
+    if ds_last is None:
+        ds_last = torch.zeros(s0.shape, dtype=torch.float32, device=r.device)
+    dr, dk, dv, dlogw = (torch.empty(r.shape, dtype=torch.float32,
+                                     device=r.device) for _ in range(4))
+    du_part = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
+    du = torch.empty(H, hd, dtype=torch.float32, device=r.device)
+    ds0 = torch.empty(s0.shape, dtype=torch.float32, device=r.device)
+    kernel.launch_bwd(r, k, v, logw, u, ckpt, do, ds_last, dr, dk, dv, dlogw,
+                      du_part, du, ds0)
+    rwkv6_scan_bwd.launches += 1
+    return dr, dk, dv, dlogw, du, ds0
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The scan under autograd: the forward keeps its inputs and the
+    saved states (``rwkv6_scan_fwd``); the backward is
+    ``rwkv6_scan_bwd``, with a missing cotangent as zero. On CPU tensors
+    both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        o, s_last, ckpt = rwkv6_scan_fwd(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0, ckpt)
+        ctx.set_materialize_grads(False)
+        return o, s_last
+
+    @staticmethod
+    def backward(ctx, do, ds_last):
+        r, k, v, logw, u, s0, ckpt = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        grads = rwkv6_scan_bwd(r, k, v, logw, u, s0, ckpt, do, ds_last)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def rwkv6_scan(r, k, v, logw, u, s0, s_out=None):
     """r, k, v, logw (B,S,H,hd) of one dtype; u (H,hd) float32; s0
     (B,H,hd,hd) float32 -> (o (B,S,H,hd) in r's dtype, s_last
@@ -138,10 +238,18 @@ def rwkv6_scan(r, k, v, logw, u, s0, s_out=None):
         if s_out is None:
             return o, s_last
         return o, s_out.copy_(s_last)
-    refuse_backward("rwkv6_scan", r, k, v, logw, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on CUDA or the CPU, not "
-                         f"{r.device}")
+    recorded = needs_backward(r, k, v, logw, u, s0)
+    if recorded:
+        if s_out is not None:
+            raise ValueError("rwkv6_scan: s_out writes a serving state in "
+                             "place; a call that autograd records takes "
+                             "none")
+        if r.dtype != torch.float32:
+            raise TypeError(f"rwkv6_scan: the backward kernels are float32 "
+                            f"only; autograd records a {r.dtype} call")
+    _device(r, "rwkv6_scan")
+    if recorded:
+        return RWKV6Scan.apply(r, k, v, logw, u, s0)
     _check(r, k, v, logw, u, s0, s_out)
     o = torch.empty(r.shape, dtype=r.dtype, device=r.device)
     s_last = (torch.empty(s0.shape, dtype=torch.float32, device=r.device)
@@ -152,3 +260,4 @@ def rwkv6_scan(r, k, v, logw, u, s0, s_out=None):
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan_bwd.launches = 0

@@ -75,14 +75,39 @@
 //  - In place. A block reads its tile of the state before any write and
 //    writes only that tile at the end, so the final state may overwrite
 //    s0.
+//  - Checkpoints. When autograd records, a float32 forward runs the
+//    instance that also writes the state before every kCk-th step into
+//    `ckpt` (B, ceil(S / kCk), H, hd, hd): extra stores at the top of the
+//    walk, the arithmetic untouched, so o and the final state are the same
+//    bit for bit with or without them. The serving instance compiles
+//    without them. kCk is ref.CKPT_STEPS, which kernel.py passes to nvcc
+//    as RWKV6_CKPT_STEPS, as it does for the backward. The backward
+//    re-walks each span from its state (rwkv6_scan_bwd.cu): S_{t-1}
+//    cannot be had by running the update backwards, since exp(logw)
+//    underflows to 0.
 // ops.scan_plan mirrors the instance, tiles, chunk and shared memory
 // below from shapes alone; the CPU tests check it.
+//
+// The backward's dv and ds0 (rwkv6_bwd_dv_kernel, float32). With G the
+// cotangent of the state after step t (ds_last after the last step),
+//     dv_t = k_t . G + (r_t . (u k_t)) do_t,   G <- diag(w_t) G + r_t do_t^T,
+// and ds0 is the last G. That is this scan in reverse time with r and k
+// swapped and do for v: read-out k_t, update r_t do_t^T, decay w_t, the
+// same bonus, from ds_last. So the same body runs it, walking the inputs
+// from the last step with negative step strides and writing dv from the
+// last step back; its G is the row kernel's bit for bit (the same fmaf
+// of the same values).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef RWKV6_CKPT_STEPS
+#error "RWKV6_CKPT_STEPS (ref.CKPT_STEPS) must be defined"
+#endif
+
 namespace {
 
+constexpr int kCk = RWKV6_CKPT_STEPS;    // steps between saved states
 constexpr int kCols = 20;                // state columns per block
 constexpr int kQuads = kCols / 4;        // column quads
 constexpr int kChains = 32;              // 8 groups of 4 chains
@@ -166,14 +191,43 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return smem_bytes_at<T, L>(chunk_steps<T, L>());
 }
 
-template <typename T, int L>
-__global__ void __launch_bounds__(kThreads, 2)
-rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ lw,
-                  const float* __restrict__ u, const float* s0,
-                  T* __restrict__ o, float* s_out, Strides rs, Strides ks,
-                  Strides vs, Strides ws, int S, int H, int hd, int vec,
-                  int svec) {
+// this thread's L x 4 of a state written at `at` (one (b, h) state)
+template <int L>
+__device__ __forceinline__ void store_tile(float* at0,
+                                           const float (&st)[L][4], int row0,
+                                           int col0, int hd, bool quad_io) {
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    const int row = row0 + 4 * q;
+    float* at = at0 + (long long)row * hd + col0;
+    if (quad_io && row < hd) {
+      *reinterpret_cast<float4*>(at) =
+          make_float4(st[q][0], st[q][1], st[q][2], st[q][3]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (row < hd && col0 + m < hd) at[m] = st[q][m];
+    }
+  }
+}
+
+// What an instance of the scan's body does besides the forward.
+enum class Walk {
+  kServe,     // the forward: o and the final state
+  kSave,      // also the state before every kCk-th step, into ckpt
+  kReverse,   // the backward's dv: steps walked from the last (the inputs
+              // come at the last step with negative strides), o written
+              // from the last step back
+};
+
+// The scan of one block: the kernels below are this body.
+template <typename T, int L, Walk kWalk>
+__device__ __forceinline__ void wkv_scan(
+    const T* __restrict__ r, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ lw,
+    const float* __restrict__ u, const float* s0, T* __restrict__ o,
+    float* s_out, float* __restrict__ ckpt, Strides rs, Strides ks,
+    Strides vs, Strides ws, int S, int H, int hd, int vec, int svec) {
   constexpr bool kF32 = is_f32<T>();
   constexpr int G = 4 * L;                             // rows a group
   constexpr int kRows = 8 * G;                         // hd, padded
@@ -342,6 +396,12 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     // then the state update; the chain sums go to shared memory
 #pragma unroll 1
     for (int tt = 0; tt < n; ++tt) {
+      if constexpr (kWalk == Walk::kSave) {
+        if ((t0 + tt) % kCk == 0)
+          store_tile<L>(ckpt + ((b * ((S + kCk - 1) / kCk) + (t0 + tt) / kCk)
+                                    * H + h) * (long long)hd * hd,
+                        st, row0, col0, hd, quad_io);
+      }
       const float4 v4 = load4(V + tt * kCols + 4 * cq);
       const float vm[4] = {v4.x, v4.y, v4.z, v4.w};
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -375,25 +435,43 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
         acc += (pg[0] + pg[kCols]) + (pg[2 * kCols] + pg[3 * kCols]);
       }
       acc = fmaf(ruk[tt], to_f32(V[tt * kCols + cc]), acc);
-      o[((b * S + t0 + tt) * H + h) * (long long)hd + j0 + cc] =
-          from_f32<T>(acc);
+      const int ts =
+          kWalk == Walk::kReverse ? S - 1 - (t0 + tt) : t0 + tt;
+      o[((b * S + ts) * H + h) * (long long)hd + j0 + cc] = from_f32<T>(acc);
     }
   }
 
-  float* s_end = s_out + (b * H + h) * (long long)hd * hd;
-#pragma unroll
-  for (int q = 0; q < L; ++q) {
-    const int row = row0 + 4 * q;
-    float* at = s_end + (long long)row * hd + col0;
-    if (quad_io && row < hd) {
-      *reinterpret_cast<float4*>(at) =
-          make_float4(st[q][0], st[q][1], st[q][2], st[q][3]);
-    } else {
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (row < hd && col0 + m < hd) at[m] = st[q][m];
-    }
-  }
+  store_tile<L>(s_out + (b * H + h) * (long long)hd * hd, st, row0, col0,
+                hd, quad_io);
+}
+
+#define WKV_PARAMS(T)                                                      \
+  const T *__restrict__ r, const T *__restrict__ k,                       \
+      const T *__restrict__ v, const T *__restrict__ lw,                  \
+      const float *__restrict__ u, const float *s0, T *__restrict__ o,    \
+      float *s_out, float *__restrict__ ckpt, Strides rs, Strides ks,     \
+      Strides vs, Strides ws, int S, int H, int hd, int vec, int svec
+#define WKV_ARGS \
+  r, k, v, lw, u, s0, o, s_out, ckpt, rs, ks, vs, ws, S, H, hd, vec, svec
+
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads, 2)
+rwkv6_scan_kernel(WKV_PARAMS(T)) {
+  wkv_scan<T, L, Walk::kServe>(WKV_ARGS);
+}
+
+// the forward that also saves the states the backward re-walks
+template <int L>
+__global__ void __launch_bounds__(kThreads, 2)
+rwkv6_scan_save_kernel(WKV_PARAMS(float)) {
+  wkv_scan<float, L, Walk::kSave>(WKV_ARGS);
+}
+
+// the backward's dv and ds0: the same body on time-reversed inputs
+template <int L>
+__global__ void __launch_bounds__(kThreads, 2)
+rwkv6_bwd_dv_kernel(WKV_PARAMS(float)) {
+  wkv_scan<float, L, Walk::kReverse>(WKV_ARGS);
 }
 
 struct Call {  // what the C entry points pass down
@@ -401,34 +479,47 @@ struct Call {  // what the C entry points pass down
   const float *u, *s0;
   void* o;
   float* s_out;
+  float* ckpt;
   Strides st[4];
   int B, S, H, hd, vec, svec;
+  Walk walk;    // kSave and kReverse: float32 only
   cudaStream_t stream;
 };
 
 enum Op { kLaunch, kSmem, kBlocksPerSm };
+
+// the kernel of one instance: the forward, the forward that saves the
+// states, or the backward's dv
+template <typename T, int L>
+auto kernel_of(Walk walk) {
+  if constexpr (is_f32<T>()) {
+    if (walk == Walk::kSave) return rwkv6_scan_save_kernel<L>;
+    if (walk == Walk::kReverse) return rwkv6_bwd_dv_kernel<L>;
+  }
+  return rwkv6_scan_kernel<T, L>;
+}
 
 // one instance: launch it, or report its shared memory or occupancy
 template <typename T, int L>
 int act(Op op, const Call& a) {
   constexpr size_t smem = smem_bytes<T, L>();
   if (op == kSmem) return (int)smem;
+  const auto kern = kernel_of<T, L>(a.walk);
   cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (op == kBlocksPerSm) {
     int n = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rwkv6_scan_kernel<T, L>, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
+                                                        smem);
     return err == cudaSuccess ? n : -static_cast<int>(err);
   }
   const dim3 grid((a.hd + kCols - 1) / kCols, a.H, a.B);
-  rwkv6_scan_kernel<T, L><<<grid, kThreads, smem, a.stream>>>(
+  kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.r), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.lw), a.u, a.s0,
-      static_cast<T*>(a.o), a.s_out, a.st[0], a.st[1], a.st[2], a.st[3],
-      a.S, a.H, a.hd, a.vec, a.svec);
+      static_cast<T*>(a.o), a.s_out, a.ckpt, a.st[0], a.st[1], a.st[2],
+      a.st[3], a.S, a.H, a.hd, a.vec, a.svec);
   return -static_cast<int>(cudaGetLastError());
 }
 
@@ -452,6 +543,19 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
+// every row of r, k, v, logw starts on 16 bytes: cp.async throughout;
+// the state's rows start on 16 bytes: its columns move four at a time
+void set_alignment(Call& a, long long esize) {
+  bool vec = aligned16(a.r) && aligned16(a.k) && aligned16(a.v) &&
+             aligned16(a.lw);
+  for (const Strides& s : a.st)
+    vec = vec && (s.b * esize) % 16 == 0 && (s.s * esize) % 16 == 0 &&
+          (s.h * esize) % 16 == 0;
+  a.vec = vec;
+  a.svec = aligned16(a.s0) && aligned16(a.s_out) &&
+           (a.ckpt == nullptr || aligned16(a.ckpt)) && a.hd % 4 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -460,32 +564,55 @@ extern "C" {
 // (B,S,H,hd) are device pointers with the given element strides (batch,
 // step, head) and a contiguous head dim; u (H,hd), s0 and s_out
 // (B,H,hd,hd) are contiguous float32, and s_out may be s0; o (B,S,H,hd)
-// is contiguous. dtype: 0 = float32, 1 = bfloat16. 0 < hd <= 256.
+// is contiguous. ckpt, when not null (float32 only), receives the state
+// before steps 0, kCk, 2 kCk, ...: (B, ceil(S / kCk), H, hd, hd) float32,
+// contiguous. dtype: 0 = float32, 1 = bfloat16. 0 < hd <= 256.
 int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                       const void* lw, const float* u, const float* s0,
-                      void* o, float* s_out, long long rsb, long long rss,
-                      long long rsh, long long ksb, long long kss,
-                      long long ksh, long long vsb, long long vss,
-                      long long vsh, long long wsb, long long wss,
-                      long long wsh, int B, int S, int H, int hd, int dtype,
-                      void* stream) {
+                      void* o, float* s_out, float* ckpt, long long rsb,
+                      long long rss, long long rsh, long long ksb,
+                      long long kss, long long ksh, long long vsb,
+                      long long vss, long long vsh, long long wsb,
+                      long long wss, long long wsh, int B, int S, int H,
+                      int hd, int dtype, void* stream) {
   if (hd <= 0 || hd > 256 || B > 65535 || H > 65535 || S < 0 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (ckpt != nullptr && dtype != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || H <= 0) return 0;
-  Call a{r, k, v, lw, u, s0, o, s_out,
+  Call a{r, k, v, lw, u, s0, o, s_out, ckpt,
          {{rsb, rss, rsh}, {ksb, kss, ksh}, {vsb, vss, vsh}, {wsb, wss, wsh}},
-         B, S, H, hd, 0, 0, static_cast<cudaStream_t>(stream)};
-  // every row of r, k, v, logw starts on 16 bytes: cp.async throughout
-  const long long esize = dtype == 0 ? 4 : 2;
-  bool vec = aligned16(r) && aligned16(k) && aligned16(v) && aligned16(lw);
-  for (const Strides& s : a.st)
-    vec = vec && (s.b * esize) % 16 == 0 && (s.s * esize) % 16 == 0 &&
-          (s.h * esize) % 16 == 0;
-  a.vec = vec;
-  // the state's rows start on 16 bytes: its columns move four at a time
-  a.svec = aligned16(s0) && aligned16(s_out) && hd % 4 == 0;
+         B, S, H, hd, 0, 0, ckpt != nullptr ? Walk::kSave : Walk::kServe,
+         static_cast<cudaStream_t>(stream)};
+  set_alignment(a, dtype == 0 ? 4 : 2);
   return -dispatch(kLaunch, dtype, a);
+}
+
+// The backward's dv (B,S,H,hd) and ds0 (B,H,hd,hd), float32: the scan
+// from ds_last (the state's cotangent after the last step) over the
+// steps from the last to the first, read-out k, update r do^T. k, r,
+// dout and logw (B,S,H,hd) take element strides (batch, step, head) and
+// a contiguous head dim; u, ds_last, ds0 and dv are contiguous.
+int rwkv6_scan_bwd_dv_launch(const float* k, const float* r,
+                             const float* dout, const float* lw,
+                             const float* u, const float* ds_last, float* dv,
+                             float* ds0, long long ksb, long long kss,
+                             long long ksh, long long rsb, long long rss,
+                             long long rsh, long long dsb, long long dss,
+                             long long dsh, long long wsb, long long wss,
+                             long long wsh, int B, int S, int H, int hd,
+                             void* stream) {
+  if (hd <= 0 || hd > 256 || B > 65535 || H > 65535 || S < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0) return 0;
+  const long long last = S > 0 ? S - 1 : 0;     // walk from the last step
+  Call a{k + last * kss, r + last * rss, dout + last * dss, lw + last * wss,
+         u, ds_last, dv, ds0, nullptr,
+         {{ksb, -kss, ksh}, {rsb, -rss, rsh}, {dsb, -dss, dsh},
+          {wsb, -wss, wsh}},
+         B, S, H, hd, 0, 0, Walk::kReverse,
+         static_cast<cudaStream_t>(stream)};
+  set_alignment(a, 4);
+  return -dispatch(kLaunch, 0, a);
 }
 
 // Shared memory of one block of the instance that takes hd, in bytes

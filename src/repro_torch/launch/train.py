@@ -4,11 +4,14 @@
       --reduced --device cpu --steps 40 --batch 8 --seq 32 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 30 --batch 4 --seq 512 --microbatches 2 --lr 1e-5 --ckpt ""
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --steps 10 --batch 4 --seq 512 --microbatches 2 --lr 1e-4 --ckpt ""
 
 On the card (the default device) it trains the configuration at full
-width and depth in its own dtype: Qwen2-1.5B's 1.54 B bf16 parameters,
-with remat as configured, through ``flash_attention``'s forward and
-backward kernels. Features, as the reference's: the deterministic
+width and depth in its own dtype (Qwen2-1.5B's 1.54 B bf16 parameters,
+RecurrentGemma-2B's 2.67 B, RWKV6-3B's 3.07 B), with remat as
+configured, through the forward and backward kernels of
+``flash_attention``, ``rglru_scan`` and ``rwkv6_scan``. Features, as the reference's: the deterministic
 synthetic pipeline, AdamW with float32 moments, checkpoints every
 ``--ckpt-every`` steps and on the crash or SIGTERM path, auto-resume,
 optional int8 error-feedback gradient compression. Added:

@@ -6,7 +6,8 @@ block-diagonal input/recurrence gates -> gated linear recurrence
 ``h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)`` -> GeLU-gated
 out-proj. The recurrence, a per-channel diagonal affine scan, runs
 through ``kernels/rglru_scan`` at every S, one decode step included: the
-plain loop for CPU tensors, the CUDA kernel for CUDA tensors. (The
+plain loop for CPU tensors, the CUDA kernel for CUDA tensors, and in
+training its backward kernel (``a`` and the input are float32). (The
 reference computes S = 1 inline and longer sequences by associative scan
 or its Pallas kernel; the tests hold the port against all three.)
 

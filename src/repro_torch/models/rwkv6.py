@@ -7,7 +7,8 @@ The wkv recurrence keeps a per-head (hd x hd) float32 state:
 with the data-dependent decay w_t = exp(-exp(w0 + tanh(x W_a) W_b)). It
 runs through ``kernels/rwkv6_scan`` at every S, one decode step
 included: the plain loop for CPU tensors, the CUDA kernel for CUDA
-tensors. (The reference runs its sequential jnp scan, or its Pallas
+tensors, and in training its backward kernels (r, k, v and logw are
+float32). (The reference runs its sequential jnp scan, or its Pallas
 kernel for S > 1; the tests hold the port against both.)
 
 Casts follow the reference: the token-shift mixes in float32; ``mr``,

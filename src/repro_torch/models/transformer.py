@@ -26,12 +26,11 @@ write the cache in place (and return it), so a decode step moves no more
 bytes than its one token and the recurrent states.
 
 Training (``mode="train"`` with grad enabled, ``train/trainer.py``)
-differentiates the same modules: on CUDA tensors through
-``flash_attention``'s backward kernel; the recurrent scans have no
-backward kernel yet and raise there (``kernels.autograd``), so
-RecurrentGemma and RWKV6 train on the CPU only. Parameters are created
-frozen (serving runs under ``inference_mode``); the trainer turns them
-on.
+differentiates the same modules: on CUDA tensors through the backward
+kernels of ``flash_attention``, ``rglru_scan`` and ``rwkv6_scan`` (each
+wrapper's ``torch.autograd.Function``), so every dense and recurrent
+arch trains on the card. Parameters are created frozen (serving runs
+under ``inference_mode``); the trainer turns them on.
 
 Not ported yet: the mesh paths (``ShardCtx``, the vocab-sharded
 embedding lookup, padded heads, MoE's ``shard_map`` modes), which wait

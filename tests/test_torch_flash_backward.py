@@ -232,8 +232,10 @@ def test_autograd_on_cpu_gives_the_plain_gradients(dt):
 
 def test_paths_that_need_the_card_raise_here():
     """No CUDA here: a non-CPU device is refused, never run as the plain
-    version; the recurrent scans refuse a call that autograd would
-    record (they have no backward kernel), checked on meta tensors."""
+    version, checked on meta tensors. The recurrent scans under grad
+    reach the same device check (their backward kernels need the card),
+    and refuse an in-place state or a bfloat16 call that autograd would
+    record."""
     q = torch.empty(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1])
@@ -245,12 +247,22 @@ def test_paths_that_need_the_card_raise_here():
         assert not kernel_autograd.needs_backward(a)
     assert not kernel_autograd.needs_backward(a.detach(), None)
     from repro_torch.kernels import rglru_scan, rwkv6_scan
-    with pytest.raises(NotImplementedError, match="rglru_scan"):
-        rglru_scan(a, a, torch.empty(2, 8, device="meta"))
+    h0 = torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        rglru_scan(a, a, h0)
+    with pytest.raises(ValueError, match="h_out"):
+        rglru_scan(a, a, h0, h_out=h0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rglru_scan(a.bfloat16(), a.bfloat16(), h0)
     r = torch.empty(1, 3, 2, 4, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="rwkv6_scan"):
-        rwkv6_scan(r, r, r, r, torch.empty(2, 4, device="meta"),
-                   torch.empty(1, 2, 4, 4, device="meta"))
-    # without grad the guard lets the call through to the device check
+    u, s0 = torch.empty(2, 4, device="meta"), torch.empty(1, 2, 4, 4,
+                                                         device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        rwkv6_scan(r, r, r, r, u, s0)
+    with pytest.raises(ValueError, match="s_out"):
+        rwkv6_scan(r, r, r, r, u, s0, s_out=s0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rwkv6_scan(*(r.bfloat16(),) * 4, u, s0)
+    # without grad the call reaches the device check as well
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA or the CPU"):
-        rglru_scan(a, a, torch.empty(2, 8, device="meta"))
+        rglru_scan(a, a, h0)
