@@ -60,13 +60,15 @@ Phases, each of which raises on failure (non-zero exit):
    split-serving length, one step, the reference's cases) and
    ``rwkv6_scan_bwd`` (RWKV6-3B's training microbatch and split-serving
    length, the reference's cases, a ragged hd 100, a logw whose w
-   underflows to 0; the forward's saved states against the plain
-   forward's): each gradient against the plain reverse loop within
-   ``BWD_TOL`` and the plain emulation of the kernels' order within
-   ``SCAN_BWD_EMU_TOL`` of its largest magnitude, with and without a
-   cotangent for the last state, twice bit for bit, timed warm and
-   cold beside the bound and the plain loop (no PyTorch call computes
-   them);
+   underflows to 0, the row kernel's hd-64 and hd-256 instances and an
+   hd 37 that takes its 4-byte copies; the forward's saved states
+   against the plain forward's): each gradient against the plain
+   reverse loop within ``BWD_TOL`` and the plain emulation of the
+   kernels' order within ``SCAN_BWD_EMU_TOL`` of its largest
+   magnitude, with and without a cotangent for the last state, twice
+   bit for bit, timed warm and cold beside the bound and the plain loop
+   (no PyTorch call computes them), the row kernel's plan
+   (``bwd_plan``) held to its build, with its blocks an SM and waves;
 3. the sequential engine, ``BayesSplitEdge(default_vgg19_problem(),
    budget=20).run(seed=0)``, must reach 87.5 % at split layer 7;
 4. the batched engine on the 16-scenario VGG19 grid (seeds 0-3 x gain
@@ -393,6 +395,12 @@ RWKV_BWD_SHAPES = [
     ("case2", 2, 48, 2, 16, False),
     ("hd100_ragged", 1, 77, 3, 100, False),
     ("underflow", 2, 64, 16, 160, True),
+    # the row kernel's other instances (widths 64 and 256), each with a
+    # last span of one step; hd 37 takes the 4-byte copies (hd % 4 != 0)
+    # and a partial block of rows
+    ("hd64", 2, 41, 4, 64, False),
+    ("hd256", 1, 33, 2, 256, False),
+    ("hd37", 1, 19, 2, 37, False),
 ]
 SCAN_BWD_MAIN = "train"
 # a backward against the plain emulation of its own order: the same sums
@@ -2781,12 +2789,19 @@ def rwkv6_bwd_phase(kernels):
     (``rwkv6_scan_bwd_ref``) within BWD_TOL and the plain emulation of
     their order (``rwkv6_scan_bwd_tiled_ref``) within SCAN_BWD_EMU_TOL
     of each tensor's largest magnitude, and with no ds_last; twice bit
-    for bit; timed warm and cold beside the bound and the plain loop,
-    with the registers of the instances it runs."""
+    for bit; timed warm and cold beside the bound and the plain loop
+    (the row kernel also alone, ``rows_ms``), with the row kernel's plan
+    (``bwd_plan``: lanes, rows, threads, shared bytes, held to what the
+    built kernel reports) and the blocks an SM holds and the waves its
+    grid needs on this card."""
+    from repro_torch.kernels.rwkv6_scan import kernel as rw_kernel
     from repro_torch.kernels.rwkv6_scan import (rwkv6_checkpoints_ref,
                                                 rwkv6_scan_bwd_tiled_ref,
                                                 rwkv6_scan_fwd)
+    from repro_torch.kernels.rwkv6_scan.ops import bwd_plan
     from repro_torch.kernels.rwkv6_scan.ref import CKPT_STEPS
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     rows = []
     labels = ("dr", "dk", "dv", "dlogw", "du", "ds0")
@@ -2830,8 +2845,35 @@ def rwkv6_bwd_phase(kernels):
                        (), samples=3, inner=5)
         plain = median_ms(dict(plain=lambda: kernels.rwkv6_scan_bwd_ref(
             r, k, v, logw, u, s0, do, ds_last)), (), samples=3, inner=1)
-        ms_cold = cold_ms(kernels.rwkv6_scan_bwd, cold_copies(args),
-                          samples=3, inner=5)
+        copies = cold_copies(args)
+        ms_cold = cold_ms(kernels.rwkv6_scan_bwd, copies, samples=3, inner=5)
+        plan = bwd_plan(B, H, hd, S)
+        built = rw_kernel.bwd_build(hd)
+        if (built["lanes"], built["threads"], built["smem_bytes"]) != (
+                plan.lanes, plan.threads, plan.smem_bytes):
+            raise AssertionError(f"rwkv6_scan_bwd at {name}: the row kernel "
+                                 f"builds {built}, bwd_plan says {plan}")
+        per_sm = built["blocks_per_sm"]
+        waves = -(-plan.blocks // (per_sm * sms))
+        if name == SCAN_BWD_MAIN and (per_sm < 2 or waves != 1):
+            raise AssertionError(
+                f"rwkv6_scan_bwd at {name}: {per_sm} blocks an SM and "
+                f"{waves} waves; the design needs two blocks an SM and one "
+                "wave at RWKV6-3B's training microbatch")
+        rows_ms = rows_ms_cold = None
+        if name == SCAN_BWD_MAIN:        # the row kernel and du's sum alone
+            outs = [torch.empty_like(r) for _ in range(3)] + [
+                torch.empty(B, H, hd, device=DEVICE),
+                torch.empty(H, hd, device=DEVICE)]
+
+            def rows_only(r, k, v, logw, u, s0, ckpt, do, ds_last):
+                rw_kernel.launch_bwd_rows(r, k, v, logw, u, ckpt, do,
+                                          ds_last, *outs)
+            rows_ms = median_ms(dict(k=lambda: rows_only(*args)), (),
+                                samples=3, inner=5)["k"]
+            rows_ms_cold = cold_ms(rows_only, copies, samples=3, inner=5)
+            del outs
+        del copies
         # per (b, t, h): 14 operations a state element (the state's
         # recompute 3, G's update 3, dr, dk, dv and dlogw 2 each) and
         # 12 a row (v . do, r . (u k), the bonus terms, du); one exp a
@@ -2853,7 +2895,16 @@ def rwkv6_bwd_phase(kernels):
                    emulation_tol=SCAN_BWD_EMU_TOL, repeat_bitwise=True,
                    ms=ms["kernel"], ms_cold=ms_cold, plain_ms=plain["plain"],
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                   bound_terms=terms, seconds=time.perf_counter() - t_row)
+                   bound_terms=terms, rows_ms=rows_ms,
+                   rows_ms_cold=rows_ms_cold,
+                   plan=dict(lanes=plan.lanes,
+                             rows_per_thread=plan.rows_per_thread,
+                             columns=plan.columns, rows=plan.rows,
+                             reg_states=plan.reg_states,
+                             threads=plan.threads, grid=list(plan.grid),
+                             blocks=plan.blocks, smem_bytes=plan.smem_bytes),
+                   blocks_per_sm=per_sm, sms=sms, waves=waves,
+                   seconds=time.perf_counter() - t_row)
         log("rwkv6_scan_bwd", json.dumps(row))
         rows.append(row)
     return rows
@@ -4280,8 +4331,10 @@ def main() -> int:
             source="src/repro_torch/kernels/rwkv6_scan/rwkv6_scan_bwd.cu "
                    "and rwkv6_scan.cu (rwkv6_bwd_dv_kernel)",
             design="dv and ds0 by the forward's body in reverse time; dr, "
-                   "dk, dlogw by a row kernel re-walking each 8-step span "
-                   "from the forward's saved state; float32, no atomics"),
+                   "dk, dlogw by a row kernel that walks each 8-step span "
+                   "once from the forward's saved state, the span's states "
+                   "on chip, a copy warp staging the next span; float32, "
+                   "no atomics"),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

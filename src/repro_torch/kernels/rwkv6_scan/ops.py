@@ -20,7 +20,9 @@ bfloat16 raises ``TypeError``, one with ``s_out``, a serving path,
 launches (a backward launch is three CUDA kernels: dv and ds0, the rows,
 du's batch sum). ``scan_plan`` gives, from shapes alone, the kernel's
 instance, tiles, chunk, grid and shared memory, as ``rwkv6_scan.cu``
-chooses them.
+chooses them; ``bwd_plan`` the same for the backward's row kernel
+(``rwkv6_scan_bwd.cu``: rows of a block, lanes a row, each span of
+``CKPT_STEPS`` steps walked once from its saved state).
 """
 from __future__ import annotations
 
@@ -30,8 +32,11 @@ import torch
 
 from repro_torch.kernels.autograd import needs_backward
 from repro_torch.kernels.rwkv6_scan import kernel
-from repro_torch.kernels.rwkv6_scan.kernel import MAX_HEAD_DIM
-from repro_torch.kernels.rwkv6_scan.ref import (CKPT_STEPS,
+from repro_torch.kernels.rwkv6_scan.kernel import (BWD_MAX_THREADS,
+                                                  BWD_REG_FLOATS,
+                                                  MAX_HEAD_DIM, SMEM_LIMIT)
+from repro_torch.kernels.rwkv6_scan.ref import (CKPT_STEPS, LANES,
+                                               lane_columns,
                                                rwkv6_checkpoints_ref,
                                                rwkv6_scan_bwd_ref,
                                                rwkv6_scan_ref)
@@ -41,7 +46,6 @@ COLS = 20                       # state columns a block
 CHAINS = 32                     # 8 groups of rows, 4 chains each
 THREADS = CHAINS * COLS // 4    # 160: a chain x 4 columns a thread
 CHAIN_ROWS = (1, 2, 5, 8)       # the kernel's instances: rows a chain (L)
-SMEM_LIMIT = 113 * 1024         # bytes a block, so that two fit an SM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +109,95 @@ def scan_plan(B: int, H: int, hd: int, S: int,
     return ScanPlan(hd=hd, chain=chain, col_tiles=tiles, chunk=chunk,
                     n_chunks=-(-S // chunk), grid=(tiles, H, B),
                     smem_bytes=smem_bytes(chain, chunk, dtype))
+
+
+BWD_ROWS_PER_THREAD = 2         # rows a thread of the row kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One launch of the backward's row kernel. Block (x, h, b) owns rows
+    ``rows_of(x)`` of head h, batch row b. ``lanes`` (``LANES``) lanes
+    share a row, lane l holding its ``columns`` columns ``lane_cols(l)``,
+    for ``rows_per_thread`` consecutive rows. Each of ``spans`` spans of
+    ``CKPT_STEPS`` steps is walked once from its saved state: the last
+    ``reg_states`` states before its steps stay in registers, those
+    between the first and them in a shared-memory stash."""
+    hd: int
+    lanes: int
+    rows_per_thread: int
+    columns: int                # a lane's columns (C)
+    rows: int                   # rows a block (R)
+    reg_states: int
+    grid: tuple                 # (row blocks, H, B)
+    smem_bytes: int
+    spans: int
+
+    @property
+    def threads(self) -> int:
+        """The compute threads and the copy warp."""
+        return self.rows // self.rows_per_thread * self.lanes + 32
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def rows_of(self, x: int) -> range:
+        return range(x * self.rows, min((x + 1) * self.rows, self.hd))
+
+    def thread_rows(self, x: int, t: int) -> list:
+        first = x * self.rows + t // self.lanes * self.rows_per_thread
+        return [row for row in range(first, first + self.rows_per_thread)
+                if row < self.hd]
+
+    def lane_cols(self, lane: int) -> range:
+        return range(lane * self.columns,
+                     min((lane + 1) * self.columns, self.hd))
+
+
+def bwd_reg_states(columns: int) -> int:
+    """States of a span a thread keeps in registers."""
+    return min(CKPT_STEPS - 1,
+               BWD_REG_FLOATS // (columns * BWD_ROWS_PER_THREAD))
+
+
+def bwd_smem_bytes(columns: int, rows: int) -> int:
+    """Shared memory of one block of the row kernel: v and do rows of a
+    span (two buffers), the saved state (two buffers) and the stash of
+    the states kept neither there nor in registers (a row's padded width
+    each), r, k and exp(logw) of the block's rows (two buffers), v . do
+    a step (two buffers), the bulk copies' mbarrier (16 bytes)."""
+    width, ck = LANES * columns, CKPT_STEPS
+    stash = ck - 1 - bwd_reg_states(columns)
+    return 4 * (4 * ck * width + (2 + stash) * rows * width + 6 * ck * rows
+                + 2 * ck + 4)
+
+
+def bwd_rows(columns: int) -> int:
+    """Rows a block: the most, in whole warps and up to BWD_MAX_THREADS
+    compute threads, that leave room for two blocks an SM."""
+    step = 32 * BWD_ROWS_PER_THREAD // LANES
+    rows = BWD_MAX_THREADS // LANES * BWD_ROWS_PER_THREAD
+    while rows > step and bwd_smem_bytes(columns, rows) > SMEM_LIMIT:
+        rows -= step
+    return rows
+
+
+def bwd_plan(B: int, H: int, hd: int, S: int) -> BwdPlan:
+    """The row kernel's instance for hd (``ref.lane_columns``), its rows
+    a block, grid and shared memory, as ``rwkv6_scan_bwd.cu`` chooses
+    them."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_scan_bwd: head dim {hd} is not in 1.."
+                         f"{MAX_HEAD_DIM}")
+    columns = lane_columns(hd)
+    rows = bwd_rows(columns)
+    return BwdPlan(hd=hd, lanes=LANES, rows_per_thread=BWD_ROWS_PER_THREAD,
+                   columns=columns, rows=rows,
+                   reg_states=bwd_reg_states(columns),
+                   grid=(-(-hd // rows), H, B),
+                   smem_bytes=bwd_smem_bytes(columns, rows),
+                   spans=-(-S // CKPT_STEPS))
 
 
 def _check(r, k, v, logw, u, s0, s_out):

@@ -151,13 +151,15 @@ def rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, do, ds_last=None):
     return dr.to(dt), dk.to(dt), dv.to(dt), dlogw.to(dt), du, G
 
 
-LANES = 8               # lanes of the row kernel that share a row
+LANES = 16              # lanes of the row kernel that share a row
+WIDTHS = (32, 64, 160, 256)   # the row kernel's instances: padded columns
 
 
 def lane_columns(hd: int) -> int:
     """Columns a lane holds in the backward's row kernel: the smallest
-    of 4, 8, 20, 32 whose 8 lanes cover hd."""
-    return next(c for c in (4, 8, 20, 32) if LANES * c >= hd)
+    instance width (32, 64, 160, 256) that covers hd, over the LANES
+    lanes (10 at hd 160)."""
+    return next(w for w in WIDTHS if w >= hd) // LANES
 
 
 def _butterfly(p):
@@ -171,8 +173,8 @@ def _butterfly(p):
 
 def _lane_sum(x, y, C):
     """sum_j x_j y_j over the last dim as the row kernel takes it: lane
-    l chains columns l C .. l C + C - 1 in order, the 8 lanes' sums by
-    the butterfly. x, y padded to 8 C columns."""
+    l chains columns l C .. l C + C - 1 in order, the LANES lanes' sums
+    by the butterfly. x, y padded to LANES C columns."""
     xs = x.unflatten(-1, (LANES, C))
     ys = y.unflatten(-1, (LANES, C))
     acc = xs[..., 0] * ys[..., 0]
@@ -186,10 +188,10 @@ def rwkv6_scan_bwd_tiled_ref(r, k, v, logw, u, s0, do, ds_last=None):
     dv and ds0 are the forward scan in reverse time (read-out k, update
     r do^T, from ds_last), so ``rwkv6_scan_tiled_ref`` gives them on the
     time-reversed inputs. dr, dk and dlogw are the row kernel's: each
-    lane's columns chained in order, the 8 lanes by the butterfly, the
-    bonus added last; v . do by 32 strided lane sums and the butterfly;
-    du each row's chain over t from the last step, then the batch rows
-    in order."""
+    of a row's ``LANES`` lanes' ``lane_columns`` columns chained in
+    order, the lanes by the butterfly, the bonus added last; v . do by
+    32 strided lane sums and the butterfly; du each row's chain over t
+    from the last step, then the batch rows in order."""
     B, S, H, hd = r.shape
     flip = (lambda t: t.flip(1))                           # noqa: E731
     zero = torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)

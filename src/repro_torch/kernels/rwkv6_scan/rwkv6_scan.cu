@@ -82,11 +82,12 @@
 //    bit for bit with or without them. The serving instance compiles
 //    without them. kCk is ref.CKPT_STEPS, which kernel.py passes to nvcc
 //    as RWKV6_CKPT_STEPS, as it does for the backward. The backward
-//    re-walks each span from its state (rwkv6_scan_bwd.cu): S_{t-1}
+//    walks each span once from its state (rwkv6_scan_bwd.cu): S_{t-1}
 //    cannot be had by running the update backwards, since exp(logw)
 //    underflows to 0.
 // ops.scan_plan mirrors the instance, tiles, chunk and shared memory
-// below from shapes alone; the CPU tests check it.
+// below from shapes alone (the limit a block, kernel.SMEM_LIMIT, comes
+// in as RWKV6_SMEM_LIMIT); the CPU tests check it.
 //
 // The backward's dv and ds0 (rwkv6_bwd_dv_kernel, float32). With G the
 // cotangent of the state after step t (ds_last after the last step),
@@ -104,6 +105,9 @@
 #ifndef RWKV6_CKPT_STEPS
 #error "RWKV6_CKPT_STEPS (ref.CKPT_STEPS) must be defined"
 #endif
+#ifndef RWKV6_SMEM_LIMIT
+#error "RWKV6_SMEM_LIMIT (kernel.SMEM_LIMIT) must be defined"
+#endif
 
 namespace {
 
@@ -115,7 +119,7 @@ constexpr int kThreads = kChains * kQuads;   // 160: a chain x a quad each
 // floats of chain sums a step: 32 chains, and one row more so that the
 // reduction's reads of neighbouring steps fall in other banks
 constexpr int kPartStep = 33 * kCols;
-constexpr size_t kSmemLimit = 113 * 1024;   // two blocks an SM
+constexpr size_t kSmemLimit = RWKV6_SMEM_LIMIT;   // two blocks an SM
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

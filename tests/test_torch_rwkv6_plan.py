@@ -13,7 +13,16 @@ steps, S not a multiple of the chunk. It is held against the reference's
 sequential oracle and its Pallas kernel in interpret mode on the same
 numpy-seeded inputs: float32 within atol = rtol = 1e-5 (the orders of the
 sums differ), bfloat16 within the reference kernel-test bar of
-``test_torch_rwkv6_scan.TOL``."""
+``test_torch_rwkv6_scan.TOL``.
+
+``ops.bwd_plan`` does the same for the backward's row kernel
+(``rwkv6_scan_bwd.cu``): its instance (columns a lane), rows a block,
+rows a thread, threads (the compute threads and a copy warp), grid and
+shared memory. For every hd in 1..256 its lanes' columns must cover hd
+with the smallest instance, its blocks' rows cover hd once, and a
+block's shared memory fit the H100's 227 KB, with room for two blocks
+an SM. The sizing it shares with the kernel reaches nvcc from
+``kernel.py`` alone."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +30,7 @@ import torch
 
 from repro.kernels.rwkv6_scan.ops import rwkv6_scan as ref_kernel
 from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as ref_oracle
+from repro_torch.kernels.rwkv6_scan import kernel as scan_kernel
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_tiled_ref
 
@@ -141,3 +151,78 @@ def test_tiled_emulation_does_not_depend_on_the_chunk(chunk):
     want = rwkv6_scan_tiled_ref(*tx, chain=2, chunk=16)
     got = rwkv6_scan_tiled_ref(*tx, chain=2, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+H100_SMEM_BLOCK = 227 * 1024            # bytes a block may take
+WIDTHS = (32, 64, 160, 256)             # the row kernel's instances
+
+
+def test_bwd_plan_covers_every_head_dim():
+    for hd in range(1, 257):
+        plan = scan_ops.bwd_plan(2, 16, hd, 512)
+        width = plan.lanes * plan.columns
+        assert width == min(w for w in WIDTHS if w >= hd), hd
+        assert (plan.lanes, plan.rows_per_thread) == (16, 2)
+        assert plan.grid[0] * plan.rows >= hd > (plan.grid[0] - 1) * plan.rows
+        assert plan.rows % (32 * plan.rows_per_thread // plan.lanes) == 0
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.smem_bytes <= scan_ops.SMEM_LIMIT < H100_SMEM_BLOCK
+        assert plan.smem_bytes == scan_ops.bwd_smem_bytes(plan.columns,
+                                                          plan.rows)
+        assert 1 <= plan.reg_states <= scan_ops.CKPT_STEPS - 1
+        assert plan.spans == -(-512 // scan_ops.CKPT_STEPS)
+
+
+@pytest.mark.parametrize("hd", [1, 2, 3, 16, 17, 20, 31, 32, 33, 37, 63,
+                                64, 65, 100, 128, 159, 160, 161, 200, 256])
+def test_bwd_plan_gives_each_state_element_one_thread(hd):
+    """Block x's compute thread t holds rows thread_rows(x, t) at the
+    columns of its lane: every (row, column) of the (hd, hd) state
+    exactly once; the last warp copies and holds none."""
+    plan = scan_ops.bwd_plan(1, 1, hd, 9)
+    seen = np.zeros((hd, hd), int)
+    for x in range(plan.grid[0]):
+        rows = []
+        for t in range(plan.threads - 32):
+            held = plan.thread_rows(x, t)
+            rows += held
+            cols = list(plan.lane_cols(t % plan.lanes))
+            for row in held:
+                seen[row, cols] += 1
+        assert sorted(set(rows)) == list(plan.rows_of(x))
+    assert (seen == 1).all()
+
+
+def test_bwd_plan_at_the_training_shape():
+    """RWKV6-3B's training microbatch: 16 lanes of 10 columns for two
+    rows a thread, 20 rows a block of 160 compute threads and a copy
+    warp, 256 blocks: one wave of two blocks an SM on an H100's 132."""
+    plan = scan_ops.bwd_plan(2, 16, 160, 512)
+    assert (plan.lanes, plan.columns, plan.rows_per_thread) == (16, 10, 2)
+    assert (plan.rows, plan.threads, plan.grid) == (20, 192, (8, 16, 2))
+    assert plan.blocks == 256 <= 2 * 132
+    assert plan.reg_states == 2 and plan.smem_bytes == 114000
+
+
+def test_bwd_plan_and_the_build_share_one_sizing():
+    """The constants the plan sizes blocks by are the ones ``kernel.py``
+    passes to nvcc: the shared-memory limit to both sources, the row
+    kernel's threads and register budget to its own, the checkpoint
+    interval to both."""
+    both = {f"-DRWKV6_CKPT_STEPS={scan_ops.CKPT_STEPS}",
+            f"-DRWKV6_SMEM_LIMIT={scan_ops.SMEM_LIMIT}"}
+    rows = {f"-DRWKV6_BWD_MAX_THREADS={scan_ops.BWD_MAX_THREADS}",
+            f"-DRWKV6_BWD_REG_FLOATS={scan_ops.BWD_REG_FLOATS}"}
+    fwd = {f for f in scan_kernel.LIB.flags if f.startswith("-DRWKV6_")}
+    bwd = {f for f in scan_kernel.BWD_LIB.flags if f.startswith("-DRWKV6_")}
+    assert fwd == both and bwd == both | rows
+    plan = scan_ops.bwd_plan(2, 16, 160, 512)
+    assert plan.threads - 32 <= scan_ops.BWD_MAX_THREADS
+    assert (plan.reg_states * plan.columns * plan.rows_per_thread
+            <= scan_ops.BWD_REG_FLOATS)
+
+
+def test_bwd_plan_rejects_what_the_kernel_does_not_take():
+    for hd in (0, 257):
+        with pytest.raises(ValueError, match="head dim"):
+            scan_ops.bwd_plan(1, 1, hd, 4)

@@ -6,7 +6,9 @@ the plain loops; the ``torch.autograd.Function``s (``RGLRUScan``,
 ``RWKV6Scan``, which dispatch to the plain versions on CPU tensors)
 against autograd of the plain forwards; and a reduced RecurrentGemma-2B
 and RWKV6-3B whose scans go through the Functions against the default
-CPU route. Inputs come from numpy seeds, at S <= 64, R <= 48, hd <= 32.
+CPU route. Inputs come from numpy seeds, at S <= 64, R <= 48, hd <= 32,
+and for the RWKV6 row kernel's other instances hd 64 and 256 at S 9 and
+hd 160 (RWKV6-3B's) at S 8 and 11.
 
 Tolerances, each of a tensor's largest magnitude: ``VJP_TOL`` 1e-5 for
 a plain backward against ``jax.vjp`` or autograd (float32 sums in
@@ -53,10 +55,13 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-7
 # piece
 RGLRU_CASES = [(2, 64, 32), (1, 50, 48), (2, 5, 16), (1, 1, 8)]
 # (B, S, H, hd, underflow): the reference's kernel cases, a ragged hd
-# and a partial checkpoint span; ``underflow`` puts logw at -2981
-# (w = exp(-exp(8)), 0 in float32) on every other step
+# and a partial checkpoint span, the row kernel's instances of widths
+# 64 and 256 with a last span of one step, and of width 160 (RWKV6-3B's
+# head dim) with one whole span; ``underflow`` puts
+# logw at -2981 (w = exp(-exp(8)), 0 in float32) on every other step
 RWKV_CASES = [(2, 64, 2, 16, False), (1, 37, 3, 20, False),
-              (1, 19, 2, 32, True)]
+              (1, 19, 2, 32, True), (1, 9, 1, 64, False),
+              (1, 9, 1, 256, False), (1, 8, 1, 160, False)]
 
 
 def _close(got, want, tol, what):
@@ -203,6 +208,21 @@ def test_rwkv6_bwd_ref_autograd_emulation_and_function(case):
     no_last = torch.autograd.grad((o * do).sum(), leaves)
     for leaf, w in zip(fn_leaves, no_last):
         _close(leaf.grad, w, VJP_TOL, f"RWKV6Scan {case}")
+
+
+@pytest.mark.parametrize("last", [True, False])
+def test_rwkv6_bwd_emulation_at_the_training_width(last):
+    """The emulation at hd 160, RWKV6-3B's head dim, whose instance (10
+    columns a lane) no case of ``RWKV_CASES`` reaches, agrees with the
+    plain loop, with and without a last-state cotangent."""
+    r, k, v, logw, u, s0, do, ds_last = _t(_rwkv_inputs(1, 11, 1, 160,
+                                                        False, seed=2))
+    ds_last = ds_last if last else None
+    want = rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, do, ds_last)
+    got = rwkv6_scan_bwd_tiled_ref(r, k, v, logw, u, s0, do, ds_last)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                          want):
+        _close(g, w, EMU_TOL, f"rwkv6 emulation, hd 160, {name}")
 
 
 def _through_functions(monkeypatch):
