@@ -1,6 +1,7 @@
 """Learning rates of the full-width training run, on the card: for each
 ``--lrs`` value, ``repro_torch.launch.train`` trains ``--arch`` (default
-Qwen2-1.5B; full width and depth, bf16, remat, AdamW) for ``--steps``
+Qwen2-1.5B; full width and depth, bf16, remat, ``--optimizer``, default
+AdamW, B 4 x S 512 in ``--microbatches``, default 2) for ``--steps``
 steps from the same seeded weights on the same synthetic batches, and
 the loss of two batches it never trains on (pipeline steps 1000 and
 1001) is taken before and after. Writes
@@ -11,6 +12,9 @@ card's name and power limit.
       --lrs 1e-3 3e-5 1e-5 3e-6
   PYTHONPATH=src python -m benchmarks.train_lr_sweep_torch \\
       --arch rwkv6-3b --steps 10 --lrs 3e-4 1e-4 3e-5 1e-5
+  PYTHONPATH=src python -m benchmarks.train_lr_sweep_torch \\
+      --arch qwen2-moe-a2.7b --optimizer adafactor --microbatches 1 \\
+      --steps 10 --lrs 1e-4 3e-5 1e-5
 
 It is how ``chip_smoke.py`` phase 6a's learning rates were chosen, each
 judged by that phase's loss window (``chip_smoke.LOSS_WINDOW``: run it
@@ -51,7 +55,7 @@ def held_out_losses(model, cfg, batches):
 
 
 def run(lrs, arch="qwen2-1.5b", steps=30, batch=4, seq=512,
-        microbatches=2, device="cuda"):
+        microbatches=2, device="cuda", optimizer="adamw"):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch)
     pipe = SyntheticTokenPipeline(cfg.vocab_size, batch, seq)
@@ -66,7 +70,8 @@ def run(lrs, arch="qwen2-1.5b", steps=30, batch=4, seq=512,
         res = train_mod.train([
             "--arch", arch, "--steps", str(steps), "--batch", str(batch),
             "--seq", str(seq), "--microbatches", str(microbatches),
-            "--lr", str(lr), "--ckpt", "", "--device", device])
+            "--lr", str(lr), "--optimizer", optimizer, "--ckpt", "",
+            "--device", device])
         losses = res.losses
         w = LOSS_WINDOW[arch]
         rows.append(dict(lr=lr, losses=losses, loss_window=w,
@@ -80,7 +85,8 @@ def run(lrs, arch="qwen2-1.5b", steps=30, batch=4, seq=512,
         if device != "cpu":
             torch.cuda.empty_cache()
     return dict(arch=arch, steps=steps, batch=batch, seq=seq,
-                microbatches=microbatches, held_out_steps=HELD_OUT_STEPS,
+                microbatches=microbatches, optimizer=optimizer,
+                held_out_steps=HELD_OUT_STEPS,
                 rows=rows)
 
 
@@ -91,9 +97,12 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--microbatches", type=int, default=2)
     args = ap.parse_args(argv)
     out = run(args.lrs, arch=args.arch, steps=args.steps,
-              device=args.device)
+              device=args.device, optimizer=args.optimizer,
+              microbatches=args.microbatches)
     out["device"] = card() if args.device != "cpu" else "cpu"
     ARTIFACTS.mkdir(parents=True, exist_ok=True)
     (ARTIFACTS / f"train_lr_sweep_torch_{args.arch}.json").write_text(

@@ -27,13 +27,15 @@ Phases, each of which raises on failure (non-zero exit):
    ``posterior_plan``'s and, at the main path's rows, enough blocks an
    SM for one wave; its build must not spill),
    ``flash_attention`` (bf16 at Qwen2-1.5B's,
-   RecurrentGemma-2B's, Qwen1.5-MoE-A2.7B's (16/16, hd 128) and Kimi
-   K2's (64/8, hd 112) heads, and the reference's kernel cases; bf16
-   also against the plain emulation of its tiles), its backward
-   ``flash_attention_bwd`` (dq, dk and dv at Qwen2-1.5B's training
-   microbatch in bf16 and float32, a ragged S, RecurrentGemma-2B's local
-   layer over its 2048 window at S 4096, Qwen1.5-MoE-A2.7B's and Kimi
-   K2's heads, and the reference's kernel cases; against the float32
+   RecurrentGemma-2B's, Qwen1.5-MoE-A2.7B's (16/16, hd 128; also at its
+   training batch, B 4 x S 512) and Kimi K2's (64/8, hd 112) heads, and
+   the reference's kernel cases; bf16 also against the plain emulation
+   of its tiles), its backward ``flash_attention_bwd`` (dq, dk and dv at
+   Qwen2-1.5B's training microbatch in bf16 and float32, a ragged S,
+   RecurrentGemma-2B's local layer over its 2048 window at S 4096,
+   Qwen1.5-MoE-A2.7B's heads at B 2 and at its training batch B 4 x S
+   512, Kimi K2's heads, and the reference's kernel cases; against the
+   float32
    plain backward on the same inputs and the plain emulation of its own
    arithmetic (bf16: the tensor-core kernels, P and dS rounded to bf16)
    within ``BWD_TOL`` of each tensor's largest magnitude, the forward's
@@ -176,9 +178,13 @@ Phases, each of which raises on failure (non-zero exit):
    bf16 model is freed, each leaf rounded through bf16: the same weights,
    and both do not fit the card at 14.3 B parameters); where an MoE
    route drops an assignment, the check runs again on the same weights
-   at a capacity factor under which nothing drops, and says so;
+   at a capacity factor under which nothing drops, and says so; a
+   ``moe_route_flips`` line counts the routed (token, expert) pairs that
+   differ between the bf16 and the float32 checks, and within each
+   between the prefill or decode step and the full forward;
 6. training, Qwen2-1.5B (``TRAIN_ARCH``): (a) ``launch.train`` at full
-   width and depth, bf16, remat, AdamW, B 4 x S 512 in 2 microbatches,
+   width and depth, bf16, remat, AdamW (every optimizer clips the
+   gradients leaf by leaf), B 4 x S 512 in 2 microbatches,
    20 steps (``TRAIN_RUN``): the loss falls (the mean of the last five
    below the first five), each step launches exactly
    ``train_launches`` (28 x 2 x 2 flash forwards, 28 x 2 backwards) and
@@ -206,7 +212,21 @@ Phases, each of which raises on failure (non-zero exit):
    ``rwkv6_scan_bwd``), with its ``profile`` and ``train`` lines; (b)
    as 6b in float32 on one pattern cycle of RecurrentGemma-2B (rglru,
    rglru, local) and 2 layers of RWKV6-3B, the plain route the plain
-   scans under autograd.
+   scans under autograd; then Qwen1.5-MoE-A2.7B (``MOE_ARCH``), alone on
+   the card: the MoE layer's determinism check (one full-width layer,
+   bf16, T 4 x 512 at capacity factor 1.5, which drops: two backwards
+   equal bit for bit in every gradient, x included; its device ms
+   forward and backward and its expert products'); (a) as 6a at full
+   width and depth, bf16, remat, Adafactor, B 4 x S 512 in one
+   microbatch, 10 steps at lr 1e-5 (``MOE_RUN``), each step launching
+   exactly 48 flash forwards and 24 backwards, with its ``profile``,
+   ``train`` (MFU from the active parameters) and ``moe`` lines (drops,
+   aux, the capacity rows executed against the assignments, the expert
+   products' ms forward and backward); (b) one Adafactor step in
+   float32 on 2 MoE layers at full width, B 2 x S 512, the plain route's
+   experts pinned to the kernel route's after the flipped (token,
+   expert) pairs are counted; (c) as 6c with Adafactor and no
+   compression, every parameter and factored moment bit for bit.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
@@ -277,10 +297,12 @@ FLASH_SHAPES = [
     ("hd256_f32", 1, 128, 0, torch.float32, 4, 1, 256),
     # RecurrentGemma-2B's local layers in prefill
     ("recurrentgemma_prefill", 2, 512, 2048, torch.bfloat16, 10, 1, 256),
-    # Qwen1.5-MoE-A2.7B's prefill and split-serving forward (G = 1), and
-    # Kimi K2's heads, which no model of the card runs (1.03 T parameters)
+    # Qwen1.5-MoE-A2.7B's prefill, split-serving forward (G = 1) and
+    # training batch (B 4 x S 512 in one microbatch), and Kimi K2's heads,
+    # which no model of the card runs (1.03 T parameters)
     ("moe_prefill", 2, 512, 0, torch.bfloat16, *MOE.values()),
     ("moe_split_serving", 2, 32, 0, torch.bfloat16, *MOE.values()),
+    ("moe_train", 4, 512, 0, torch.bfloat16, *MOE.values()),
     ("kimi_prefill", 1, 512, 0, torch.bfloat16, *KIMI.values()),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 0, torch.float32, 4, 2, 32),
@@ -300,7 +322,10 @@ FLASH_BWD_SHAPES = [
     ("ragged", 2, 500, 0, torch.bfloat16, *QWEN.values()),
     # RecurrentGemma-2B's local layer over its whole window
     ("recurrentgemma_local", 1, 4096, 2048, torch.bfloat16, 10, 1, 256),
-    ("moe_train", 2, 512, 0, torch.bfloat16, *MOE.values()),
+    # Qwen1.5-MoE-A2.7B's heads at the dense LMs' microbatch, and its
+    # training batch (phase 6's MoE run: B 4 x S 512, one microbatch)
+    ("moe_heads", 2, 512, 0, torch.bfloat16, *MOE.values()),
+    ("moe_train", 4, 512, 0, torch.bfloat16, *MOE.values()),
     ("kimi_train", 1, 512, 0, torch.bfloat16, *KIMI.values()),
     *(row for row in FLASH_SHAPES if row[0].startswith("case")),
 ]
@@ -314,7 +339,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the backward's cold ms before its tensor-core redesign (final run of the
 # CUDA-core kernels on an H100 80GB HBM3 at 700 W, PERF.md)
 BWD_EARLIER_COLD_MS = dict(train=0.6948, train_f32=0.7017, ragged=0.6765,
-                           recurrentgemma_local=19.13, moe_train=0.8990,
+                           recurrentgemma_local=19.13, moe_heads=0.8990,
                            kimi_train=1.423)
 LSE_ATOL = 1e-4      # base-2 log-sum-exp, float32 sums in another order
 # decode attention: (name, B, T, last, q_pos, window, dtype, Hq, Hkv,
@@ -3314,8 +3339,8 @@ def prefill_decode(cfg, model, dtype):
 @contextlib.contextmanager
 def moe_recorded():
     """Record each capacity dispatch of the MoE layers: its tokens T,
-    top-k, capacity C and the experts' loads (a host read a layer, so
-    only in untimed passes); yields the records."""
+    top-k, capacity C, the experts' loads (a host read a layer, so only
+    in untimed passes) and the top-k ids; yields the records."""
     from repro_torch.models import moe
 
     records = []
@@ -3324,7 +3349,7 @@ def moe_recorded():
     def recorded(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap):
         load = torch.bincount(topi.reshape(-1), minlength=cfg.n_experts)
         records.append(dict(T=xt.shape[0], k=topi.shape[1], E=e_n, C=cap,
-                            load=load.tolist()))
+                            load=load.tolist(), ids=topi))
         return dispatch(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap)
 
     with mock.patch.object(moe, "_dispatch_ffn_capacity", recorded):
@@ -3455,9 +3480,10 @@ def routes_checked(run, cfg, model, dtype):
     capacity path drops by design, and the two routes see other loads:
     where either drops, the check runs again on the same weights at the
     capacity factor E / k (C >= T: nothing can drop). Logs which check
-    ran; returns (dec, full) of the check that counts."""
+    ran; returns (dec, full) of the check that counts and its MoE
+    dispatches' records (``moe_recorded``; none for a dense model)."""
     if not cfg.moe:
-        return prefill_decode(cfg, model, dtype)
+        return prefill_decode(cfg, model, dtype), []
     with moe_recorded() as records:
         out = prefill_decode(cfg, model, dtype)
     drops = {T: d["dropped"] for T, d in drop_stats(records).items()}
@@ -3475,7 +3501,45 @@ def routes_checked(run, cfg, model, dtype):
             raise AssertionError(f"{run.arch}: {again} dropped at "
                                  f"capacity factor {factor}")
     log("moe_decode_check", json.dumps(line))
-    return out
+    return out, records
+
+
+def route_flips(run, cfg, rec16, rec32):
+    """A ``moe_route_flips`` line: the routed (token, expert) pairs that
+    differ between the bf16 and the float32 checks of ``routes_checked``
+    (each path's layers: the full forward T 1024, the prefill T 1022,
+    the decode step T 2), and within each dtype between the prefill or
+    the decode step and the full forward at the same positions (the two
+    routes ``decode_check`` compares)."""
+    E, L, S = cfg.n_experts, cfg.n_layers, GEN_PROMPT
+    paths = ("forward", "prefill", "decode_step")
+
+    def by_path(rec):
+        if len(rec) != len(paths) * L:
+            raise AssertionError(f"{run.arch}: {len(rec)} MoE dispatches "
+                                 f"in prefill + decode, {len(paths) * L} "
+                                 "expected")
+        return {p: [r["ids"] for r in rec[i * L:(i + 1) * L]]
+                for i, p in enumerate(paths)}
+
+    def count(a, b):
+        return int(sum(pairs_differ(x, y, E) for x, y in zip(a, b)))
+
+    def within(ids):
+        full = [f.reshape(GEN_BATCH, S, -1) for f in ids["forward"]]
+        return dict(
+            prefill_vs_forward=count(
+                ids["prefill"], [f[:, :-1].reshape(-1, f.shape[-1])
+                                 for f in full]),
+            decode_vs_forward=count(ids["decode_step"],
+                                    [f[:, -1] for f in full]))
+
+    i16, i32 = by_path(rec16), by_path(rec32)
+    log("moe_route_flips", json.dumps(dict(
+        arch=run.arch, layers=L,
+        pairs={p: L * i16[p][0].numel() for p in paths},
+        bf16_vs_float32={p: count(i16[p], i32[p]) for p in paths},
+        bf16=within(i16), float32=within(i32))))
 
 
 def decode_check(run, bf16, f32):
@@ -3573,15 +3637,17 @@ def model_phase(kernels, run):
     step("profile", profile_phase, run, cfg, model)
     if cfg.moe:
         step("moe", moe_phase, run, cfg, model)
-    bf16 = step("bf16 check", routes_checked, run, cfg, model,
-                torch.bfloat16)
+    bf16, rec16 = step("bf16 check", routes_checked, run, cfg, model,
+                       torch.bfloat16)
     del model
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     model32 = step("float32 copy", float32_copy, cfg32)
-    f32 = step("float32 check", routes_checked, run, cfg32, model32,
-               torch.float32)
+    f32, rec32 = step("float32 check", routes_checked, run, cfg32, model32,
+                      torch.float32)
     decode_check(run, bf16, f32)
+    if cfg.moe:
+        route_flips(run, cfg, rec16, rec32)
     del model32
     torch.cuda.empty_cache()
     log("model_phase", json.dumps(dict(arch=run.arch, seconds=steps)))
@@ -3600,7 +3666,8 @@ TRAIN_ARCH = "qwen2-1.5b"
 # held-out loss 0.71-0.86 up); 1e-5 lowers both the most of 3e-5, 1e-5
 # and 3e-6 (benchmarks/train_lr_sweep_torch.py on an H100); 20 steps
 # (cut from 30 for the script's time) lower both as well
-TRAIN_RUN = dict(steps=20, batch=4, seq=512, microbatches=2, lr=1e-5)
+TRAIN_RUN = dict(steps=20, batch=4, seq=512, microbatches=2, lr=1e-5,
+                 optimizer="adamw")
 # the recurrent LMs, after Qwen2-1.5B's runs, one model at a time: 6a as
 # TRAIN_RUN at lr 1e-5, the loss held over the first and last three
 # steps. The warm-up takes 20 steps, so 10 steps end at half the peak
@@ -3611,19 +3678,34 @@ TRAIN_RUN = dict(steps=20, batch=4, seq=512, microbatches=2, lr=1e-5)
 RECURRENT_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
 RECURRENT_RUN = {
     "recurrentgemma-2b": dict(steps=20, batch=4, seq=512, microbatches=2,
-                              lr=1e-5),
-    "rwkv6-3b": dict(steps=10, batch=4, seq=512, microbatches=2, lr=1e-5),
+                              lr=1e-5, optimizer="adamw"),
+    "rwkv6-3b": dict(steps=10, batch=4, seq=512, microbatches=2, lr=1e-5,
+                     optimizer="adamw"),
 }
+# Qwen1.5-MoE-A2.7B, last, alone on the card: 14.3 B bf16 parameters and
+# their bf16 gradients are 57.3 GB, so Adafactor (AdamW's float32
+# moments would add 114.5 GB) and one microbatch (two would add a 57.3 GB
+# float32 accumulator); 10 steps at lr 1e-5, the loss held over the first
+# and last three steps. In 10 steps 1e-5 lowers the loss and the held-out
+# loss (by 0.007 and 0.011), 3e-5 lowers both more (0.021 and 0.036) and
+# 1e-4 raises both (benchmarks/train_lr_sweep_torch.py on an H100); 3e-5
+# is the next choice should a change leave 1e-5 short
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_RUN = dict(steps=10, batch=4, seq=512, microbatches=1, lr=1e-5,
+               optimizer="adafactor")
 # steps at each end of a 6a run whose mean losses are compared; the lr
 # sweep (benchmarks/train_lr_sweep_torch.py) judges a rate by the same
-LOSS_WINDOW = {TRAIN_ARCH: 5, "recurrentgemma-2b": 3, "rwkv6-3b": 3}
+LOSS_WINDOW = {TRAIN_ARCH: 5, "recurrentgemma-2b": 3, "rwkv6-3b": 3,
+               MOE_ARCH: 3}
 # two batches the run never sees: their mean loss must fall too
 HELD_OUT_STEPS = (1000, 1001)
-# 6b: one AdamW step at full width, float32, kernels vs plain: 2 layers
-# of Qwen2-1.5B (and the same step in bf16), one pattern cycle of
-# RecurrentGemma-2B (rglru, rglru, local) and 2 layers of RWKV6-3B
+# 6b: one step at full width, float32, kernels vs plain, with the 6a
+# run's optimizer: 2 layers of Qwen2-1.5B (and the same step in bf16),
+# one pattern cycle of RecurrentGemma-2B (rglru, rglru, local), 2 layers
+# of RWKV6-3B and 2 MoE layers of Qwen1.5-MoE-A2.7B (Adafactor)
 STEP_CHECK = dict(layers=2, batch=2, seq=512, lr=1e-3)
-STEP_CHECK_LAYERS = {TRAIN_ARCH: 2, "recurrentgemma-2b": 3, "rwkv6-3b": 2}
+STEP_CHECK_LAYERS = {TRAIN_ARCH: 2, "recurrentgemma-2b": 3, "rwkv6-3b": 2,
+                     MOE_ARCH: 2}
 # gradients of the two routes: float32 sums in another order, through 2
 # layers and the CE; of each leaf's largest magnitude
 STEP_GRAD_TOL = 1e-4
@@ -3643,10 +3725,27 @@ STEP_GRAD_TOL_BF16 = ATTN_ATOL[torch.bfloat16] + BWD_TOL[torch.bfloat16]
 # 327 M elements, 6.8e-5 of them beyond 1e-3 lr)
 STEP_ATOL, STEP_SHARE, STEP_ATOL_ALL = 1e-3, 1e-3, 2.0
 # 6c: 2 layers at full width, the vocab cut to train_100m.py's 32,000,
-# bf16, int8 gradient compression, a checkpoint every 2 steps, a failure
-# at step 3
+# bf16, a checkpoint every 2 steps, a failure at step 3: Qwen2-1.5B with
+# AdamW and int8 gradient compression, Qwen1.5-MoE-A2.7B with Adafactor
 RESUME = dict(layers=2, vocab=32_000, steps=6, every=2, fail_at=3,
               batch=2, seq=256, lr=1e-3)
+RESUME_RUN = {TRAIN_ARCH: dict(optimizer="adamw", compress=True),
+              MOE_ARCH: dict(optimizer="adafactor", compress=False)}
+# the MoE layer's determinism check: one full-width layer, bf16, the 6a
+# run's T = 4 x 512 tokens at the configured capacity factor (1.5: C
+# 204), its backward twice. The tokens are 64 prototype hidden states
+# plus noise of 0.1 their scale, so the routing concentrates as a real
+# batch's does and assignments drop (unit-normal tokens spread evenly:
+# the largest load 170, nothing dropped, in the first card run)
+MOE_LAYER_CHECK = dict(batch=4, seq=512, prototypes=64, noise=0.1, seed=7)
+
+
+def train_run(arch):
+    """The 6a run of ``arch``."""
+    return {TRAIN_ARCH: TRAIN_RUN, MOE_ARCH: MOE_RUN}.get(
+        arch) or RECURRENT_RUN[arch]
+
+
 
 
 def train_launches(cfg, microbatches):
@@ -3683,8 +3782,10 @@ def held_out_loss(model, cfg, batches):
 
 def model_flops(cfg, n_params, B, S):
     """Model operations of one training step, recompute not counted: 6
-    per parameter per token (the tied embedding once, as the unembedding)
-    and 12 hd per allowed (q, k) pair per q head per attention layer."""
+    per parameter per token (the tied embedding once, as the unembedding;
+    for an MoE the parameters a token reaches, ``param_counts()``'s
+    ``active``) and 12 hd per allowed (q, k) pair per q head per attention
+    layer."""
     n_attn = sum(k in ("attn", "local", "attn_dense")
                  for k in cfg.layer_kinds())
     pairs = B * allowed_pairs(S, S, 0)
@@ -3727,27 +3828,33 @@ def train_breakdown(cfg, model, opt, opt_state, batch, microbatches):
         grads = timed("backward", lambda: torch.autograd.grad(
             hidden, list(params.values()), dh, allow_unused=True,
             materialize_grads=True))
-    grads = {k: g.float() for k, g in zip(params, grads)}
+    # the optimizer takes the gradients in their own dtype and clips them
+    # leaf by leaf, as the step does
+    grads = dict(zip(params, grads))
     timed("optimizer", lambda: opt.update(grads, opt_state, params))
     per_step = {k: v * (1 if k == "optimizer" else microbatches)
                 for k, v in ms.items()}
     return dict(microbatch_ms=ms, step_ms=per_step)
 
 
-def train_phase(kernels, arch=TRAIN_ARCH, a=TRAIN_RUN):
-    """6a: ``launch.train`` on ``arch`` at full width and depth; the loss
-    must fall (the mean of the last ``LOSS_WINDOW`` steps below the
-    first's, and the held-out loss below the seeded weights'), each step
-    must launch exactly ``train_launches``' kernels and no plain
-    version; a ``train`` line with step times,
-    tokens/s, device busy and idle share of a profiled step, peak memory,
-    the loss curve, MFU and the step split into forward, backward, CE and
-    optimizer. Returns the launches of the run by kernel."""
+def train_phase(kernels, arch=TRAIN_ARCH, moe_layer=None):
+    """6a: ``launch.train`` on ``arch`` at full width and depth
+    (``train_run(arch)``); the loss must fall (the mean of the last
+    ``LOSS_WINDOW`` steps below the first's, and the held-out loss below
+    the seeded weights'), each step must launch exactly
+    ``train_launches``' kernels and no plain version; a ``train`` line
+    with step times, tokens/s, device busy and idle share of a profiled
+    step, peak memory, the loss curve, MFU, the optimizer the run used
+    and the step split into forward, backward, CE and optimizer; for an
+    MoE a ``moe`` line of one more step (``moe_train_line``, with the
+    expert products' times from ``moe_layer``, ``moe_layer_phase``'s).
+    Returns the launches of the run by kernel."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.launch import train as train_mod
     from repro_torch.models import transformer as tfm
 
+    a = train_run(arch)
     cfg = get_config(arch)
     mb = a["microbatches"]
     t_part = [time.perf_counter()]
@@ -3759,7 +3866,8 @@ def train_phase(kernels, arch=TRAIN_ARCH, a=TRAIN_RUN):
 
     argv = ["--arch", arch, "--steps", str(a["steps"]), "--batch",
             str(a["batch"]), "--seq", str(a["seq"]), "--microbatches",
-            str(mb), "--lr", str(a["lr"]), "--ckpt", ""]
+            str(mb), "--lr", str(a["lr"]), "--optimizer", a["optimizer"],
+            "--ckpt", ""]
     per_step = train_launches(cfg, mb)
     pipe = SyntheticTokenPipeline(cfg.vocab_size, a["batch"], a["seq"])
     held = [device_batch(pipe, s) for s in HELD_OUT_STEPS]
@@ -3790,36 +3898,50 @@ def train_phase(kernels, arch=TRAIN_ARCH, a=TRAIN_RUN):
         raise AssertionError(f"train {arch}: the loss did not fall: "
                              f"{losses}, held-out {held_before} -> "
                              f"{held_after}")
+    if run.optimizer != a["optimizer"]:
+        raise AssertionError(f"train {arch}: the run used {run.optimizer}, "
+                             f"not {a['optimizer']}")
     n_params = sum(p.numel() for p in run.model.parameters())
+    n_model = cfg.param_counts()["active"] if cfg.moe else n_params
     tokens = a["batch"] * a["seq"]
     steady = run.step_seconds[2:]
     step_s = statistics.median(steady)
 
     opt, step_fn = train_mod.build(cfg, run.model, lr=a["lr"],
                                    total_steps=a["steps"],
-                                   num_microbatches=mb)
+                                   num_microbatches=mb,
+                                   optimizer=run.optimizer)
     batch = device_batch(pipe, a["steps"])
     state = [run.state]
 
     def one_step():
-        state[0], _ = step_fn(state[0], batch)
+        state[0], m = step_fn(state[0], batch)
+        return m
 
     prof = profile_calls(arch, "train_step", one_step, 1, per_step,
                          profiled_n=1)
     lap("profile")
+    if cfg.moe:
+        moe_train_line(arch, cfg, one_step, a, moe_layer)
+        lap("moe")
     split = train_breakdown(cfg, run.model, opt, state[0][1], batch, mb)
     lap("breakdown")
-    flops = model_flops(cfg, n_params, a["batch"], a["seq"])
+    flops = model_flops(cfg, n_model, a["batch"], a["seq"])
     busy = prof["device_busy_ms_per_call"]
     log("train", json.dumps(dict(
         arch=arch, params=n_params, param_counts=cfg.param_counts(),
-        dtype=cfg.param_dtype, remat=cfg.remat, optimizer="adamw",
-        **a, tokens_per_step=tokens, wall_s=wall,
+        flops_params=n_model, dtype=cfg.param_dtype, remat=cfg.remat,
+        optimizer=run.optimizer,
+        **{k: v for k, v in a.items() if k != "optimizer"},
+        tokens_per_step=tokens, wall_s=wall,
         step_ms=[1e3 * t for t in run.step_seconds],
         step_ms_median=1e3 * step_s, tokens_per_s=tokens / step_s,
         device_busy_ms_per_step=busy, idle_share=prof["idle_share"],
         host_ms_profiled_step=prof["host_ms_per_call"],
-        peak_memory_gb=peak_gb, losses=losses, loss_window=w,
+        peak_memory_gb=peak_gb, optimizer_state_gb=sum(
+            t.numel() * t.element_size()
+            for t in _flat_state(state[0][1]).values()) / 1e9,
+        losses=losses, loss_window=w,
         first_mean=first, last_mean=last, held_out_steps=HELD_OUT_STEPS,
         held_out_loss_before=held_before, held_out_loss_after=held_after,
         launches_per_step=per_step,
@@ -3832,6 +3954,43 @@ def train_phase(kernels, arch=TRAIN_ARCH, a=TRAIN_RUN):
     del run, state, step_fn, opt
     torch.cuda.empty_cache()
     return {k: a["steps"] * v for k, v in per_step.items()}
+
+
+def moe_train_line(arch, cfg, one_step, a, layer):
+    """A ``moe`` line of one more training step: its MoE layers' drops
+    (the forward's dispatches; remat runs each layer again in the
+    backward), the step's aux loss, the operations the capacity buffers
+    execute (E C rows a layer) against the T k the assignments need, and
+    the expert products' device ms forward and backward: those of one
+    layer at this shape (``moe_layer_phase``), times the layers, the
+    forward taken twice under remat."""
+    with moe_recorded() as records:
+        m = one_step()
+    L = cfg.n_layers
+    if len(records) != L * (2 if cfg.remat else 1):
+        raise AssertionError(f"{arch}: {len(records)} MoE dispatches in a "
+                             f"step of {L} layers")
+    (stats,) = drop_stats(records[:L]).values()
+    T, k, E, C = (records[0][x] for x in ("T", "k", "E", "C"))
+    row_flops = 6 * 3 * cfg.d_model * cfg.d_ff
+    fwd = 2 if cfg.remat else 1
+    bmm = {}
+    if isinstance(layer.get("experts_bmm_fwd_ms"), float):
+        bmm = dict(
+            experts_bmm_ms_per_layer=dict(
+                forward=layer["experts_bmm_fwd_ms"],
+                backward=layer["experts_bmm_bwd_ms"]),
+            experts_bmm_ms_per_step=dict(
+                forward=L * fwd * layer["experts_bmm_fwd_ms"],
+                backward=L * layer["experts_bmm_bwd_ms"]))
+    log("moe", json.dumps(dict(
+        arch=arch, path="train_step", aux=float(m["aux"]),
+        capacity_factor=cfg.capacity_factor, batch=a["batch"], seq=a["seq"],
+        **stats, capacity_rows=E * C, assignment_rows=T * k,
+        expert_tflop_executed=L * E * C * row_flops / 1e12,
+        expert_tflop_assigned=L * T * k * row_flops / 1e12,
+        expert_ms_from="moe_layer_check at this shape, times the layers",
+        **bmm)))
 
 
 @contextlib.contextmanager
@@ -3856,21 +4015,111 @@ def plain_route():
         yield
 
 
+def moe_layer_names(model) -> dict:
+    """id of each MoE layer's router parameter -> the layer's name."""
+    from repro_torch.models.moe import MoE
+
+    return {id(m.router): name for name, m in model.named_modules()
+            if isinstance(m, MoE)}
+
+
+@contextlib.contextmanager
+def moe_routes_recorded(model):
+    """Record the top-k expert ids of each call of each MoE layer of
+    ``model`` (remat calls a layer again in the backward); yields them
+    by layer name."""
+    from repro_torch.models import moe
+
+    names, ids = moe_layer_names(model), {}
+    route = moe._route
+
+    def recorded(xt, router_w, cfg):
+        topw, topi, aux = route(xt, router_w, cfg)
+        ids.setdefault(names[id(router_w)], []).append(topi)
+        return topw, topi, aux
+
+    with mock.patch.object(moe, "_route", recorded):
+        yield ids
+
+
+def pairs_differ(a, b, E: int):
+    """(token, expert) pairs of the top-k ids ``a`` (T, k) that ``b``'s
+    do not hold, a device count."""
+    def hot(ids):
+        return torch.zeros(ids.shape[0], E, dtype=torch.bool,
+                           device=ids.device).scatter_(1, ids, True)
+    return (hot(a) & ~hot(b)).sum()
+
+
+@contextlib.contextmanager
+def moe_routes_pinned(model, ids):
+    """Each MoE layer of ``model`` routes its tokens to the experts of
+    its first call in ``ids`` (``moe_routes_recorded``), the weights
+    renormalised from its own router probabilities at those experts and
+    the aux loss from them, as ``moe._route`` computes both; yields, by
+    layer, the (token, expert) pairs of ``ids`` that the layer's own
+    top-k does not hold, at its first call."""
+    from repro_torch.models import moe
+
+    names, flips = moe_layer_names(model), {}
+
+    def pinned(xt, router_w, cfg):
+        name = names[id(router_w)]
+        pin = ids[name][0]
+        T, k, E = xt.shape[0], cfg.top_k, cfg.n_experts
+        with moe.no_tf32():
+            logits = xt.float() @ router_w.float()
+        probs = torch.softmax(logits, dim=-1)
+        if name not in flips:   # outside autograd: remat's recompute
+            flips[name] = pairs_differ(   # must save what the first saved
+                pin, torch.topk(probs.detach(), k, dim=-1).indices, E)
+        topw = probs.gather(-1, pin)
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+        fe = moe._counts(pin, E).float() / (T * k)
+        return topw, pin, E * torch.sum(fe * probs.mean(dim=0))
+
+    with mock.patch.object(moe, "_route", pinned):
+        yield flips
+
+
+def route_line(cfg, routes, flips):
+    """What 6b logs of an MoE's routes: the kernel route's assignments,
+    the pairs the plain route's own top-k flipped (by layer and in all),
+    and the calls of each layer, remat's second of which must route as
+    its first."""
+    by_layer = {n: int(v) for n, v in flips.items()}
+    first = next(iter(routes.values()))[0]
+    if not all(torch.equal(c, calls[0]) for calls in routes.values()
+               for c in calls[1:]):
+        raise AssertionError("train step check: remat's second call of an "
+                             "MoE layer routed otherwise than its first")
+    return dict(layers=len(routes), assignments_per_layer=first.numel(),
+                flipped_pairs=sum(by_layer.values()),
+                flipped_pairs_by_layer=by_layer,
+                calls_per_layer=[len(c) for c in routes.values()],
+                pinned="plain route's experts set to the kernel route's")
+
+
 def step_check_phase(kernels, arch=TRAIN_ARCH):
-    """6b: one AdamW step of ``arch`` at full width and
-    ``STEP_CHECK_LAYERS`` layers, float32, through the kernels and
+    """6b: one step of ``arch`` at full width and ``STEP_CHECK_LAYERS``
+    layers, float32, with its 6a run's optimizer, through the kernels and
     through the plain versions (``plain_route``: autograd through them),
     on the same weights and batch: the loss, every gradient leaf and the
     updated parameters agree within the stated bars; for Qwen2-1.5B also
     the gradients of the step in bf16 through the kernels
-    (``step_check_bf16``). Returns the kernels' launches."""
+    (``step_check_bf16``). An MoE's plain route takes the kernel route's
+    experts (``moe_routes_pinned``): a token whose top-k the two routes'
+    float32 differences flip would send its gradient to other experts;
+    the flipped (token, expert) pairs are counted first. Returns the
+    kernels' launches."""
     import copy
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.models import transformer as tfm
     from repro_torch.train import optimizer as optim
-    from repro_torch.train.trainer import trainable_params, value_and_grad
+    from repro_torch.train.trainer import (stacked_leaves, trainable_params,
+                                           value_and_grad)
 
     c = STEP_CHECK
     t_part = [time.perf_counter()]
@@ -3888,11 +4137,15 @@ def step_check_phase(kernels, arch=TRAIN_ARCH):
     plain_model = copy.deepcopy(model)
     batch = device_batch(SyntheticTokenPipeline(cfg.vocab_size, c["batch"],
                                                 c["seq"]), 0)
-    opt = optim.adamw(optim.cosine_schedule(c["lr"], 0, 10))
+    sched = optim.cosine_schedule(c["lr"], 0, 10)
+    optimizer = train_run(arch)["optimizer"]
+    opt = (optim.adafactor(sched, stacks=stacked_leaves(model))
+           if optimizer == "adafactor" else optim.adamw(sched))
     pk, pp = trainable_params(model), trainable_params(plain_model)
     sk, sp = opt.init(pk), opt.init(pp)
     lap("setup")
-    with plain_calls_counted() as plain:
+    with plain_calls_counted() as plain, \
+            moe_routes_recorded(model) as routes:
         kernels.reset_launch_counts()
         (lk, _), gk = value_and_grad(model, batch, cfg)
         torch.cuda.synchronize()
@@ -3901,10 +4154,11 @@ def step_check_phase(kernels, arch=TRAIN_ARCH):
     check_launches(f"train step check {arch} (kernels)", counts,
                    train_launches(cfg, 1), plain)
     kernels.reset_launch_counts()
-    with plain_route():
+    with plain_route(), moe_routes_pinned(plain_model, routes) as flips:
         (lp, _), gp = value_and_grad(plain_model, batch, cfg)
         torch.cuda.synchronize()
     lap("plain")
+    route = route_line(cfg, routes, flips) if cfg.moe else None
     check_launches(f"train step check {arch} (plain)",
                    kernels.launch_counts(), {}, {})
     loss_err = abs(float(lk) - float(lp))
@@ -3940,6 +4194,7 @@ def step_check_phase(kernels, arch=TRAIN_ARCH):
     log("train_step_check", json.dumps(dict(
         arch=arch, layers=layers, layer_kinds=list(cfg.layer_kinds()),
         dtype="float32", batch=c["batch"], seq=c["seq"], lr=lr,
+        optimizer=optimizer, moe_routes=route,
         loss_kernels=float(lk), loss_plain=float(lp), loss_abs_err=loss_err,
         grad_rel_err_max=grad_rel[worst_leaf], grad_worst_leaf=worst_leaf,
         grad_leaves=len(grad_rel), param_abs_err_max=worst,
@@ -3995,12 +4250,146 @@ def step_check_bf16(kernels, cfg, model, batch, want):
     return line
 
 
-def resume_phase(kernels):
+class PlainDispatch:
+    """The capacity dispatch's gather under autograd's own backward (an
+    accumulating ``index_put_``), in place of ``moe._Dispatch``."""
+
+    @staticmethod
+    def apply(xt, src_t, filled, keep, slot, k):
+        return torch.where(filled[..., None], xt[src_t], 0)
+
+
+def moe_layer_phase():
+    """The MoE layer's determinism check: one full-width Qwen1.5-MoE-A2.7B
+    layer, bf16, seeded weights and input (``MOE_LAYER_CHECK``) at the 6a
+    run's T (4 x 512) and its capacity factor, which must drop
+    assignments: the gradients of x, the
+    router, the experts and the shared experts from two backwards must
+    be equal bit for bit; the same with autograd's gather backward in
+    place of ``moe._Dispatch`` is logged, not held. A ``moe_layer_check``
+    line with the drops and, from ``torch.profiler``, the layer's device
+    ms forward and backward and its expert products' (``aten::bmm``)
+    share of each. Returns the line."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_tensor
+    from repro_torch.train.trainer import AUX_COEF
+
+    c = MOE_LAYER_CHECK
+    cfg = get_config(MOE_ARCH)
+    dt = torch.bfloat16
+    gen = torch.Generator(DEVICE).manual_seed(c["seed"])
+    layer = moe.MoE(cfg, device=DEVICE, dtype=dt)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(init_tensor(tuple(p.shape), p.init, p.init_scale, gen,
+                                dt))
+    layer.requires_grad_(True)
+    shape = (c["batch"], c["seq"], cfg.d_model)
+    protos = torch.randn((c["prototypes"], cfg.d_model), generator=gen,
+                         device=DEVICE)
+    which = torch.randint(0, c["prototypes"], shape[:2], generator=gen,
+                          device=DEVICE)
+    x = (protos[which] + c["noise"] * torch.randn(
+        shape, generator=gen, device=DEVICE)).to(dt)
+    cot = torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+    names = ["x"] + [n for n, _ in layer.named_parameters()]
+    aux_cot = torch.tensor(AUX_COEF, device=DEVICE)
+
+    def grads():
+        xl = x.clone().requires_grad_(True)
+        with record_function("moe_layer_forward"):
+            out, aux = moe.moe_apply(layer, xl, cfg)
+        return dict(zip(names, torch.autograd.grad(
+            [out, aux], [xl] + list(layer.parameters()), [cot, aux_cot])))
+
+    with moe_recorded() as records:
+        first = grads()
+    second = grads()
+    (stats,) = drop_stats(records).values()
+    differ = [n for n in names if not torch.equal(first[n], second[n])]
+    with mock.patch.object(moe, "_Dispatch", PlainDispatch):
+        plain = [grads()["x"] for _ in range(2)]
+    plain_equal = torch.equal(*plain)
+    plain_vs_ours = float((plain[0].float() - first["x"].float()).abs().max())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads()
+        torch.cuda.synchronize()
+    line = dict(arch=MOE_ARCH, dtype="bfloat16", batch=c["batch"],
+                seq=c["seq"], capacity_factor=cfg.capacity_factor, **stats,
+                grads=len(names), bitwise_equal=not differ, differ=differ,
+                autograd_gather_x_bitwise=plain_equal,
+                autograd_gather_x_vs_ours_max_abs=plain_vs_ours,
+                **layer_device_ms(prof))
+    log("moe_layer_check", json.dumps(line))
+    if not stats["dropped"]:
+        raise AssertionError("moe layer check: nothing dropped at capacity "
+                             f"factor {cfg.capacity_factor}")
+    if differ:
+        raise AssertionError(f"moe layer check: two backwards differ in "
+                             f"{differ}")
+    del layer, first, second, plain
+    torch.cuda.empty_cache()
+    return line
+
+
+def layer_device_ms(prof) -> dict:
+    """Device ms of a profiled forward and backward: the forward (its
+    ``moe_layer_forward`` range), the backward (the rest), the expert
+    products (``aten::bmm``) in each, those the autograd engine ran
+    counted as the backward's, and the largest CUDA kernels."""
+    events = prof.events()
+
+    def in_backward(ev):
+        while ev is not None:
+            if ev.name.startswith("autograd::engine::evaluate_function"):
+                return True
+            ev = ev.cpu_parent
+        return False
+
+    cpu = torch.autograd.DeviceType.CPU
+    fwd = sum(ev.device_time_total for ev in events
+              if ev.name == "moe_layer_forward" and ev.device_type == cpu)
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        # the forward's range shows on the device's timeline too, as an
+        # annotation spanning its kernels: not counted again
+        if (ev.device_type() == torch.autograd.DeviceType.CUDA
+                and not ev.name().startswith("[")
+                and ev.name() != "moe_layer_forward"
+                and not ev.is_hidden_event()):
+            key = ev.name()[:60]
+            by_name[key] = by_name.get(key, 0) + (ev.end_ns()
+                                                  - ev.start_ns()) / 1e3
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    bmm = [ev for ev in events if ev.name == "aten::bmm"
+           and ev.device_type == cpu]
+    bwd_bmm = sum(ev.device_time_total for ev in bmm if in_backward(ev))
+    fwd_bmm = sum(ev.device_time_total for ev in bmm) - bwd_bmm
+    if not (fwd and total):
+        return dict(layer_ms="not measured")
+    return dict(layer_fwd_ms=fwd / 1e3, layer_bwd_ms=(total - fwd) / 1e3,
+                experts_bmm_fwd_ms=fwd_bmm / 1e3,
+                experts_bmm_bwd_ms=bwd_bmm / 1e3,
+                experts_bmm_calls=dict(
+                    forward=sum(not in_backward(ev) for ev in bmm),
+                    backward=sum(in_backward(ev) for ev in bmm)),
+                top_kernels_ms={k: v / 1e3 for k, v in top})
+
+
+def resume_phase(kernels, arch=TRAIN_ARCH):
     """6c: a run stopped by a failure at step ``fail_at`` and resumed from
     its checkpoint equals the uninterrupted run bit for bit, in every
-    parameter, moment, error-feedback leaf and the step: the reference's
+    parameter, optimizer state leaf (AdamW's moments, Adafactor's
+    factored moments), error-feedback leaf and the step: the reference's
     contract in ``test_train_controller_resume_after_failure``, at 2
-    layers of full width with int8 gradient compression."""
+    layers of full width (``RESUME``), with ``RESUME_RUN[arch]``'s
+    optimizer and gradient compression."""
     import os
 
     from repro_torch.checkpoint.ckpt import CheckpointManager, latest_step
@@ -4012,18 +4401,20 @@ def resume_phase(kernels):
     from repro_torch.models import transformer as tfm
     from repro_torch.train.trainer import trainable_params
 
-    r = RESUME
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=r["layers"],
+    r, how = RESUME, RESUME_RUN[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=r["layers"],
                               vocab_size=r["vocab"])
     pipe = SyntheticTokenPipeline(cfg.vocab_size, r["batch"], r["seq"])
 
     def fresh():
         model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
                                DEVICE)
-        opt, step_fn = train_mod.build(cfg, model, compress=True,
-                                       lr=r["lr"], total_steps=r["steps"])
+        opt, step_fn = train_mod.build(cfg, model, compress=how["compress"],
+                                       lr=r["lr"], total_steps=r["steps"],
+                                       optimizer=how["optimizer"])
         params = trainable_params(model)
-        return step_fn, (params, opt.init(params), init_error_state(params))
+        err = init_error_state(params) if how["compress"] else ()
+        return step_fn, (params, opt.init(params), err)
 
     class Failure(RuntimeError):
         pass
@@ -4078,7 +4469,8 @@ def resume_phase(kernels):
                              f"the uninterrupted one in {differ[:5]} "
                              f"({len(differ)} leaves)")
     log("train_resume", json.dumps(dict(
-        arch=TRAIN_ARCH, **r, dtype=cfg.param_dtype, compress_grads=True,
+        arch=arch, **r, dtype=cfg.param_dtype, optimizer=how["optimizer"],
+        compress_grads=how["compress"],
         leaves=len(want), elements=sum(t.numel() for t in want.values()),
         bitwise_equal=True, final_step=step_b, resumed_from=saved,
         **times)))
@@ -4267,9 +4659,15 @@ def main() -> int:
     timed("6c resume", resume_phase, kernels)
     for arch in RECURRENT_ARCHS:
         train_counts[arch] = timed(f"6a train {arch}", train_phase, kernels,
-                                   arch, RECURRENT_RUN[arch])
+                                   arch)
         step_counts[arch] = timed(f"6b step check {arch}", step_check_phase,
                                   kernels, arch)
+    moe_layer = timed("6 moe layer check", moe_layer_phase)
+    train_counts[MOE_ARCH] = timed(f"6a train {MOE_ARCH}", train_phase,
+                                   kernels, MOE_ARCH, moe_layer)
+    step_counts[MOE_ARCH] = timed(f"6b step check {MOE_ARCH}",
+                                  step_check_phase, kernels, MOE_ARCH)
+    timed(f"6c resume {MOE_ARCH}", resume_phase, kernels, MOE_ARCH)
     for arch in train_counts:
         for path, counts in (("train", train_counts[arch]),
                              ("train_step_check", step_counts[arch])):

@@ -13,10 +13,18 @@ repeatable on the card:
   (``jnp.argsort`` is stable; ``torch.argsort`` is only when told), so
   the same assignments overflow the capacity and drop as in the
   reference.
-- No atomics: the combine gathers each assignment's row and adds a
-  token's k rows in order, in the output dtype; the reference's
-  ``out.at[t].add`` is a scatter-add whose order a CUDA ``index_add_``
-  would vary from run to run.
+- No atomics, forward or backward: the combine gathers each
+  assignment's row and adds a token's k rows in order, in the output
+  dtype; the reference's ``out.at[t].add`` is a scatter-add whose order
+  a CUDA ``index_add_`` would vary from run to run. The capacity
+  dispatch gathers each token into its k slots (``_Dispatch``), and
+  autograd's backward of that gather would add a token's k slot
+  gradients by an accumulating ``index_put_``, in any order on CUDA; its
+  backward is the mirror of the combine instead: each token gathers its
+  kept slots' gradients and adds them in order j = 0..k-1. So a training
+  step, and a run resumed from a checkpoint, repeat bit for bit. The
+  ragged path (``_dispatch_ffn``, not the default) keeps autograd's
+  backward of its gather and scatter.
 - Router logits are float32 products with TF32 off, since a logit that
   moves changes the top-k experts.
 
@@ -108,15 +116,41 @@ def _assignments(topi, topw, k, e_lo: int, e_n: int):
     return eid, topw.reshape(A), flat_t, is_local
 
 
-def _combine(rows, w, T: int, k: int):
-    """out[t] = sum_j rows[t k + j] w[t k + j], added in order j = 0..k-1
-    in the rows' dtype (the reference's scatter-add, without atomics);
-    the weights are cast to that dtype before they multiply."""
-    g = (rows * w[:, None].to(rows.dtype)).reshape(T, k, -1)
+def _sum_in_order(rows, k: int):
+    """out[t] = sum_j rows[t k + j], added in order j = 0..k-1."""
+    g = rows.reshape(rows.shape[0] // k, k, -1)
     out = g[:, 0]
     for j in range(1, k):
         out = out + g[:, j]
     return out
+
+
+def _combine(rows, w, T: int, k: int):
+    """out[t] = sum_j rows[t k + j] w[t k + j], added in order j = 0..k-1
+    in the rows' dtype (the reference's scatter-add, without atomics);
+    the weights are cast to that dtype before they multiply."""
+    return _sum_in_order(rows * w[:, None].to(rows.dtype), k)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The capacity buffer xb[e, c] = xt[src_t[e, c]] where ``filled``,
+    else 0, with a backward that adds no two rows at once: dxt[t] =
+    sum_j keep[t k + j] dxb[slot[t k + j]], in order j = 0..k-1 (each
+    kept assignment fills exactly its slot ``slot = e C + pos``)."""
+
+    @staticmethod
+    def forward(ctx, xt, src_t, filled, keep, slot, k):
+        ctx.save_for_backward(keep, slot)
+        ctx.k = k
+        return torch.where(filled[..., None], xt[src_t], 0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dxb):
+        keep, slot = ctx.saved_tensors
+        rows = dxb.reshape(-1, dxb.shape[-1])[slot]
+        rows = torch.where(keep[:, None], rows, 0)
+        return _sum_in_order(rows, ctx.k), None, None, None, None, None
 
 
 def _expert_ffn(x, wg, wu, wd, mm):
@@ -188,9 +222,9 @@ def _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo: int,
     src = starts[:e_n, None] + c
     filled = c < counts[:e_n, None]
     take = order[src.clamp(max=A - 1)]
-    xb = torch.where(filled[..., None], xt[flat_t[take]], 0)   # (E,C,D)
-    down = _expert_ffn(xb, wg, wu, wd, torch.bmm).reshape(e_n * C, D)
     slot = (eid * C + pos).clamp(0, e_n * C - 1)
+    xb = _Dispatch.apply(xt, flat_t[take], filled, keep, slot, k)  # (E,C,D)
+    down = _expert_ffn(xb, wg, wu, wd, torch.bmm).reshape(e_n * C, D)
     rows = torch.where(keep[:, None], down[slot], 0)
     return _combine(rows, flat_w, T, k)
 

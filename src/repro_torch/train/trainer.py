@@ -3,7 +3,9 @@ the chunked cross-entropy and the optimizer update. Counterpart of
 ``repro/train/trainer.py`` without a mesh.
 
 The parameters are the model's own (``trainable_params``: every
-parameter of the ``Transformer``, turned trainable, by its module name).
+parameter of the ``Transformer``, turned trainable, by its module name);
+``stacked_leaves`` names the ones the reference stacks into one leaf,
+which Adafactor needs.
 ``make_train_step(cfg, ctx, opt, num_microbatches)`` returns
 ``train_step(model, opt_state, batch) -> (model, opt_state, metrics)``:
 the reference's step with the model in place of its parameter tree,
@@ -28,6 +30,19 @@ def trainable_params(model) -> dict:
     """The model's parameters by module name, each requiring grad."""
     model.requires_grad_(True)
     return dict(model.named_parameters())
+
+
+def stacked_leaves(model) -> list:
+    """The leaves the reference stacks, as tuples of the model's
+    parameter names in layer order: one for each leaf of each block of a
+    layer group that repeats (``Adafactor``'s ``stacks``)."""
+    out = []
+    for _, kinds, reps, idx in tfm.group_layers(model.cfg):
+        if reps > 1:
+            for i in range(len(kinds)):
+                out += [tuple(f"layers.{row[i]}.{n}" for row in idx)
+                        for n, _ in model.layers[idx[0][i]].named_parameters()]
+    return out
 
 
 def loss_fn(model, batch, cfg, ctx=None):
