@@ -33,11 +33,17 @@ from repro_torch.device import resolve_device
 # the grid, the band, the host methods' samples and every sample's split
 # layer and feasibility bit equal; the power of a BO method's sample
 # within BO_POWER_TOL, PPO's (on the reference's draws) within
-# table1_torch.PPO_POWER_TOL. Measured on the CPU: Basic-BO's powers lie
-# up to 4.2e-5 W from the reference's (its refined candidate differs in
-# the last float32 bits, which moves the next acquisition's optimum
-# slightly), Bayes-Split-Edge's 7.5e-8 W, PPO's 6.0e-8 W
+# table1_torch.PPO_POWER_TOL. Measured on the CPU: Bayes-Split-Edge's
+# powers lie 7.5e-8 W from the reference's, PPO's 6.0e-8 W. Basic-BO's
+# refined candidate differs in its last float32 bits from sample 11 on
+# (4.2e-7 W), which moves the next acquisitions' optima: its powers lay
+# up to 4.2e-5 W off on one CPU and 1.24e-3 W on another (an AMD EPYC),
+# every split layer and feasibility bit equal. So on the CPU as on the
+# card (``on_card``) Basic-BO is held at parity level 3 (``level3``):
+# each sample's split layer and feasibility bit equal, its power not
+# held; its incumbent trace is held within one quantum by Fig 6.
 BO_POWER_TOL = 1e-4
+CPU_LEVEL3 = ("Basic-BO",)
 TOL = {r"^/samples/(Bayes-Split-Edge|Basic-BO)/\*/p$": BO_POWER_TOL,
        r"^/samples/RL \(PPO\)/\*/p$": t1.PPO_POWER_TOL}
 
@@ -88,15 +94,23 @@ def answers(out: dict) -> dict:
     return t1.normalized(out)
 
 
-def mismatches(got: dict, want: dict, on_card: bool = False) -> list:
+def mismatches(got: dict, want: dict, on_card: bool = False,
+               level3: tuple = ()) -> list:
     """The paths of ``answers`` not held to the reference's by ``TOL``
     (every other number equal). ``on_card``: of the methods in
     ``fig6_convergence_torch.CARD_LEVEL3``, which leave the reference's
     path on the card, only the number of samples is held (their runs are
-    held at parity level 3 by Fig 6 and Table 1)."""
+    held at parity level 3 by Fig 6 and Table 1). ``level3``: of these
+    methods each sample's split layer and feasibility bit are held, not
+    its power (``CPU_LEVEL3``)."""
     if on_card:
         got, want = (dict(a, samples={
             name: len(v) if name in CARD_LEVEL3 else v
+            for name, v in a["samples"].items()}) for a in (got, want))
+    if level3:
+        got, want = (dict(a, samples={
+            name: ([dict(l=x["l"], feasible=x["feasible"]) for x in v]
+                   if name in level3 and isinstance(v, list) else v)
             for name, v in a["samples"].items()}) for a in (got, want))
     return t1.differences(got, want, TOL)
 

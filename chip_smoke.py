@@ -5,7 +5,8 @@
 
 (``python3 chip_smoke.py --bo-group G OUT.json`` runs one group of phases
 4b-4f alone and writes its launches to OUT.json: the script starts one
-such process for each group.)
+such process for each group. ``--mesh-rank R W PORT DIR`` and
+``--mesh-nccl PORT DIR`` are phase 7's rank processes, which it starts.)
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -181,7 +182,9 @@ Phases, each of which raises on failure (non-zero exit):
    at a capacity factor under which nothing drops, and says so; a
    ``moe_route_flips`` line counts the routed (token, expert) pairs that
    differ between the bf16 and the float32 checks, and within each
-   between the prefill or decode step and the full forward;
+   between the prefill or decode step and the full forward; the greedy
+   run's tokens and logits, and the float32 copy's logits on those
+   tokens, are kept for phase 7 (``GENERATED``);
 6. training, Qwen2-1.5B (``TRAIN_ARCH``): (a) ``launch.train`` at full
    width and depth, bf16, remat, AdamW (every optimizer clips the
    gradients leaf by leaf), B 4 x S 512 in 2 microbatches,
@@ -227,12 +230,35 @@ Phases, each of which raises on failure (non-zero exit):
    experts pinned to the kernel route's after the flipped (token,
    expert) pairs are counted; (c) as 6c with Adafactor and no
    compression, every parameter and factored moment bit for bit.
+7. the mesh, ranks as processes sharing the one card (no multi-GPU
+   figure): ``MESH_RANKS`` gloo ranks and one NCCL process of world size
+   1, started together, each printing ``mesh`` lines (backend, ranks,
+   collectives by kind, bytes and bytes staged through the host, wall
+   time); (a) 4b's grid (warm) and hetero mix (cold) over a ``("scen",)``
+   mesh, each rank its contiguous shard, held to 4b's results at the
+   reference's bars (evaluations and best accuracy equal, incumbent
+   traces within WARM_TRACE_TOL; bit for bit logged), each rank's
+   posterior launches one an acquisition iteration, and the NCCL mesh
+   of one rank equal to 4b bit for bit; (b) ``MESH_RUNS`` served over a
+   (data 1, model 2) mesh at full width, bf16, each rank building its
+   shards from phase 5's seed one rank after another: Qwen1.5-MoE-A2.7B
+   in its own ``"tensor"`` mode and (2 layers, against a 1-rank run of
+   those 2 layers made here) in ``"expert"`` mode, Qwen2-1.5B,
+   RecurrentGemma-2B (its KV ring split over the ranks, decode merged
+   by log-sum-exp) and RWKV6-3B: ``greedy_generate`` on phase 5's
+   prompt, each rank's launches those of a 1-rank run, its tokens
+   compared with phase 5's, and on phase 5's tokens its logits within
+   ``TP_ERR_FACTOR`` times the 1-rank bf16 run's own error against the
+   float32 copy, any other token choice a tie (``TP_TIE_FACTOR``).
+   Phase 2 also holds ``decode_attention`` with its log-sum-exp
+   (``DECODE_LSE_SHAPES``) against the plain version.
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
 each figure of 4f, the executor run of 4g, each model's split,
 serving and generation runs, and each training run and step check of
-phase 6) and read just after:
+phase 6, and each rank's whole run and generation of phase 7) and read
+just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
 kernel never, and the plain versions never. In phases 3, 4, 4b-4g
@@ -353,6 +379,9 @@ DECODE_SHAPES = [
     # RecurrentGemma-2B's local layers in decoding (ring of 1024 slots)
     ("recurrentgemma_decode", 2, 1024, 543, 543, 2048, torch.bfloat16, 10,
      1, 256),
+    # ... and one rank's half of that ring in phase 7b (model 2)
+    ("recurrentgemma_slice", 2, 512, 543, 543, 2048, torch.bfloat16, 10, 1,
+     256),
     # Qwen1.5-MoE-A2.7B's decoding, and Kimi K2's heads
     ("moe_decode", 2, 1024, 543, 543, 0, torch.bfloat16, *MOE.values()),
     ("kimi_decode", 1, 1024, 543, 543, 0, torch.bfloat16, *KIMI.values()),
@@ -366,6 +395,16 @@ DECODE_SHAPES = [
     ("no_allowed_slot", 1, 256, 100, -1, 0, torch.bfloat16, 12, 2, 128),
 ]
 DECODE_MAIN = "decode"
+# decode_attention with its log-sum-exp output (return_lse): the main
+# path's shape is RecurrentGemma-2B's local layer in phase 7b, whose ring
+# of 1024 slots splits over the 2 ranks of ``model`` (512 slots each);
+# the output must equal the call without it bit for bit, the log-sum-exp
+# the plain version's within DECODE_LSE_ATOL (natural log, float32 sums
+# in another order)
+DECODE_LSE_SHAPES = ("recurrentgemma_slice", "decode", "case2",
+                     "no_allowed_slot")
+DECODE_LSE_MAIN = "recurrentgemma_slice"
+DECODE_LSE_ATOL = 1e-4
 DEVICE = "cuda"
 # rglru_scan: (name, B, S, R, dtype); RecurrentGemma-2B's R is 2560
 RGLRU_SHAPES = [
@@ -1080,6 +1119,20 @@ def syncs_counted():
             seen["n"] = sum("synchroniz" in str(w.message) for w in caught)
 
 
+# the 4b runs that phase 7a shards (each run's plain_results): "grid",
+# warm and compacted, and "hetero", cold and compacted
+WHOLERUN_RESULTS = {}
+RESULT_FIELDS = ("n_evals", "best_accuracy", "best_utility", "utilities",
+                 "incumbent_trace", "feasible")
+
+
+def plain_results(results) -> list:
+    """Each BOResult's numbers, JSON-ready (best_a as a list or None)."""
+    return [dict({f: getattr(r, f) for f in RESULT_FIELDS},
+                 best_a=None if r.best_a is None else
+                 [float(x) for x in r.best_a]) for r in results]
+
+
 def answers(results) -> dict:
     return dict(best_accuracy=[r.best_accuracy for r in results],
                 feasible=[r.best_a is not None for r in results],
@@ -1216,6 +1269,7 @@ def wholerun_phase(core, kernels):
     # the grid, warm and compacted (the defaults): the main path
     scs = batched_scenarios(core)
     _, res, counts = wholerun_run(core, kernels, "grid", scs, None)
+    WHOLERUN_RESULTS["grid"] = plain_results(res)
     accs = [r.best_accuracy for r in res]
     feas = [r.best_a is not None for r in res]
     if accs != expect or feas != [a > 0 for a in expect]:
@@ -1247,6 +1301,8 @@ def wholerun_phase(core, kernels):
                 core, kernels, f"{name} cold packed", mk(),
                 EngineConfig(warm_start=False, pack=True))
         eng, res, _ = runs["compacted"]
+        if name in MESH_WHOLERUN:
+            WHOLERUN_RESULTS[name] = plain_results(res)
         got = answers(res)
         lane_log = eng.lane_stats()["lane_log"]
         log("wholerun_answers", json.dumps(dict(
@@ -2000,7 +2056,8 @@ def bo_child(group: str, out: str) -> int:
     by_path = bo_group(group, core, kernels)
     Path(out).write_text(json.dumps(dict(
         by_path=by_path, seconds=time.perf_counter() - t0,
-        shapes=[[list(k), n] for k, n in LAUNCHED_SHAPES.items()])))
+        shapes=[[list(k), n] for k, n in LAUNCHED_SHAPES.items()],
+        wholerun=WHOLERUN_RESULTS)))
     return 0
 
 
@@ -2042,6 +2099,7 @@ def bo_phases(seconds: dict) -> dict:
                 continue
             got = json.loads(res.read_text())
             by_path.update(got["by_path"])
+            WHOLERUN_RESULTS.update(got["wholerun"])
             seconds[g] = got["seconds"]
             for shape, n in got["shapes"]:
                 LAUNCHED_SHAPES[tuple(shape)] = (
@@ -2516,6 +2574,76 @@ def decode_phase(kernels):
                    plain_ms=ms["plain"], library_ms=ms["library"],
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
         log("decode_attention", json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def decode_lse_phase(kernels, decode_rows):
+    """``decode_attention`` with ``return_lse`` at DECODE_LSE_SHAPES: its
+    output equal to the call without the log-sum-exp bit for bit, twice
+    bit for bit; the log-sum-exp against the plain version's and the
+    plain emulation of the splits'; timed warm and cold beside the call
+    without it. No PyTorch call returns the log-sum-exp: library_ms is
+    None."""
+    from repro_torch.kernels.decode_attention.ops import decode_splits
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_split_ref)
+
+    rows = []
+    by_name = {r["name"]: r for r in decode_rows}
+    for name, B, T, last, qp, window, dtype, Hq, Hkv, hd in DECODE_SHAPES:
+        if name not in DECODE_LSE_SHAPES:
+            continue
+        args = decode_inputs(B, T, last, qp, Hq, Hkv, hd, dtype, seed=T + hd)
+        o, lse = kernels.decode_attention(*args, window=window,
+                                          return_lse=True)
+        o2, lse2 = kernels.decode_attention(*args, window=window,
+                                            return_lse=True)
+        plain = kernels.decode_attention(*args, window=window)
+        ref_o, ref_lse = kernels.decode_attention_ref(
+            *args, window=window, return_lse=True)
+        n_split, chunk = decode_splits(B, Hkv, T)
+        _, emu_lse = decode_attention_split_ref(
+            *args, window=window, n_split=n_split, chunk=chunk,
+            return_lse=True)
+        torch.cuda.synchronize()
+        err = check_close("decode_attention lse", name, o, ref_o, dtype)
+        if not (torch.equal(o, plain) and torch.equal(o, o2)
+                and torch.equal(lse, lse2)):
+            raise AssertionError(f"decode_attention with lse at {name}: "
+                                 "its output is not the call's without "
+                                 "it, or does not repeat, bit for bit")
+        finite = ref_lse > -1e29           # a row with an allowed slot
+        lse_err = float((lse - ref_lse)[finite].abs().max()
+                        if finite.any() else 0.0)
+        emu_err = float((lse - emu_lse)[finite].abs().max()
+                        if finite.any() else 0.0)
+        if (lse_err > DECODE_LSE_ATOL or emu_err > DECODE_LSE_ATOL
+                or not torch.equal(lse <= -1e29, ~finite)):
+            raise AssertionError(f"decode_attention lse at {name}: err "
+                                 f"{lse_err} (emulation {emu_err}) > "
+                                 f"{DECODE_LSE_ATOL}")
+        ms = median_ms(dict(
+            plain=lambda: kernels.decode_attention_ref(
+                *args, window=window, return_lse=True),
+            kernel=lambda: kernels.decode_attention(
+                *args, window=window, return_lse=True)), ())
+        ms_cold = cold_ms(lambda *a: kernels.decode_attention(
+            *a, window=window, return_lse=True), cold_copies(args))
+        base = by_name[name]
+        # the call without it, plus 4 bytes a (row, q head) written
+        bound_ms, bound_by, terms = attn_bound(
+            base["bound_terms"]["bytes_ms"] * 1e-3 * PEAK_BYTES_PER_S
+            + 4 * B * Hq, base["allowed_slots"], hd, Hq, dtype)
+        row = dict(name=name, B=B, T=T, Hq=Hq, Hkv=Hkv, hd=hd, window=window,
+                   dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                   lse_max_abs_err=lse_err, lse_emulation_max_abs_err=emu_err,
+                   ms=ms["kernel"], ms_cold=ms_cold,
+                   ms_without_lse=base["ms"],
+                   ms_cold_without_lse=base["ms_cold"],
+                   plain_ms=ms["plain"], library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms)
+        log("decode_attention_lse", json.dumps(row))
         rows.append(row)
     return rows
 
@@ -3110,24 +3238,79 @@ def serve_phase(kernels, run, cfg):
     return counts
 
 
+# each phase-5 greedy run's tokens (B, GEN_NEW) and logits (B, GEN_NEW,
+# Vp), on the host: what phase 7b's tensor-parallel runs are held to
+GENERATED = {}
+
+
+def gen_prompt(cfg):
+    """Phase 5's prompt (GEN_BATCH, GEN_PROMPT), drawn from seed 1."""
+    rng = np.random.default_rng(1)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (GEN_BATCH, GEN_PROMPT)),
+                           dtype=torch.int32, device=DEVICE)
+
+
+@contextlib.contextmanager
+def logits_recorded():
+    """Each ``transformer.logits_fn`` call's logits at the last position
+    (B, Vp), appended to the yielded list as the serving steps take
+    them."""
+    from repro_torch.models import transformer as tfm
+
+    rec, fn = [], tfm.logits_fn
+
+    def recorded(model, hidden):
+        out = fn(model, hidden)
+        rec.append(out[:, -1])
+        return out
+
+    with mock.patch.object(tfm, "logits_fn", recorded):
+        yield rec
+
+
+def forced_logits(model, cfg, tokens, ctx=None):
+    """The logits (B, GEN_NEW, Vp) of phase 5's prefill and its
+    GEN_NEW - 1 decode steps through the serving steps (under ``ctx``
+    too), each decode step fed the token of ``tokens`` (B, GEN_NEW) at
+    its position (teacher forcing), so two models' logits compare step
+    by step on the same inputs."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve as rserve
+
+    prompt = gen_prompt(cfg)
+    cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
+                           device=DEVICE, ctx=ctx)
+    tokens = tokens.to(DEVICE)
+    if ctx is not None:
+        prompt = ctx.local(prompt, ("batch", None))
+        tokens = ctx.local(tokens, ("batch", None))
+    prefill = rserve.make_prefill_step(cfg, ctx)
+    decode = rserve.make_decode_step(cfg, ctx)
+    with logits_recorded() as rec:
+        prefill(model, dict(tokens=prompt), cache)
+        for j in range(GEN_NEW - 1):
+            decode(model, tokens[:, j:j + 1], cache, GEN_PROMPT + j)
+    return torch.stack(rec, 1)
+
+
 def generate_phase(kernels, run, cfg, model):
     """Greedy decoding through ``greedy_generate``, counts zeroed before;
     then prefill and per-token decode times."""
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import serve as rserve
 
-    rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                          (GEN_BATCH, GEN_PROMPT)),
-                             dtype=torch.int32, device=DEVICE)
+    prompt = gen_prompt(cfg)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with plain_calls_counted() as plain:
+    with plain_calls_counted() as plain, logits_recorded() as rec:
         out = rserve.greedy_generate(model, cfg, prompt, GEN_NEW, GEN_MAX_SEQ)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    GENERATED[run.arch] = dict(tokens=out.cpu(),
+                               logits=torch.stack(rec, 1).cpu())
     steps = GEN_NEW - 1
     # the same run, timed by part: prefill, then each decode step
     prefill = rserve.make_prefill_step(cfg)
@@ -3645,6 +3828,9 @@ def model_phase(kernels, run):
     model32 = step("float32 copy", float32_copy, cfg32)
     f32, rec32 = step("float32 check", routes_checked, run, cfg32, model32,
                       torch.float32)
+    GENERATED[run.arch]["logits32"] = step(
+        "float32 logits", lambda: forced_logits(
+            model32, cfg32, GENERATED[run.arch]["tokens"]).float().cpu())
     decode_check(run, bf16, f32)
     if cfg.moe:
         route_flips(run, cfg, rec16, rec32)
@@ -4491,6 +4677,381 @@ def _flat_state(tree, prefix=""):
     return {prefix: tree}
 
 
+# --------------------------------------------------------------------------
+# phase 7: the mesh
+# --------------------------------------------------------------------------
+
+# ranks of phase 7: processes sharing the one card, joined over gloo on
+# 127.0.0.1 (one card: no multi-GPU figure), and one NCCL process of
+# world size 1
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600
+# 7a: 4b's runs, each over a ("scen",) mesh of MESH_RANKS ranks
+MESH_WHOLERUN = ("grid", "hetero")
+# 7b: (key, arch, layers (None: full depth), moe_sharding (None: the
+# config's own)); a (data 1, model MESH_RANKS) mesh, bf16, full width,
+# phase 5's prompt and seed, GEN_NEW tokens; held to phase 5's run of the
+# same model, but the 2-layer expert-mode MoE, held to a 1-rank run of
+# that 2-layer model made here
+MESH_RUNS = (("qwen2-moe-a2.7b", "qwen2-moe-a2.7b", None, None),
+             ("qwen2-moe-a2.7b:expert:2", "qwen2-moe-a2.7b", 2, "expert"),
+             ("qwen2-1.5b", "qwen2-1.5b", None, None),
+             ("recurrentgemma-2b", "recurrentgemma-2b", None, None),
+             ("rwkv6-3b", "rwkv6-3b", None, None))
+# 7b's bar, on phase 5's tokens (teacher forcing) against the float32
+# copy's logits there: the tensor-parallel bf16 logits lie within twice
+# the 1-rank bf16 run's own error (its max over every step). TP rounds a
+# row-parallel output twice, each rank's partial sum and then their sum,
+# where the 1-rank run rounds it once, so each such rounding errs by at
+# most twice as much (|y0| + |y1| = |y| where the partials agree in
+# sign); the other operations are the 1-rank run's. A step may choose
+# another token than the 1-rank run only where the two tokens' float32
+# logits lie within the two runs' errors, 3 times that error (a tie in
+# bf16). The free-running greedy tokens are compared and logged. (The
+# ModelRuns' bf16_tol are bars on hidden states, |h| <= 4, not logits.)
+TP_ERR_FACTOR = 2.0
+TP_TIE_FACTOR = 1.0 + TP_ERR_FACTOR
+
+
+def mesh_run(key):
+    """(cfg, ModelRun with the launches of that depth) of a MESH_RUNS
+    key."""
+    from repro_torch.configs import get_config
+
+    _, arch, layers, mode = next(m for m in MESH_RUNS if m[0] == key)
+    cfg = get_config(arch)
+    run = next(r for r in MODEL_RUNS if r.arch == arch)
+    if mode:
+        cfg = dataclasses.replace(cfg, moe_sharding=mode)
+    if layers:
+        n = cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        run = dataclasses.replace(
+            run, per_forward={k: v * layers // n
+                              for k, v in run.per_forward.items()},
+            per_step={k: v * layers // n for k, v in run.per_step.items()})
+    return cfg, run
+
+
+def mesh_generated(cfg):
+    """What phase 5 keeps of a model, for ``cfg``: a 1-rank greedy run
+    from phase 5's seed and prompt (tokens and logits) and the float32
+    copy's logits on those tokens (``logits32``), on the host, each
+    model freed."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve as rserve
+
+    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE)
+    with logits_recorded() as rec:
+        out = rserve.greedy_generate(model, cfg, gen_prompt(cfg), GEN_NEW,
+                                     GEN_MAX_SEQ)
+    got = dict(tokens=out.cpu(), logits=torch.stack(rec, 1).cpu())
+    del model, rec
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = float32_copy(cfg32)
+    got["logits32"] = forced_logits(model32, cfg32,
+                                    got["tokens"]).float().cpu()
+    del model32
+    torch.cuda.empty_cache()
+    return got
+
+
+def mesh_line(what, t0, **extra):
+    """A rank's ``mesh`` line: backend, ranks, its collectives by kind
+    (calls, bytes sent, bytes staged through the host, seconds) since
+    the last reset, and the wall time since ``t0``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+
+    log("mesh", json.dumps(dict(
+        what=what, backend=dist.get_backend(), rank=dist.get_rank(),
+        ranks=dist.get_world_size(), collectives=collectives.counts(),
+        wall_s=time.perf_counter() - t0, **extra)))
+
+
+def mesh_wholerun(core, kernels, mesh):
+    """7a on this rank: MESH_WHOLERUN's runs over ``mesh``, each rank's
+    posterior launches and lane log."""
+    from repro_torch.core.engine_config import EngineConfig
+    from repro_torch.distributed import collectives
+
+    want = json.loads(WHOLERUN_EXPECTED.read_text())["hetero"]
+    batches = dict(
+        grid=(batched_scenarios(core), None),
+        hetero=(core.make_hetero_scenarios(
+            seeds=want["seeds"], budgets=want["budgets"],
+            archs=want["archs"]), EngineConfig(warm_start=False)))
+    out = {}
+    for name in MESH_WHOLERUN:
+        scs, config = batches[name]
+        kernels.reset_launch_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        eng = core.WholeRunBayesSplitEdge(scs, config, mesh=mesh,
+                                          device=DEVICE)
+        res = eng.run()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        lane = eng.lane_stats()
+        mesh_line(f"7a wholerun {name}", t0, launches=counts,
+                  lane_log=lane["lane_log"], acq_iters=lane["acq_iters"])
+        if counts["matern_score"] == 0 or (
+                counts["matern_score"] != lane["acq_iters"]):
+            raise AssertionError(f"7a {name}: {counts['matern_score']} "
+                                 "posterior launches on this rank in "
+                                 f"{lane['acq_iters']} acquisition "
+                                 "iterations")
+        out[name] = dict(results=plain_results(res), launches=counts,
+                         lane_log=lane["lane_log"],
+                         wall_s=time.perf_counter() - t0)
+    return out
+
+
+def mesh_serving(kernels, rank, world, d):
+    """7b on this rank: each MESH_RUNS model built on the card one rank
+    after another (each draws every whole leaf and keeps its shard),
+    then ``greedy_generate`` with the mesh's ctx, launches counted;
+    tokens and logits held to the 1-rank run's."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve as rserve
+
+    mesh = make_mesh((1, world), ("data", "model"), "gloo")
+    ref = torch.load(Path(d) / "generated.pt")
+    out = {}
+    for key, *_ in MESH_RUNS:
+        cfg, run = mesh_run(key)
+        ctx = make_ctx(cfg, mesh)
+        t0 = time.perf_counter()
+        for r in range(world):
+            if r == rank:
+                model = tfm.init_model(
+                    cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE,
+                    ctx=ctx)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        init_s = time.perf_counter() - t0
+        mem = torch.cuda.memory_allocated() / 1e9
+        kernels.reset_launch_counts()
+        collectives.reset_counts()
+        t1 = time.perf_counter()
+        with plain_calls_counted() as plain, logits_recorded() as rec:
+            tokens = rserve.greedy_generate(model, cfg, gen_prompt(cfg),
+                                            GEN_NEW, GEN_MAX_SEQ, ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.launch_counts()
+        want = ref[key]
+        same = tokens.cpu() == want["tokens"]
+        first = (int((~same).any(0).float().argmax())
+                 if not same.all() else None)
+        # the same model on phase 5's tokens, uncounted: every step's
+        # logits on the 1-rank run's inputs
+        forced = forced_logits(model, cfg, want["tokens"], ctx).float()
+        ref16 = want["logits"].to(DEVICE).float()
+        ref32 = want["logits32"].to(DEVICE)
+        own = float((ref16 - ref32).abs().max())
+        tp32 = float((forced - ref32).abs().max())
+        choice, ref_tok = forced.argmax(-1), ref16.argmax(-1)
+        flips = (choice != ref_tok).nonzero().tolist()
+        gaps = [float((ref32[b_, j, choice[b_, j]]
+                       - ref32[b_, j, ref_tok[b_, j]]).abs())
+                for b_, j in flips]
+        row = dict(key=key, tokens_equal=bool(same.all()),
+                   first_differing_step=first,
+                   tp_vs_1rank_bf16=float((forced - ref16).abs().max()),
+                   tp_vs_float32=tp32, one_rank_bf16_vs_float32=own,
+                   logits_ok=tp32 <= TP_ERR_FACTOR * own,
+                   forced_flips=[[b_, j, g] for (b_, j), g in
+                                 zip(flips, gaps)],
+                   flips_ok=all(g <= TP_TIE_FACTOR * own for g in gaps),
+                   logits_absmax=float(ref32.abs().max()),
+                   launches=counts, plain_calls=plain, init_s=init_s,
+                   generate_s=wall, memory_allocated_gb=mem,
+                   first_tokens=tokens[0, :8].tolist())
+        mesh_line(f"7b {key}", t1, **row)
+        check_launches(f"7b {key} rank {rank}", counts,
+                       per(run, forwards=1, steps=GEN_NEW - 1), plain)
+        out[key] = row
+        del model, rec, forced, ref16, ref32
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, d: str) -> int:
+    """A gloo rank of phase 7 (``--mesh-rank``): 7a, then 7b; its
+    results written to ``d/rank{rank}.json``."""
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    import repro_torch.core as core
+    import repro_torch.kernels as kernels
+    from repro_torch.distributed.sharding import scenario_mesh
+    from repro_torch.launch.mesh import init_process_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group("gloo", rank, world, "127.0.0.1", port)
+    try:
+        out = dict(rank=rank, wholerun=mesh_wholerun(core, kernels,
+                                                     scenario_mesh()))
+        out["serving"] = mesh_serving(kernels, rank, world, d)
+        out["seconds"] = time.perf_counter() - t0
+        Path(d, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_nccl(port: int, d: str) -> int:
+    """The NCCL process of phase 7 (``--mesh-nccl``): 7a's grid over a
+    world-size-1 NCCL ``("scen",)`` mesh."""
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    import repro_torch.core as core
+    import repro_torch.kernels as kernels
+    from repro_torch.distributed.sharding import scenario_mesh
+    from repro_torch.launch.mesh import init_process_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group("nccl", 0, 1, "127.0.0.1", port)
+    try:
+        mesh = scenario_mesh()
+        out = mesh_wholerun(core, kernels, mesh)
+        out = dict(grid=out["grid"], hetero=out["hetero"],
+                   seconds=time.perf_counter() - t0)
+        Path(d, "nccl.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase(seconds: dict) -> dict:
+    """Phase 7: the 2-layer expert-mode MoE's 1-rank run made here and
+    phase 5's runs written for the ranks; MESH_RANKS gloo ranks and the
+    NCCL process started together, their lines printed once all have
+    ended, a failed one ending the others and failing the phase. Holds
+    7a to 4b's runs (the reference's bars: evaluations and best accuracy
+    equal, traces within WARM_TRACE_TOL; bit for bit logged; the NCCL
+    world of 1 bit for bit) and 7b's rows. Returns the kernel launches
+    by path."""
+    t0 = time.perf_counter()
+    key2 = MESH_RUNS[1][0]
+    GENERATED[key2] = mesh_generated(mesh_run(key2)[0])
+    seconds["7 reference run"] = time.perf_counter() - t0
+    (ROOT / "build").mkdir(exist_ok=True)
+    by_path = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        torch.save({k: GENERATED[k] for k, *_ in MESH_RUNS},
+                   Path(d) / "generated.pt")
+        torch.cuda.empty_cache()
+        port = free_port()
+        cmds = {f"rank{r}": ["--mesh-rank", str(r), str(MESH_RANKS),
+                             str(port), d] for r in range(MESH_RANKS)}
+        cmds["nccl"] = ["--mesh-nccl", str(free_port()), d]
+        procs, files = {}, {}
+        t1 = time.perf_counter()
+        try:
+            for name, args in cmds.items():
+                files[name] = [Path(d) / f"{name}.{x}" for x in ("out", "err")]
+                with open(files[name][0], "w") as o, \
+                        open(files[name][1], "w") as e:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         *args], cwd=ROOT, stdout=o, stderr=e)
+            while (any(p.poll() is None for p in procs.values())
+                   and not any(p.poll() for p in procs.values())
+                   and time.perf_counter() - t1 < MESH_TIMEOUT_S):
+                time.sleep(0.5)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for name, (out, err) in files.items():
+            sys.stdout.write(out.read_text())
+            sys.stdout.flush()
+            sys.stderr.write(err.read_text())
+            sys.stderr.flush()
+        seconds["7 ranks"] = time.perf_counter() - t1
+        codes = {n: p.returncode for n, p in procs.items() if p.returncode}
+        if codes:
+            raise AssertionError(f"phase 7 processes failed (exit codes; "
+                                 f"negative: ended by the script): {codes}")
+        ranks = [json.loads((Path(d) / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        nccl = json.loads((Path(d) / "nccl.json").read_text())
+    verdict = {}
+    for name in MESH_WHOLERUN:
+        want = WHOLERUN_RESULTS[name]
+        for rank in ranks:
+            got = rank["wholerun"][name]["results"]
+            for a, b in zip(got, want, strict=True):
+                if (a["n_evals"], a["best_accuracy"]) != (
+                        b["n_evals"], b["best_accuracy"]) or trace_div(
+                            a["incumbent_trace"],
+                            b["incumbent_trace"]) >= WARM_TRACE_TOL:
+                    raise AssertionError(f"7a {name} rank {rank['rank']}: "
+                                         f"{a} against 4b's {b}")
+            by_path[f"mesh_wholerun:{name}:rank{rank['rank']}"] = rank[
+                "wholerun"][name]["launches"]
+        if any(r["wholerun"][name]["results"]
+               != ranks[0]["wholerun"][name]["results"] for r in ranks):
+            raise AssertionError(f"7a {name}: the ranks' results differ")
+        verdict[name] = dict(
+            bitwise=ranks[0]["wholerun"][name]["results"] == want,
+            nccl_world_1_bitwise=nccl[name]["results"] == want,
+            walls_s=[r["wholerun"][name]["wall_s"] for r in ranks],
+            nccl_wall_s=nccl[name]["wall_s"])
+        if not verdict[name]["nccl_world_1_bitwise"]:
+            raise AssertionError(f"7a {name}: the NCCL mesh of one rank is "
+                                 "not 4b's run bit for bit")
+    log("mesh_wholerun", json.dumps(verdict))
+    rows = {}
+    for key, *_ in MESH_RUNS:
+        rows[key] = [r["serving"][key] for r in ranks]
+        for rank, row in zip(ranks, rows[key]):
+            by_path[f"mesh_generate:{key}:rank{rank['rank']}"] = row[
+                "launches"]
+            if not (row["logits_ok"] and row["flips_ok"]):
+                raise AssertionError(f"7b {key} rank {rank['rank']}: {row}")
+    log("mesh_serving", json.dumps(dict(
+        ranks=MESH_RANKS, tokens_equal={k: all(r["tokens_equal"] for r in v)
+                                        for k, v in rows.items()},
+        first_differing_step={k: v[0]["first_differing_step"]
+                              for k, v in rows.items()},
+        tp_vs_float32={k: v[0]["tp_vs_float32"] for k, v in rows.items()},
+        one_rank_bf16_vs_float32={k: v[0]["one_rank_bf16_vs_float32"]
+                                  for k, v in rows.items()},
+        forced_flips={k: len(v[0]["forced_flips"]) for k, v in rows.items()},
+        rank_seconds=[r["seconds"] for r in ranks],
+        nccl_seconds=nccl["seconds"])))
+    seconds["7"] = time.perf_counter() - t0
+    return by_path
+
+
 def matern_entry(rows, post_rows, by_path, main):
     """``matern_score``'s item of the ``kernels`` line. The main path
     launches the posterior entry, so the item's times are its cold and
@@ -4622,6 +5183,8 @@ def main() -> int:
     flash_bwd_rows = timed("2 flash_attention_bwd", flash_bwd_phase, kernels,
                            bwd_instances)
     decode_rows = timed("2 decode_attention", decode_phase, kernels)
+    decode_lse_rows = timed("2 decode_attention lse", decode_lse_phase,
+                            kernels, decode_rows)
     rglru_rows = timed("2 rglru_scan", rglru_phase, kernels)
     rwkv_rows = timed("2 rwkv6_scan", rwkv6_phase, kernels)
     rglru_bwd_rows = timed("2 rglru_scan_bwd", rglru_bwd_phase, kernels)
@@ -4674,6 +5237,15 @@ def main() -> int:
             for name, n in counts.items():
                 if n:
                     by_path[name][f"{path}:{arch}"] = n
+
+    # phase 7: the mesh, ranks sharing the card
+    lap[0] = time.perf_counter()
+    for path, counts in mesh_phase(seconds).items():
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+    lse_launches = {p: n for p, n in by_path["decode_attention"].items()
+                    if p.startswith("mesh_generate:recurrentgemma-2b")}
     for name, paths in by_path.items():
         if not paths:
             raise AssertionError(f"{name} was launched on no main path")
@@ -4705,6 +5277,19 @@ def main() -> int:
         kernel_entry("decode_attention",
                      "src/repro/kernels/decode_attention/kernel.py:63",
                      decode_rows, DECODE_MAIN, by_path["decode_attention"]),
+        kernel_entry(
+            "decode_attention_lse",
+            "src/repro/kernels/decode_attention/kernel.py:63 (with the "
+            "row's log-sum-exp written by the merge kernel: the reference "
+            "has none; its GSPMD lowers the partial-softmax combine of a "
+            "sequence-sharded cache itself)",
+            decode_lse_rows, DECODE_LSE_MAIN, lse_launches,
+            source="src/repro_torch/kernels/decode_attention/"
+                   "decode_attention.cu",
+            design="the decode kernel's return_lse: the split-T merge also "
+                   "writes max m + log(sum w l) a (row, q head); phase 7b's "
+                   "RecurrentGemma-2B decode merges the ranks' ring slices "
+                   "with it"),
         kernel_entry("rglru_scan",
                      "src/repro/kernels/rglru_scan/kernel.py:46",
                      rglru_rows, RGLRU_MAIN, by_path["rglru_scan"]),
@@ -4744,4 +5329,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bo-group"]:
         sys.exit(bo_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        r, w, port, d = sys.argv[2:6]
+        sys.exit(mesh_rank(int(r), int(w), int(port), d))
+    if sys.argv[1:2] == ["--mesh-nccl"]:
+        sys.exit(mesh_nccl(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

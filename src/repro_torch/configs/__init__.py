@@ -8,7 +8,8 @@ The port's own copy of ``repro.configs`` (same names, same values), so
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, list_configs, reduced, register,
+    SHAPES, ModelConfig, ShapeConfig, get_config, list_configs, reduced,
+    register,
 )
 
 _ARCH_MODULES = [

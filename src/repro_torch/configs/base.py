@@ -2,8 +2,9 @@
 copy of the ``ModelConfig`` registry of ``repro/configs/base.py``.
 
 Every architecture from the task sheet is expressed as a ``ModelConfig``;
-``reduced()`` derives the CPU-test variant of the same family. The
-shape table of the dry-run waits for the mesh tooling.
+``reduced()`` derives the CPU-test variant of the same family;
+``SHAPES`` is the reference's table of input shapes (the cache
+templates' batch and length).
 """
 from __future__ import annotations
 
@@ -154,6 +155,27 @@ class ModelConfig:
             total += norms + attn + mlp_total
             active += norms + attn + mlp_active
         return dict(total=total, active=active)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned per task sheet; shared by the whole LM pool)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 # ---------------------------------------------------------------------------

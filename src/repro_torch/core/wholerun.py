@@ -32,6 +32,15 @@ host loop gathers the surviving lanes into a dense prefix of the next
 power-of-two lane count and flushes retired lanes' results into their
 scenario rows. Every lane's trajectory is a function of its own state
 only, so cold compacted runs equal the uncompacted program bit for bit.
+
+With ``mesh=`` (a 1-D ``("scen",)`` mesh, ``distributed.sharding
+.scenario_mesh``) the padded, packed batch splits into contiguous shards,
+one a rank (``whole_run_sharded``): each rank runs its shard through the
+uncompacted loop on its own device, no collective runs in the loop, and
+one host gather over the mesh's group at the end (``all_gather_object``,
+through ``distributed.collectives.mesh_collective``) gives every rank the
+whole batch's outputs. ``compact`` is ignored under a mesh, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -870,6 +879,57 @@ def _to_host(tree):
     return _host(tree)
 
 
+# -- scenario-sharded whole run ---------------------------------------------
+
+def _mesh_rank(mesh):
+    """(this rank's shard index, shard count, process group or None)."""
+    from repro_torch.distributed.sharding import AbstractMesh
+
+    if isinstance(mesh, AbstractMesh):
+        if mesh.size != 1:
+            raise ValueError("an AbstractMesh of more than one rank has no "
+                             "process group to run over")
+        return 0, 1, None
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the scenario mesh")
+    return coord[0], mesh.size(), mesh.get_group()
+
+
+def whole_run_sharded(stacked, grid, wvec, cfg: WholeRunConfig, mesh):
+    """Scenario-sharded whole run: the leading S axis splits into
+    contiguous shards over the 1-D ``("scen",)`` mesh, this rank runs its
+    shard's uncompacted loop (``whole_run``), and the host outputs of the
+    shards are gathered over the mesh's group, in rank order. Returns
+    ``(outputs (host numpy, all S lanes), this rank's body steps, its
+    lanes)``. No collective runs in the loop; a rank whose lanes finish
+    early leaves its loop early and waits at the gather."""
+    from repro_torch.distributed.collectives import mesh_collective
+
+    r, n, group = _mesh_rank(mesh)
+    S = stacked["budget"].shape[0]
+    if S % n:
+        raise ValueError(f"{S} lanes do not split over {n} ranks")
+    local = gpm.take_lanes(stacked, slice(r * S // n, (r + 1) * S // n))
+    out, n_iters = whole_run(local, grid, wvec, cfg)
+    parts = mesh_collective("gather_object", _to_host(out), group=group)
+    return _cat_lanes(parts), n_iters, S // n
+
+
+def _cat_lanes(parts):
+    if isinstance(parts[0], dict):
+        return {k: _cat_lanes([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+def scenario_sharding(mesh):
+    """The placement of the stacked scenario tree on the ``("scen",)``
+    mesh: its leading (lane) axis sharded, ``(Shard(0),)``."""
+    from torch.distributed.tensor import Shard
+
+    return (Shard(0),)
+
+
 # -- host wrapper ------------------------------------------------------------
 
 class WholeRunBayesSplitEdge:
@@ -893,13 +953,18 @@ class WholeRunBayesSplitEdge:
       and the raw ledger stay aligned with the caller's order.
     * ``bank`` — a :class:`PriorBank` queried at staging and recorded
       into at run exit (None keeps every run on the historical path).
+    * ``mesh`` — a 1-D ``("scen",)`` mesh to shard the scenario axis
+      over ranks (``distributed.sharding.scenario_mesh``): every rank of
+      the mesh calls ``run`` on the same scenarios and gets every
+      result; ``compact`` is then ignored.
     """
 
     name = "WholeRun-Bayes-Split-Edge"
 
     def __init__(self, scenarios: Sequence[Scenario],
                  config: Optional[EngineConfig] = None, *,
-                 bank: Optional[PriorBank] = None, device="cuda", **kw):
+                 mesh=None, bank: Optional[PriorBank] = None,
+                 device="cuda", **kw):
         config = resolve_config(config, kw, "WholeRunBayesSplitEdge")
         if kw:
             raise TypeError(f"WholeRunBayesSplitEdge() got unexpected "
@@ -935,12 +1000,20 @@ class WholeRunBayesSplitEdge:
         self.compact = config.compact
         self.gp_feasible_only = config.constraint_aware
         self.bank = bank
+        self.mesh = mesh
 
     # -- input staging -------------------------------------------------------
     def _pad_to(self) -> int:
         """Scenario count padded to a power of 2 (the reference's lane
-        layout, which fixes the compaction's lane counts)."""
-        return _next_pow2(len(self.scenarios))
+        layout, which fixes the compaction's lane counts), and to a
+        multiple of the mesh size when sharding."""
+        s = _next_pow2(len(self.scenarios))
+        if self.mesh is not None:
+            d = _mesh_rank(self.mesh)[1]
+            s = max(s, d)
+            if s % d:
+                s = (s // d + 1) * d
+        return s
 
     def _stacked(self) -> dict:
         staged = [stage_scenario(sc, self.l_pad, self.n_init,
@@ -1050,7 +1123,17 @@ class WholeRunBayesSplitEdge:
         stacked = self._stacked()
         grid = torch.as_tensor(self.grid).to(self.device, F32)
         self._lane_stats = {}
-        if self.compact:
+        if self.mesh is not None:
+            out, n_iters, lanes = whole_run_sharded(stacked, grid, wvec, cfg,
+                                                    self.mesh)
+            # this rank's loop: its lanes, the live ones among them
+            r = _mesh_rank(self.mesh)[0]
+            live = int(np.clip(len(self.scenarios) - r * lanes, 0, lanes))
+            self._lane_stats = dict(
+                n_dispatches=1, lane_slots=n_iters * lanes,
+                lane_log=[dict(lanes=lanes, live=live, iters=n_iters)],
+                rank=r, loop_rows=(r * lanes, r * lanes + live))
+        elif self.compact:
             out = self._run_compacted(stacked, grid, wvec, cfg)
         else:
             out, n_iters = whole_run(stacked, grid, wvec, cfg)
@@ -1084,7 +1167,8 @@ class WholeRunBayesSplitEdge:
                     bool(out["has_best"][i]))
 
         live = len(self.scenarios)
-        evals = int(np.sum(out["n"][:live])) - live * self.n_init
+        lo, hi = self._lane_stats.pop("loop_rows", (0, live))
+        evals = int(np.sum(out["n"][lo:hi])) - (hi - lo) * self.n_init
         slots = self._lane_stats["lane_slots"]
         self._lane_stats["loop_evals"] = evals
         self._lane_stats["occupancy_mean"] = evals / slots if slots else 1.0
@@ -1122,7 +1206,8 @@ class WholeRunBayesSplitEdge:
         return dict(getattr(self, "_fit_stats", {}))
 
     def lane_stats(self) -> dict:
-        """Lane-occupancy accounting of the last ``run``: computed
+        """Lane-occupancy accounting of the last ``run`` (under ``mesh``,
+        of this rank's loop, with its ``rank``): computed
         lane-slots vs live-lane evals in the BO loop
         (``occupancy_mean == 1.0`` means no dead-lane waste), the
         per-phase lane log of the compaction loop, the iterations that

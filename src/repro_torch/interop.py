@@ -11,7 +11,10 @@ both packages the same GP and constraint surface.
 
 :func:`model_from_reference` carries a ``repro`` model's parameter
 pytree (``transformer.init_model``) into the port's ``Transformer``,
-keeping each leaf's dtype; :func:`params_to_reference` is its inverse,
+keeping each leaf's dtype, by the map of :func:`param_map` (each
+reference leaf path and layer index to the port's parameter;
+:func:`cache_map` does the same for the cache), and under a
+``ShardCtx`` gives each rank its shards; :func:`params_to_reference` is its inverse,
 which the training tests use to hold gradients and updated parameters
 to the reference's leaf by leaf; and :func:`vgg19_from_reference` a VGG19's
 into ``models.vgg``'s layout. A JAX bfloat16 leaf arrives as numpy with
@@ -57,47 +60,92 @@ def _leaf(a: np.ndarray) -> torch.Tensor:
     return torch.tensor(a)
 
 
-def model_from_reference(cfg, np_params, device):
+def _flat(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict, in its order."""
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _flat(sub, prefix + (key,))
+        else:
+            yield prefix + (key,), sub
+
+
+def param_map(cfg) -> list:
+    """Each leaf of the reference's parameter tree
+    (``transformer.model_template``) with the port's parameter that
+    holds it: ``(path, r, name)``, ``path`` the keys down the reference's
+    tree, ``r`` the index along its stacked layer axis (None where the
+    group does not repeat) and ``name`` the port's
+    ``model.get_parameter`` name."""
+    from repro_torch.models import transformer as tfm
+
+    out = [(("embed",), None, "embed")]
+    if not cfg.tie_embeddings:
+        out.append((("unembed",), None, "unembed"))
+    out += [(("final_norm",) + path, None, "final_norm." + ".".join(path))
+            for path, _ in _flat(tfm.norm_template(cfg))]
+    for gi, kinds, reps, idx in tfm.group_layers(cfg):
+        for i, kind in enumerate(kinds):
+            leaves = list(_flat(tfm.block_template(cfg, kind)))
+            for r, row in enumerate(idx):
+                out += [(("groups", f"g{gi}", f"b{i}") + path,
+                         r if reps > 1 else None,
+                         f"layers.{row[i]}." + ".".join(path))
+                        for path, _ in leaves]
+    return out
+
+
+def cache_map(cfg) -> list:
+    """Each leaf of the reference's cache tree
+    (``transformer.cache_template``) with the port's cache tensor that
+    holds it: ``(path, r, layer, key)``, the port's being
+    ``cache[layer][key]``."""
+    from repro_torch.models import transformer as tfm
+
+    out = []
+    for gi, kinds, reps, idx in tfm.group_layers(cfg):
+        for i, kind in enumerate(kinds):
+            keys = list(tfm.block_cache_template(cfg, kind, 1, 1))
+            for r, row in enumerate(idx):
+                out += [(("groups", f"g{gi}", f"b{i}", key),
+                         r if reps > 1 else None, row[i], key)
+                        for key in keys]
+    return out
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def model_from_reference(cfg, np_params, device, ctx=None):
     """The port's ``Transformer`` holding a reference parameter pytree.
 
     ``np_params`` is the reference's tree with numpy leaves (``embed``,
     ``final_norm``, ``unembed`` unless tied, ``groups/g{gi}/b{i}``); a
     group of ``reps > 1`` stacks its layers on a leading axis, which is
-    unstacked here in the reference's layer order. Each parameter takes
-    its leaf's dtype (float32 or bfloat16). An MoE block's leaves land
-    under the same names: ``mlp.router``, ``mlp.wg``/``wu``/``wd`` (the
-    experts, stacked on E) and ``mlp.shared.wg``/``wu``/``wd``; Kimi
-    K2's leading ``attn_dense`` group keeps a dense ``mlp``."""
+    unstacked here in the reference's layer order (``param_map``). Each
+    parameter takes its leaf's dtype (float32 or bfloat16). An MoE
+    block's leaves land under the same names: ``mlp.router``,
+    ``mlp.wg``/``wu``/``wd`` (the experts, stacked on E) and
+    ``mlp.shared.wg``/``wu``/``wd``; Kimi K2's leading ``attn_dense``
+    group keeps a dense ``mlp``. Under ``ctx`` the model holds this
+    rank's shard of each leaf (``ShardCtx.local``)."""
     from repro_torch.models import transformer as tfm
 
-    model = tfm.Transformer(cfg, device)
-
-    def put(module, name, leaf):
-        a = np.asarray(leaf)
-        param = module.get_parameter(name)
-        if tuple(a.shape) != tuple(param.shape):
+    model = tfm.Transformer(cfg, device, ctx=ctx)
+    for path, r, name in param_map(cfg):
+        a = np.asarray(_at(np_params, path))
+        if r is not None:
+            a = a[r]
+        param = model.get_parameter(name)
+        if tuple(a.shape) != param.full_shape:
             raise ValueError(f"{name}: reference shape {a.shape}, port "
-                             f"shape {tuple(param.shape)}")
-        param.data = _leaf(a).to(param.device)
-
-    def put_tree(module, tree, prefix="", take=None):
-        for key, sub in tree.items():
-            if isinstance(sub, dict):
-                put_tree(module, sub, f"{prefix}{key}.", take)
-            else:
-                put(module, prefix + key,
-                    sub if take is None else np.asarray(sub)[take])
-
-    put(model, "embed", np_params["embed"])
-    if not cfg.tie_embeddings:
-        put(model, "unembed", np_params["unembed"])
-    put_tree(model.final_norm, np_params["final_norm"])
-    for gi, kinds, reps, idx in tfm.group_layers(cfg):
-        group = np_params["groups"][f"g{gi}"]
-        for r, row in enumerate(idx):
-            for i, layer in enumerate(row):
-                put_tree(model.layers[layer], group[f"b{i}"],
-                         take=r if reps > 1 else None)
+                             f"shape {param.full_shape}")
+        t = _leaf(a)
+        if ctx is not None:
+            t = ctx.local(t, param.axes).contiguous()
+        param.data = t.to(param.device)
     return model
 
 

@@ -42,7 +42,11 @@
 // spread over the SMs: it reads every split's m and l, weighs each split
 // by exp(m - max m) (0 for a split that saw no slot), and sums the
 // partial acc of the splits that saw a slot in split order, all their
-// loads in flight at once. No float atomics, so a run repeats bit for
+// loads in flight at once. When asked, it also writes each row's
+// natural log-sum-exp of the scaled scores, max m + log(sum w l), in
+// float32: what a caller needs to merge attention over slices of a
+// cache held on different ranks (o = sum_r e^(lse_r - max) o_r /
+// sum_r e^(lse_r - max)). No float atomics, so a run repeats bit for
 // bit. Both kernels run from one wrapper call; the wrapper counts one
 // launch.
 //
@@ -351,7 +355,8 @@ template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 decode_attention_kernel_merge(const float* __restrict__ part_acc,
                               const float* __restrict__ part_ml,
-                              T* __restrict__ o, int n_split, int G, int hd) {
+                              T* __restrict__ o, float* __restrict__ lse,
+                              int n_split, int G, int hd) {
   __shared__ float w_s[kMaxSplits];
   __shared__ float l_s[kMaxSplits];
   __shared__ int live_s[kMaxSplits];
@@ -393,6 +398,7 @@ decode_attention_kernel_merge(const float* __restrict__ part_acc,
     if (tid == 0) {
       n_live_s = n_live;
       den_s = (den == 0.0f) ? 1.0f : den;
+      if (lse != nullptr) lse[row * G + g] = M + logf(den_s);
     }
   }
   __syncthreads();
@@ -430,7 +436,7 @@ decode_attention_kernel_merge(const float* __restrict__ part_acc,
 
 template <typename T, int MAXD>
 int launch_typed(const void* q, const void* k, const void* v,
-                 const int* kv_pos, const int* q_pos, void* o,
+                 const int* kv_pos, const int* q_pos, void* o, float* lse,
                  float* part_acc, float* part_ml, Strides qs, Strides ks,
                  Strides vs, int B, int T_, int Hq, int Hkv, int hd,
                  int window, int n_split, int chunk, cudaStream_t stream) {
@@ -449,22 +455,22 @@ int launch_typed(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_attention_kernel_merge<T><<<dim3(G, Hkv * B), kMergeThreads, 0,
                                      stream>>>(part_acc, part_ml,
-                                               static_cast<T*>(o), n_split,
-                                               G, hd);
+                                               static_cast<T*>(o), lse,
+                                               n_split, G, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dispatch(const void* q, const void* k, const void* v,
                     const int* kv_pos, const int* q_pos, void* o,
-                    float* part_acc, float* part_ml, Strides qs, Strides ks,
-                    Strides vs, int B, int T_, int Hq, int Hkv, int hd,
-                    int window, int n_split, int chunk,
+                    float* lse, float* part_acc, float* part_ml, Strides qs,
+                    Strides ks, Strides vs, int B, int T_, int Hq, int Hkv,
+                    int hd, int window, int n_split, int chunk,
                     cudaStream_t stream) {
 #define DECODE_LAUNCH(MAXD)                                                 \
-  launch_typed<T, MAXD>(q, k, v, kv_pos, q_pos, o, part_acc, part_ml, qs,   \
-                        ks, vs, B, T_, Hq, Hkv, hd, window, n_split, chunk, \
-                        stream)
+  launch_typed<T, MAXD>(q, k, v, kv_pos, q_pos, o, lse, part_acc, part_ml,  \
+                        qs, ks, vs, B, T_, Hq, Hkv, hd, window, n_split,    \
+                        chunk, stream)
   if (hd <= 64) return DECODE_LAUNCH(64);
   if (hd <= 128) return DECODE_LAUNCH(128);
   return DECODE_LAUNCH(256);
@@ -482,7 +488,8 @@ extern "C" {
 // (for q the sequence stride is unused) and a contiguous head dim; k and
 // v must be 16-byte aligned with strides that are multiples of 16 bytes.
 // kv_pos (B,T) and q_pos (B,) are contiguous int32; o (B,Hq,hd) is
-// contiguous. part_acc holds B * Hkv * n_split * Hq / Hkv * hd floats and
+// contiguous; lse, when not null, is a contiguous (B,Hq) float32 output
+// of each row's natural log-sum-exp of the scaled scores. part_acc holds B * Hkv * n_split * Hq / Hkv * hd floats and
 // part_ml B * Hkv * n_split * 2 * Hq / Hkv floats of scratch. The cache
 // is cut into n_split <= 256 splits of `chunk` slots (a multiple of 32;
 // the last may be short; none empty). dtype: 0 = float32, 1 = bfloat16.
@@ -492,7 +499,8 @@ extern "C" {
 // most 227 KB. Two kernels run: the splits, then their merge.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* kv_pos, const int* q_pos, void* o,
-                            void* part_acc, void* part_ml, long long qsb,
+                            void* lse, void* part_acc, void* part_ml,
+                            long long qsb,
                             long long qsh, long long ksb, long long kss,
                             long long ksh, long long vsb, long long vss,
                             long long vsh, int B, int T_, int Hq, int Hkv,
@@ -519,12 +527,13 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_dispatch<float>(q, k, v, kv_pos, q_pos, o, pa, pm, qs, ks,
-                                  vs, B, T_, Hq, Hkv, hd, window, n_split,
-                                  chunk, st);
-  return launch_dispatch<__nv_bfloat16>(q, k, v, kv_pos, q_pos, o, pa, pm,
-                                        qs, ks, vs, B, T_, Hq, Hkv, hd,
+    return launch_dispatch<float>(q, k, v, kv_pos, q_pos, o, ls, pa, pm, qs,
+                                  ks, vs, B, T_, Hq, Hkv, hd, window,
+                                  n_split, chunk, st);
+  return launch_dispatch<__nv_bfloat16>(q, k, v, kv_pos, q_pos, o, ls, pa,
+                                        pm, qs, ks, vs, B, T_, Hq, Hkv, hd,
                                         window, n_split, chunk, st);
 }
 

@@ -34,7 +34,7 @@ def smem_bytes(hd: int, group: int, itemsize: int) -> int:
 
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.decode_attention_launch.argtypes = ([p] * 8 + [ll] * 8 + [i] * 9
+    lib.decode_attention_launch.argtypes = ([p] * 9 + [ll] * 8 + [i] * 9
                                             + [p])
     lib.decode_attention_launch.restype = i
 
@@ -57,10 +57,11 @@ def scratch(device, stream: int, n_float: int):
 
 
 def launch(q, k, v, kv_pos, q_pos, out, window: int, n_split: int,
-           chunk: int) -> None:
+           chunk: int, lse=None) -> None:
     """Launch on the current stream of ``out``'s device, ``n_split``
-    splits of ``chunk`` slots, then their merge. The tensors are checked
-    by the caller (``ops.decode_attention``)."""
+    splits of ``chunk`` slots, then their merge, which also writes each
+    row's log-sum-exp into ``lse`` (B, Hq) float32 when one is given. The
+    tensors are checked by the caller (``ops.decode_attention``)."""
     import torch
 
     lib = LIB.load()
@@ -75,7 +76,8 @@ def launch(q, k, v, kv_pos, q_pos, out, window: int, n_split: int,
         part = scratch(out.device, stream, n_acc + cells * 2 * Hq // Hkv)
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), part.data_ptr(),
             part.data_ptr() + 4 * n_acc, *strides, B, T, Hq, Hkv, hd,
             int(window), n_split, chunk, dtype, stream)
     LIB.check(err, "decode_attention")

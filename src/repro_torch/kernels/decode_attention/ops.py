@@ -7,6 +7,10 @@ For tensors on the CPU it returns the plain PyTorch version
 it pads nothing; the kernel walks any cache length T itself, cut into
 ``decode_splits`` splits that run in parallel and that a second small
 kernel merges. ``decode_attention.launches`` counts one launch per call.
+With ``return_lse=True`` it also returns each row's natural log-sum-exp
+of the scaled scores (B, Hq) in float32, which the merge kernel writes
+in the same launch: the mesh path merges attention over a cache whose
+slots are spread over ranks with it (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -90,20 +94,25 @@ def _check(q, k, v, kv_pos, q_pos, window):
                              "aligned with strides in 16-byte steps")
 
 
-def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0):
+def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0,
+                     return_lse: bool = False):
     """q (B,Hq,hd); k, v (B,T,Hkv,hd); kv_pos (B,T) int32; q_pos (B,)
-    int32 -> (B,Hq,hd) in q's dtype."""
+    int32 -> (B,Hq,hd) in q's dtype, and with ``return_lse`` the
+    (B,Hq) float32 log-sum-exp beside it."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, kv_pos, q_pos, window=window)
+        return decode_attention_ref(q, k, v, kv_pos, q_pos, window=window,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
     _check(q, k, v, kv_pos, q_pos, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     n_split, chunk = decode_splits(q.shape[0], k.shape[2], k.shape[1])
-    kernel.launch(q, k, v, kv_pos, q_pos, out, window, n_split, chunk)
+    kernel.launch(q, k, v, kv_pos, q_pos, out, window, n_split, chunk, lse)
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

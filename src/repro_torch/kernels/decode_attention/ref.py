@@ -7,7 +7,11 @@ what the CUDA kernel is held against on the card. A slot counts when
 ``kv_pos <= q_pos`` (and ``q_pos - kv_pos < window`` when a window is
 set); ``INT32_MAX`` marks an empty slot. The masks are computed on the
 integer positions in int64, never in float. Scores in float32, masked
-with -1e30, scale ``1/sqrt(hd)``; output in q's dtype.
+with -1e30, scale ``1/sqrt(hd)``; output in q's dtype. With
+``return_lse`` each also returns the row's natural log-sum-exp of the
+scaled scores, max + log(sum exp(s - max)), (B,Hq) float32: two slices
+of a cache, each attended with its log-sum-exp, merge to the whole
+(``merge_lse``).
 """
 from __future__ import annotations
 
@@ -20,9 +24,10 @@ INT32_MAX = 2 ** 31 - 1
 SUB_TILE = 32             # slots per sub-tile of the kernel
 
 
-def decode_attention_ref(q, k, v, kv_pos, q_pos, window: int = 0):
+def decode_attention_ref(q, k, v, kv_pos, q_pos, window: int = 0,
+                         return_lse: bool = False):
     """q (B,Hq,hd); k, v (B,T,Hkv,hd); kv_pos (B,T); q_pos (B,) ->
-    (B,Hq,hd)."""
+    (B,Hq,hd) (and the (B,Hq) log-sum-exp with ``return_lse``)."""
     B, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -39,11 +44,27 @@ def decode_attention_ref(q, k, v, kv_pos, q_pos, window: int = 0):
     p = torch.exp(s - m)
     o = torch.einsum("bhgt,bthd->bhgd", p / p.sum(-1, keepdim=True),
                      v.float())
-    return o.reshape(B, Hq, hd).to(q.dtype)
+    o = o.reshape(B, Hq, hd).to(q.dtype)
+    if return_lse:
+        lse = (m + torch.log(p.sum(-1, keepdim=True)))[..., 0]
+        return o, lse.reshape(B, Hq)
+    return o
+
+
+def merge_lse(parts, lses):
+    """Attention over a cache cut into slices, from each slice's output
+    (R, B, Hq, hd) and log-sum-exp (R, B, Hq): the slices weighed by
+    exp(lse - max lse), summed in slice order in float32, in the parts'
+    dtype."""
+    top = lses.amax(0)
+    w = torch.exp(lses - top)
+    o = (w[..., None] * parts.float()).sum(0) / w.sum(0)[..., None]
+    return o.to(parts.dtype)
 
 
 def decode_attention_split_ref(q, k, v, kv_pos, q_pos, window: int = 0,
-                               n_split: int = 1, chunk: int | None = None):
+                               n_split: int = 1, chunk: int | None = None,
+                               return_lse: bool = False):
     """The kernel's split-T arithmetic in plain PyTorch: the T slots cut
     into ``n_split`` splits of ``chunk`` slots; a 32-slot sub-tile with
     no allowed slot is left out of its split, unless the row has no
@@ -89,4 +110,7 @@ def decode_attention_split_ref(q, k, v, kv_pos, q_pos, window: int = 0,
     den = (w * l).sum(-1)
     den = torch.where(den == 0, torch.ones_like(den), den)
     o = (w[..., None] * acc).sum(-2) / den[..., None]
-    return o.reshape(B, Hq, hd).to(q.dtype)
+    o = o.reshape(B, Hq, hd).to(q.dtype)
+    if return_lse:
+        return o, (m.amax(-1) + torch.log(den)).reshape(B, Hq)
+    return o

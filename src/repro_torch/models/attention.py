@@ -17,7 +17,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.common import new_param, rope
+from repro_torch.models.common import P, add_params, rope
 
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
@@ -26,23 +26,31 @@ INT32_MAX = 2 ** 31 - 1
 BLOCKED_ABOVE = 1024
 
 
+def attn_template(cfg):
+    D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = {
+        "wq": P((D, Hq, hd), ("embed", "heads", None)),
+        "wk": P((D, Hkv, hd), ("embed", "kv_heads", None)),
+        "wv": P((D, Hkv, hd), ("embed", "kv_heads", None)),
+        "wo": P((Hq, hd, D), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = P((Hq, hd), ("heads", None), "zeros")
+        t["bk"] = P((Hkv, hd), ("kv_heads", None), "zeros")
+        t["bv"] = P((Hkv, hd), ("kv_heads", None), "zeros")
+    return t
+
+
 class Attention(nn.Module):
     """``wq`` (D,Hq,hd), ``wk``/``wv`` (D,Hkv,hd), ``wo`` (Hq,hd,D), and
-    ``bq``/``bk``/``bv`` when the config has a QKV bias."""
+    ``bq``/``bk``/``bv`` when the config has a QKV bias; under ``ctx``
+    this rank's heads of each where the rules shard them."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, ctx=None):
         super().__init__()
-        D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        kw = dict(device=device, dtype=dtype)
-        self.wq = new_param((D, Hq, hd), **kw)
-        self.wk = new_param((D, Hkv, hd), **kw)
-        self.wv = new_param((D, Hkv, hd), **kw)
-        self.wo = new_param((Hq, hd, D), **kw)
         self.qkv_bias = cfg.qkv_bias
-        if cfg.qkv_bias:
-            self.bq = new_param((Hq, hd), "zeros", **kw)
-            self.bk = new_param((Hkv, hd), "zeros", **kw)
-            self.bv = new_param((Hkv, hd), "zeros", **kw)
+        add_params(self, attn_template(cfg), ctx, device=device,
+                   dtype=dtype)
 
 
 def qkv_proj(p: Attention, x, cfg, positions):

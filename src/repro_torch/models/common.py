@@ -1,15 +1,24 @@
 """Shared model machinery: the reference's initializer rules, norms,
 RoPE. Counterpart of ``repro/models/common.py``.
 
-Parameters live in ``nn.Module``s under the reference's names and
-layouts (``wq`` is ``(D, Hq, hd)``, and so on), so a reference pytree
-maps onto them leaf by leaf (``repro_torch.interop``). Each parameter
-carries its init rule (``init``, ``init_scale``), which ``init_tensor``
-applies as ``repro.models.common.init_params`` does.
+Structure is declared once, as in the reference, by *template* trees
+whose leaves are ``P(shape, axes, init, scale)`` (the reference's
+``model_template``, ``cache_template`` and the block templates, copied
+leaf for leaf): they give the modules' parameters and the specs of
+``distributed.sharding.spec_tree``. Parameters live in ``nn.Module``s
+under the reference's names and layouts (``wq`` is ``(D, Hq, hd)``, and
+so on), so a reference pytree maps onto them leaf by leaf
+(``repro_torch.interop``). Each parameter carries its init rule
+(``init``, ``init_scale``), which ``init_tensor`` applies as
+``repro.models.common.init_params`` does, its logical ``axes`` and its
+``full_shape``: under a ``ShardCtx`` a module holds this rank's shard of
+each leaf (``add_params``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,14 +29,48 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Parameter template leaf."""
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axis names, len == ndim
+    init: str = "normal"                 # normal | zeros | ones | embed | small
+    scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def stack_templates(template, n: int):
+    """Add a leading `layers` axis of size n to every leaf (scan stacking)."""
+    if isinstance(template, dict):
+        return {k: stack_templates(v, n) for k, v in template.items()}
+    t = template
+    return P((n,) + t.shape, ("layers",) + t.axes, t.init, t.scale)
+
+
+def add_params(module: nn.Module, template: dict, ctx=None, *, device,
+               dtype) -> None:
+    """Register a parameter on ``module`` for each leaf of a flat
+    template, in its order: the leaf's shape, or under ``ctx`` this
+    rank's shard of it (``ShardCtx.local_shape``)."""
+    for name, t in template.items():
+        shape = t.shape if ctx is None else ctx.local_shape(t.shape, t.axes)
+        setattr(module, name, new_param(shape, t.init, t.scale,
+                                        device=device, dtype=dtype,
+                                        axes=t.axes, full_shape=t.shape))
+
+
 def new_param(shape, init: str = "normal", scale: float = 1.0, *,
-              device, dtype) -> nn.Parameter:
+              device, dtype, axes=None, full_shape=None) -> nn.Parameter:
     """An uninitialized parameter that records its init rule. It is
     created frozen, for serving; training turns every parameter on
     (``train.trainer.trainable_params``)."""
     p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                      requires_grad=False)
     p.init, p.init_scale = init, scale
+    p.axes = axes
+    p.full_shape = tuple(shape) if full_shape is None else tuple(full_shape)
     return p
 
 
@@ -78,6 +121,13 @@ def layernorm(x, w, b, eps):
     return (x * w.float() + b.float()).to(dt)
 
 
+def norm_template(cfg):
+    if cfg.norm_type == "layernorm":
+        return {"w": P((cfg.d_model,), ("embed",), "ones"),
+                "b": P((cfg.d_model,), ("embed",), "zeros")}
+    return {"w": P((cfg.d_model,), ("embed",), "zeros")}  # rms: (1+w) form
+
+
 class Norm(nn.Module):
     """RMSNorm (``w`` zeros: the ``(1 + w)`` form) or LayerNorm (``w``
     ones, ``b`` zeros), as ``norm_template``."""
@@ -86,12 +136,7 @@ class Norm(nn.Module):
         super().__init__()
         self.layer = cfg.norm_type == "layernorm"
         self.eps = cfg.norm_eps
-        D = cfg.d_model
-        if self.layer:
-            self.w = new_param((D,), "ones", device=device, dtype=dtype)
-            self.b = new_param((D,), "zeros", device=device, dtype=dtype)
-        else:
-            self.w = new_param((D,), "zeros", device=device, dtype=dtype)
+        add_params(self, norm_template(cfg), device=device, dtype=dtype)
 
     def forward(self, x):
         return apply_norm(self, x)

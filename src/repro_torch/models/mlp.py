@@ -1,29 +1,46 @@
 """Dense MLP variants: SwiGLU / GeGLU / plain GELU with biases.
 Counterpart of ``repro/models/mlp.py``. GELU is the tanh form, as
-``jax.nn.gelu``'s default."""
+``jax.nn.gelu``'s default.
+
+Under a ``ShardCtx`` whose rules put ``ff`` on the ``model`` axis the
+module holds its columns of ``wg``/``wu``/``wi`` and rows of ``wd``: the
+down projection gives a partial sum, added over ``model`` before the
+bias."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import new_param
+from repro_torch.distributed.collectives import mesh_collective
+from repro_torch.models.common import P, add_params
+
+
+def mlp_template(cfg, d_ff: int = 0, ff_axis: str = "ff"):
+    D = cfg.d_model
+    Fd = d_ff or cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "wg": P((D, Fd), ("embed", ff_axis)),
+            "wu": P((D, Fd), ("embed", ff_axis)),
+            "wd": P((Fd, D), (ff_axis, "embed")),
+        }
+    # plain gelu (starcoder2, musicgen)
+    return {
+        "wi": P((D, Fd), ("embed", ff_axis)),
+        "bi": P((Fd,), (ff_axis,), "zeros"),
+        "wd": P((Fd, D), (ff_axis, "embed")),
+        "bd": P((D,), ("embed",), "zeros"),
+    }
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, d_ff: int = 0, *, device, dtype):
+    def __init__(self, cfg, d_ff: int = 0, *, device, dtype, ctx=None):
         super().__init__()
-        D, Fd = cfg.d_model, d_ff or cfg.d_ff
         self.mlp_type = cfg.mlp_type
-        kw = dict(device=device, dtype=dtype)
-        if self.gated:
-            self.wg = new_param((D, Fd), **kw)
-            self.wu = new_param((D, Fd), **kw)
-            self.wd = new_param((Fd, D), **kw)
-        else:  # plain gelu (starcoder2, musicgen)
-            self.wi = new_param((D, Fd), **kw)
-            self.bi = new_param((Fd,), "zeros", **kw)
-            self.wd = new_param((Fd, D), **kw)
-            self.bd = new_param((D,), "zeros", **kw)
+        # the context of the row-parallel sum, None when ff is whole
+        self.ctx = ctx if ctx is not None and ctx.sharded("ff") else None
+        add_params(self, mlp_template(cfg, d_ff), ctx, device=device,
+                   dtype=dtype)
 
     @property
     def gated(self) -> bool:
@@ -33,14 +50,20 @@ class MLP(nn.Module):
         return mlp_apply(self, x)
 
 
-def mlp_apply(p: MLP, x):
+def mlp_apply(p: MLP, x, reduce: bool = True):
+    """The MLP of ``x``. With ``reduce=False`` under a sharded ``ff``, the
+    rank's partial sum without the bias ``bd`` (the caller sums over
+    ``model`` and adds it)."""
     if p.gated:
         g = x @ p.wg
         u = x @ p.wu
         act = (F.silu(g) if p.mlp_type == "swiglu"
                else F.gelu(g, approximate="tanh"))
-        return (act * u) @ p.wd
+        y = (act * u) @ p.wd
+        return mesh_collective("sum", y, p.ctx) if reduce else y
     h = x @ p.wi + p.bi.to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return h @ p.wd + p.bd.to(x.dtype)
-
+    y = h @ p.wd
+    if not reduce:
+        return y
+    return mesh_collective("sum", y, p.ctx) + p.bd.to(x.dtype)

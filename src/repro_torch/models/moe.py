@@ -2,9 +2,10 @@
 sort-based ragged dispatch over the experts' SwiGLU FFNs, plus always-on
 shared experts. Counterpart of ``repro/models/moe.py``.
 
-Only the reference's local path is here: this module has no mesh context
-(``ctx``), and the reference's ``shard_map`` modes (experts or every
-expert's d_ff sharded on the ``model`` axis) wait for the mesh tooling.
+Under a ``ShardCtx`` the reference's two ``shard_map`` modes run as local
+shards with explicit sums over the ``model`` axis (``MoE``,
+``moe_apply``): ``"expert"`` (each rank its E/m experts) and
+``"tensor"`` (each rank its d_ff slice of every expert).
 
 Three rules keep the port on the reference's answers and bit for bit
 repeatable on the card:
@@ -40,33 +41,47 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import new_param, torch_dtype
-from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.distributed.collectives import mesh_collective
+from repro_torch.models.common import P, add_params, torch_dtype
+from repro_torch.models.mlp import MLP, mlp_apply, mlp_template
 
 
-def moe_template(cfg) -> dict:
-    """The reference's routed-expert leaves: name -> (shape, init rule).
-    The shared experts are an ``MLP`` of d_ff x n_shared_experts."""
+def moe_template(cfg):
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": ((D, E), "small"),
-            "wg": ((E, D, Fd), "normal"),
-            "wu": ((E, D, Fd), "normal"),
-            "wd": ((E, Fd, D), "normal")}
+    ex_axes = ("experts", "embed", "expert_ff")
+    t = {
+        "router": P((D, E), ("embed", None), "small"),
+        "wg": P((E, D, Fd), ex_axes),
+        "wu": P((E, D, Fd), ex_axes),
+        "wd": P((E, Fd, D), ("experts", "expert_ff", "embed")),
+    }
+    if cfg.n_shared_experts:
+        t["shared"] = mlp_template(cfg, d_ff=cfg.d_ff * cfg.n_shared_experts)
+    return t
 
 
 class MoE(nn.Module):
     """``router`` (D, E), ``wg``/``wu`` (E, D, F), ``wd`` (E, F, D), and
-    ``shared`` (an ``MLP``) when the config has shared experts."""
+    ``shared`` (an ``MLP``) when the config has shared experts. Under
+    ``ctx`` (the reference's ``shard_map`` modes): in ``"expert"`` mode
+    (``experts`` on ``model``) this rank's E/m experts; in ``"tensor"``
+    mode (``expert_ff`` on ``model``) this rank's F/m columns of every
+    expert."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, ctx=None):
         super().__init__()
         self.cfg = cfg
-        for name, (shape, init) in moe_template(cfg).items():
-            setattr(self, name, new_param(shape, init, device=device,
-                                          dtype=dtype))
+        tmpl = moe_template(cfg)
+        tmpl.pop("shared", None)
+        add_params(self, tmpl, ctx, device=device, dtype=dtype)
+        self.mode, self.ctx = None, None
+        if ctx is not None and ctx.sharded("experts"):
+            self.mode, self.ctx = "expert", ctx
+        elif ctx is not None and ctx.sharded("expert_ff"):
+            self.mode, self.ctx = "tensor", ctx
         if cfg.n_shared_experts:
             self.shared = MLP(cfg, d_ff=cfg.d_ff * cfg.n_shared_experts,
-                              device=device, dtype=dtype)
+                              device=device, dtype=dtype, ctx=ctx)
 
     def forward(self, x):
         return moe_apply(self, x, self.cfg)
@@ -229,13 +244,17 @@ def _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo: int,
     return _combine(rows, flat_w, T, k)
 
 
-def _maybe_quant_experts(cfg, *ws):
-    """bf16 -> (f8e4m3, per-expert scale) casts (identity for bf16)."""
+def _maybe_quant_experts(cfg, *ws, ctx=None):
+    """bf16 -> (f8e4m3, per-expert scale) casts (identity for bf16). The
+    scale is taken over each whole expert: under ``ctx`` (``"tensor"``
+    mode, the rank holding a slice of each expert) the amax is the
+    maximum over ``model``."""
     if not cfg.moe_weight_dtype.startswith("float8"):
         return [(w, None) for w in ws]
     out = []
     for w in ws:
         amax = w.float().abs().amax(dim=(1, 2), keepdim=True)
+        amax = mesh_collective("max", amax, ctx)
         # tensor / tensor: ``448.0 / t`` is t.reciprocal() * 448 in torch,
         # which rounds twice and misses the reference's scale by an ulp
         scale = torch.full_like(amax, 448.0) / torch.clamp(amax, min=1e-9)
@@ -251,25 +270,53 @@ def _dequant(wq, scale, dtype):
 
 
 def moe_apply(p: MoE, x, cfg):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar), the reference's
-    local path (no mesh). Capacity per expert max(T k cf / E, 4); the
-    ragged path keeps every assignment (T k rows, at least 8)."""
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar). Capacity per
+    expert max(T k cf / E, 4), T the rank's tokens; the ragged path keeps
+    every assignment (T k rows, at least 8), or T k cf / m rows (at least
+    8) in ``"expert"`` mode over m ranks. In ``"expert"`` mode the rank
+    runs the assignments routed to its experts [e_lo, e_lo + E/m) and
+    the load-balance loss is averaged over ``model``; in ``"tensor"``
+    mode every assignment runs against the rank's d_ff slice. Either
+    way the routed and shared experts' partial sums are added over
+    ``model`` in one collective."""
     D = x.shape[-1]
     dt = torch_dtype(cfg.dtype)
-    wg, wu, wd = (_dequant(q, s, dt) for q, s in
-                  _maybe_quant_experts(cfg, p.wg, p.wu, p.wd))
+    wg, wu, wd = (_dequant(q, s, dt) for q, s in _maybe_quant_experts(
+        cfg, p.wg, p.wu, p.wd,
+        ctx=p.ctx if p.mode == "tensor" else None))
     xt = x.reshape(-1, D)
     T = xt.shape[0]
     topw, topi, aux = _route(xt, p.router, cfg)
+    e_lo, e_n, m = 0, cfg.n_experts, 1
+    if p.mode == "expert":
+        m = p.ctx.size("model")
+        e_n = cfg.n_experts // m
+        e_lo = p.ctx.index("model") * e_n
     if cfg.moe_dispatch == "capacity":
         cap_e = max(int(T * cfg.top_k * cfg.capacity_factor
                         / cfg.n_experts), 4)
-        out = _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, 0,
-                                     cfg.n_experts, cap_e)
+        out = _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo,
+                                     e_n, cap_e)
     else:
-        out = _dispatch_ffn(xt, topw, topi, wg, wu, wd, cfg, 0,
-                            cfg.n_experts, max(T * cfg.top_k, 8))
+        cap = (int(T * cfg.top_k * cfg.capacity_factor / m) if m > 1
+               else T * cfg.top_k)
+        out = _dispatch_ffn(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n,
+                            max(cap, 8))
     out = out.reshape(x.shape)
-    if cfg.n_shared_experts:
+    if p.mode is None:
+        if cfg.n_shared_experts:
+            out = out + mlp_apply(p.shared, x)
+        return out, aux
+    # shared experts split over ``model`` join the routed partial sums;
+    # whole ones (d_ff not divisible) are added after the sum
+    split = cfg.n_shared_experts and p.shared.ctx is not None
+    if split:
+        out = out + mlp_apply(p.shared, x, reduce=False)
+    out = mesh_collective("sum", out, p.ctx)
+    if split and not p.shared.gated:
+        out = out + p.shared.bd.to(x.dtype)
+    elif cfg.n_shared_experts and not split:
         out = out + mlp_apply(p.shared, x)
+    if p.mode == "expert":
+        aux = mesh_collective("mean", aux, p.ctx)
     return out, aux

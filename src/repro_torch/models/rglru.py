@@ -22,6 +22,10 @@ The state ``{"h": (B,R) float32, "conv": (B,cw-1,R)}`` is written in
 place: ``rglru_apply`` returns the dict it was given, so a decode step
 moves only its token and the state. ``conv`` is float32 in the cache and
 holds the values rounded to ``u``'s dtype, which the reference returns.
+
+Under a ``ShardCtx`` that puts ``lru`` on the ``model`` axis each rank
+holds its channels (and state), runs ``rglru_scan`` on them, and the out
+projection's partial sums are added over ``model``.
 """
 from __future__ import annotations
 
@@ -31,35 +35,57 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.collectives import mesh_collective
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models.common import new_param
+from repro_torch.models.common import P, add_params
 
 _C = 8.0  # Griffin's recurrence-gate temperature
+
+
+def rglru_template(cfg):
+    D = cfg.d_model
+    R = cfg.lru_width or D
+    nb = cfg.lru_gate_blocks
+    Rb = R // nb
+    cw = cfg.conv1d_width
+    return {
+        "wy": P((D, R), ("embed", "lru")),          # gelu branch
+        "wx": P((D, R), ("embed", "lru")),          # recurrent branch
+        "conv_w": P((cw, R), ("conv", "lru"), "small"),
+        "conv_b": P((R,), ("lru",), "zeros"),
+        "gate_a": P((nb, Rb, Rb), ("blocks", None, None), "small"),
+        "ba": P((R,), ("lru",), "zeros"),
+        "gate_x": P((nb, Rb, Rb), ("blocks", None, None), "small"),
+        "bx": P((R,), ("lru",), "zeros"),
+        "lam": P((R,), ("lru",), "ones"),            # Λ (softplus'd)
+        "wo": P((R, D), ("lru", "embed")),
+    }
+
+
+def rglru_state_template(cfg, batch: int):
+    R = cfg.lru_width or cfg.d_model
+    cw = cfg.conv1d_width
+    return {
+        "h": P((batch, R), ("batch", "lru"), "zeros"),
+        "conv": P((batch, cw - 1, R), ("batch", "conv", "lru"), "zeros"),
+    }
 
 
 class RGLRU(nn.Module):
     """``wy``/``wx`` (D,R), ``conv_w`` (cw,R), ``conv_b`` (R,), ``gate_a``/
     ``gate_x`` (nb,R/nb,R/nb), ``ba``/``bx`` (R,), ``lam`` (R,), ``wo``
-    (R,D), under ``rglru_template``'s init rules."""
+    (R,D), under ``rglru_template``'s init rules; under ``ctx`` this
+    rank's channels where the rules shard ``lru`` (and its gate blocks
+    where they shard ``blocks``)."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, ctx=None):
         super().__init__()
-        D = cfg.d_model
-        R = cfg.lru_width or D
-        nb = cfg.lru_gate_blocks
-        Rb = R // nb
-        cw = cfg.conv1d_width
-        kw = dict(device=device, dtype=dtype)
-        self.wy = new_param((D, R), **kw)
-        self.wx = new_param((D, R), **kw)
-        self.conv_w = new_param((cw, R), "small", **kw)
-        self.conv_b = new_param((R,), "zeros", **kw)
-        self.gate_a = new_param((nb, Rb, Rb), "small", **kw)
-        self.ba = new_param((R,), "zeros", **kw)
-        self.gate_x = new_param((nb, Rb, Rb), "small", **kw)
-        self.bx = new_param((R,), "zeros", **kw)
-        self.lam = new_param((R,), "ones", **kw)
-        self.wo = new_param((R, D), **kw)
+        self.ctx = ctx if ctx is not None and ctx.sharded("lru") else None
+        # the gates need every channel of a block: gathered when the
+        # channels are split over ranks but the blocks are not
+        self.gather_u = self.ctx is not None and not ctx.sharded("blocks")
+        add_params(self, rglru_template(cfg), ctx, device=device,
+                   dtype=dtype)
 
 
 def causal_conv(p: RGLRU, u, conv_cache):
@@ -79,14 +105,34 @@ def causal_conv(p: RGLRU, u, conv_cache):
 
 
 def gates(p: RGLRU, u):
-    """Block-diagonal sigmoid gates in float32. u: (B,S,R) -> (r, i)."""
+    """Block-diagonal sigmoid gates in float32. u: (B,S,R) -> (r, i).
+    When the rank holds a slice of the channels but every block, ``u``
+    is gathered over ``model``, the gates taken on every channel and the
+    rank's slice kept."""
+    if p.gather_u:
+        R_loc = u.shape[-1]
+        c0 = p.ctx.index("model") * R_loc
+        full = mesh_collective("gather", u, p.ctx, dim=-1)
+        r, i = _gates(p, full, _full_bias(p))
+        return r[..., c0:c0 + R_loc], i[..., c0:c0 + R_loc]
+    return _gates(p, u, (p.ba, p.bx))
+
+
+def _full_bias(p: RGLRU):
+    """``ba`` and ``bx`` over every channel, gathered over ``model``."""
+    return tuple(mesh_collective("gather", b, p.ctx, dim=-1)
+                 for b in (p.ba, p.bx))
+
+
+def _gates(p: RGLRU, u, biases):
     B, S, R = u.shape
+    ba, bx = biases
     nb = p.gate_a.shape[0]
     ub = u.reshape(B, S, nb, R // nb).float()
     ga = torch.einsum("bsnr,nrk->bsnk", ub, p.gate_a.float())
     gx = torch.einsum("bsnr,nrk->bsnk", ub, p.gate_x.float())
-    r = torch.sigmoid(ga.reshape(B, S, R) + p.ba.float())
-    i = torch.sigmoid(gx.reshape(B, S, R) + p.bx.float())
+    r = torch.sigmoid(ga.reshape(B, S, R) + ba.float())
+    i = torch.sigmoid(gx.reshape(B, S, R) + bx.float())
     return r, i
 
 
@@ -120,4 +166,4 @@ def rglru_apply(p: RGLRU, x, state: Optional[dict] = None
         state["conv"].copy_(conv_new)
     gate = F.gelu(y.float(), approximate="tanh")
     out = (hs * gate).to(x.dtype) @ p.wo
-    return out, state
+    return mesh_collective("sum", out, p.ctx), state

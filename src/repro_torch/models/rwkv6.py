@@ -20,6 +20,13 @@ float32 through the decay LoRA; the decay is ``-exp(clip(w_raw, -20,
 The state ``{"s": (B,H,hd,hd), "x_prev_tm": (B,D), "x_prev_cm": (B,D)}``,
 all float32, is written in place (the kernel writes the final wkv state
 over ``s``), so a decode step moves only its token and the state.
+
+Under a ``ShardCtx`` that puts ``heads`` on the ``model`` axis each rank
+holds its wkv heads and their state, runs ``rwkv6_scan`` on them (the
+decay, gate and group norm taken on those heads' channels), and the out
+projection's partial sums are added over ``model``; the channel mix
+splits its hidden units where ``ff`` is sharded, its partial sums added
+before the receptance gate.
 """
 from __future__ import annotations
 
@@ -29,40 +36,69 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.collectives import mesh_collective
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.models.common import new_param
+from repro_torch.models.common import P, add_params
 
 _LORA = 64  # decay-LoRA rank
 
 
+def rwkv_template(cfg):
+    D = cfg.d_model
+    H, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+    Fd = cfg.d_ff
+    return {
+        # --- time mix ---
+        "mu": P((5, D), (None, "embed"), "small"),        # r,k,v,w,g shifts
+        "w0": P((D,), ("embed",), "small"),
+        "w_lora_a": P((D, _LORA), ("embed", None), "small"),
+        "w_lora_b": P((_LORA, D), (None, "embed"), "small"),
+        "wr": P((D, H, hd), ("embed", "heads", None)),
+        "wk": P((D, H, hd), ("embed", "heads", None)),
+        "wv": P((D, H, hd), ("embed", "heads", None)),
+        "wg": P((D, D), ("embed", None)),
+        "u": P((H, hd), ("heads", None), "small"),        # bonus
+        "gn_w": P((D,), ("embed",), "ones"),
+        "gn_b": P((D,), ("embed",), "zeros"),
+        "wo": P((H, hd, D), ("heads", None, "embed")),
+        # --- channel mix ---
+        "mu_cm": P((2, D), (None, "embed"), "small"),
+        "wk_cm": P((D, Fd), ("embed", "ff")),
+        "wv_cm": P((Fd, D), ("ff", "embed")),
+        "wr_cm": P((D, D), ("embed", None)),
+    }
+
+
+def rwkv_state_template(cfg, batch: int):
+    H, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+    return {
+        "s": P((batch, H, hd, hd), ("batch", "heads", None, None), "zeros"),
+        "x_prev_tm": P((batch, cfg.d_model), ("batch", "act_embed"), "zeros"),
+        "x_prev_cm": P((batch, cfg.d_model), ("batch", "act_embed"), "zeros"),
+    }
+
+
 class RWKVMix(nn.Module):
     """Time-mix and channel-mix parameters under ``rwkv_template``'s
-    names, shapes and init rules."""
+    names, shapes and init rules; under ``ctx`` this rank's wkv heads
+    (``wr``, ``wk``, ``wv``, ``u``, ``wo``) and channel-mix hidden units
+    where the rules shard ``heads`` and ``ff``."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, ctx=None):
         super().__init__()
-        D = cfg.d_model
-        H, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
-        Fd = cfg.d_ff
-        kw = dict(device=device, dtype=dtype)
-        # time mix
-        self.mu = new_param((5, D), "small", **kw)       # r,k,v,w,g shifts
-        self.w0 = new_param((D,), "small", **kw)
-        self.w_lora_a = new_param((D, _LORA), "small", **kw)
-        self.w_lora_b = new_param((_LORA, D), "small", **kw)
-        self.wr = new_param((D, H, hd), **kw)
-        self.wk = new_param((D, H, hd), **kw)
-        self.wv = new_param((D, H, hd), **kw)
-        self.wg = new_param((D, D), **kw)
-        self.u = new_param((H, hd), "small", **kw)       # bonus
-        self.gn_w = new_param((D,), "ones", **kw)
-        self.gn_b = new_param((D,), "zeros", **kw)
-        self.wo = new_param((H, hd, D), **kw)
-        # channel mix
-        self.mu_cm = new_param((2, D), "small", **kw)
-        self.wk_cm = new_param((D, Fd), **kw)
-        self.wv_cm = new_param((Fd, D), **kw)
-        self.wr_cm = new_param((D, D), **kw)
+        self.heads_ctx = (ctx if ctx is not None and ctx.sharded("heads")
+                          else None)
+        self.ff_ctx = ctx if ctx is not None and ctx.sharded("ff") else None
+        add_params(self, rwkv_template(cfg), ctx, device=device,
+                   dtype=dtype)
+
+    def channels(self, t, dim: int = -1):
+        """``t``'s slice along ``dim`` (of d_model) that this rank's
+        heads cover; ``t`` itself when the heads are whole."""
+        if self.heads_ctx is None:
+            return t
+        n = self.wr.shape[1] * self.wr.shape[2]
+        return t.narrow(dim, self.heads_ctx.index("model") * n, n)
 
 
 def shift(x, prev):
@@ -86,7 +122,7 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     """x: (B,S,D) normed input. state: the block's state dict (``s``,
     ``x_prev_tm``) or None; updated in place. Returns (out, state)."""
     B, S, D = x.shape
-    H, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+    H, hd = p.wr.shape[1], cfg.rwkv_head_dim
     xf = x.float()
     xx = shift(xf, None if state is None else state["x_prev_tm"])
     d = xx - xf
@@ -96,10 +132,10 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
         return torch.einsum("bsd,dhk->bshk", m.to(x.dtype), w).float()
 
     r, k, v = heads(mr, p.wr), heads(mk, p.wk), heads(mv, p.wv)
-    g = F.silu(mg.to(x.dtype) @ p.wg)
+    g = F.silu(mg.to(x.dtype) @ p.channels(p.wg))
 
-    w_raw = p.w0.float() + torch.tanh(mw @ p.w_lora_a.float()) \
-        @ p.w_lora_b.float()
+    w_raw = p.channels(p.w0).float() + torch.tanh(
+        mw @ p.w_lora_a.float()) @ p.channels(p.w_lora_b).float()
     logw = -torch.exp(torch.clamp(w_raw, -20.0, 8.0))    # (B,S,D), <= 0
     logw = logw.reshape(B, S, H, hd)
 
@@ -111,10 +147,11 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
         o, _ = rwkv6_scan(r, k, v, logw, u, state["s"], s_out=state["s"])
         state["x_prev_tm"].copy_(xf[:, -1])
 
-    y = groupnorm_heads(o, p.gn_w.float(), p.gn_b.float())
+    y = groupnorm_heads(o, p.channels(p.gn_w).float(),
+                        p.channels(p.gn_b).float())
     y = (y * g.float()).to(x.dtype)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, hd), p.wo)
-    return out, state
+    return mesh_collective("sum", out, p.heads_ctx), state
 
 
 def rwkv_channel_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
@@ -126,7 +163,8 @@ def rwkv_channel_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     mk = (xf + d * p.mu_cm[0].float()).to(x.dtype)
     mr = (xf + d * p.mu_cm[1].float()).to(x.dtype)
     kk = torch.square(torch.relu(mk @ p.wk_cm))
-    out = torch.sigmoid(mr @ p.wr_cm) * (kk @ p.wv_cm)
+    out = torch.sigmoid(mr @ p.wr_cm) * mesh_collective(
+        "sum", kk @ p.wv_cm, p.ff_ctx)
     if state is not None:
         state["x_prev_cm"].copy_(xf[:, -1])
     return out, state

@@ -1,17 +1,34 @@
 """Serving steps: prefill (S tokens -> cache + first token) and decode
 (one token against the cache), and the greedy generation loop.
-Counterpart of ``repro/runtime/serve.py``; there is no mesh context
-(``ctx``), and the cache is written in place."""
+Counterpart of ``repro/runtime/serve.py``; the cache is written in
+place.
+
+Under a ``ShardCtx`` (``ctx``, the one the model was built with,
+``Transformer(cfg, ctx=...)``) each rank runs the steps on its rows of
+the batch (``ctx.local(tokens, ("batch", None))``) with its cache
+shards (``init_cache(..., ctx=ctx)``), and gets every token's logits
+over the whole vocab; ``greedy_generate`` takes the whole prompt, splits
+it over ``data`` and gathers the generated tokens back, so every rank
+returns the whole batch's. ``ctx=None`` is the single-device path.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.collectives import mesh_collective
 from repro_torch.models import frontends
 from repro_torch.models import transformer as tfm
 
 
-def make_prefill_step(cfg):
+def _check_ctx(model, ctx) -> None:
+    if ctx is not model.ctx:
+        raise ValueError("the step's ctx is not the one the model was "
+                         "built with")
+
+
+def make_prefill_step(cfg, ctx=None):
     def prefill(model, batch, cache):
+        _check_ctx(model, ctx)
         if "embeds" in batch:
             inp = dict(embeds=batch["embeds"])
             B, S = batch["embeds"].shape[:2]
@@ -31,10 +48,11 @@ def make_prefill_step(cfg):
     return prefill
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, ctx=None):
     def decode(model, token, cache, t: int):
         """token: (B,1) int32 (or (B,1,D) embeds for stub frontends);
         t: the current position."""
+        _check_ctx(model, ctx)
         B = token.shape[0]
         positions = torch.full((B, 1), int(t), dtype=torch.int32,
                                device=model.device)
@@ -52,14 +70,18 @@ def make_decode_step(cfg):
     return decode
 
 
-def greedy_generate(model, cfg, prompt_tokens, n_new: int, max_seq: int):
+def greedy_generate(model, cfg, prompt_tokens, n_new: int, max_seq: int,
+                    ctx=None):
     """Generation loop: prefill + (n_new - 1) greedy decode steps.
-    Returns (B, n_new) int32 tokens."""
+    Returns (B, n_new) int32 tokens (under ``ctx``, the whole batch's on
+    every rank)."""
     B, S = prompt_tokens.shape
     cache = tfm.init_cache(cfg, B, max_seq, dtype=cfg.dtype,
-                           device=model.device)
-    prefill = make_prefill_step(cfg)
-    decode = make_decode_step(cfg)
+                           device=model.device, ctx=ctx)
+    if ctx is not None:
+        prompt_tokens = ctx.local(prompt_tokens, ("batch", None))
+    prefill = make_prefill_step(cfg, ctx)
+    decode = make_decode_step(cfg, ctx)
     tok, cache = prefill(model, dict(tokens=prompt_tokens), cache)
     out = [tok]
     t = S
@@ -67,4 +89,5 @@ def greedy_generate(model, cfg, prompt_tokens, n_new: int, max_seq: int):
         tok, cache = decode(model, tok, cache, t)
         out.append(tok)
         t += 1
-    return torch.cat(out, dim=1)
+    return mesh_collective("gather", torch.cat(out, dim=1), ctx, "data",
+                           dim=0)

@@ -1475,9 +1475,13 @@ class StreamingBayesSplitEdge:
             qd_max = max(qd_max, len(pending))
             # lanes whose budget <= n_init retire at the init design —
             # flush them (plus preempted/quarantine-retired lanes)
-            # before (possibly instead of) any dispatch
+            # before (possibly instead of) any dispatch. A muted pool
+            # is a hung host: it delivers nothing and frees no lane, so
+            # its work waits for the heartbeat verdict (drop -> requeue
+            # onto a survivor) or for the pool to come back
             for p in self._pools:
-                yield from flush(p)
+                if not p.muted:
+                    yield from flush(p)
             draining = self._feed_done and not pending
             dispatched = []
             for p in self._pools:

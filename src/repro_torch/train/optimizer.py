@@ -20,8 +20,16 @@ scaled inside the update's loop, one leaf at a time, the reference's
 ``g.astype(float32) * scale`` element for element. No float32 copy of
 the gradient tree exists (at Qwen1.5-MoE-A2.7B's 14.3 B parameters it
 would be 57.3 GB); ``clip_by_global_norm`` stays for the reference's
-API. ``state_template`` and ``opt_spec_tree`` build ``PartitionSpec``
-trees and wait for the mesh tooling.
+API.
+
+``Optimizer.state_template`` maps a parameter template tree
+(``models.transformer.model_template``, ``P`` leaves in the reference's
+stacked layout) to the state's template, as the reference's: AdamW's
+``m`` and ``v`` mirror it; Adafactor factors each leaf of two or more
+dims into ``vr`` (all but the last dim) and ``vc`` (all but the
+second-to-last), so a stack of vectors (reps, D) gets ``vr`` (reps,) and
+``vc`` (D,); ``step`` is a scalar. ``opt_spec_tree`` maps it to specs.
+The templates are host data, never tensors.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.common import P
 from repro_torch.tree import tree_leaves, tree_map
 
 F32 = torch.float32
@@ -40,6 +49,13 @@ F32 = torch.float32
 class Optimizer:
     init: Callable
     update: Callable          # (grads, state, params) -> (params, state, m)
+    state_template: Callable = None   # param template -> state template
+
+
+def _map_p(fn, tmpl):
+    if isinstance(tmpl, dict):
+        return {k: _map_p(fn, v) for k, v in tmpl.items()}
+    return fn(tmpl)
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -110,7 +126,13 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         state["step"].copy_(step)
         return params, state, dict(gnorm=gnorm, lr=lr)
 
-    return Optimizer(init, update)
+    def state_template(tmpl):
+        def as_p(t):
+            return P(t.shape, t.axes, "zeros")
+        return dict(m=_map_p(as_p, tmpl), v=_map_p(as_p, tmpl),
+                    step=P((), (), "zeros"))
+
+    return Optimizer(init, update, state_template)
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +261,22 @@ def adafactor(lr_fn, eps: float = 1e-30, clip_thresh: float = 1.0,
         state["step"].copy_(step)
         return params, state, dict(gnorm=gnorm, lr=lr)
 
-    return Optimizer(init, update)
+    def state_template(tmpl):
+        def per_leaf(tp):
+            if _factored(tp.shape):
+                return dict(vr=P(tp.shape[:-1], tp.axes[:-1], "zeros"),
+                            vc=P(tp.shape[:-2] + tp.shape[-1:],
+                                 tp.axes[:-2] + tp.axes[-1:], "zeros"))
+            return dict(v=P(tp.shape, tp.axes, "zeros"))
+        return dict(v=_map_p(per_leaf, tmpl), step=P((), (), "zeros"))
+
+    return Optimizer(init, update, state_template)
+
+
+def opt_spec_tree(opt: Optimizer, param_template, ctx):
+    """The spec tree of the optimizer state (``sharding.spec_tree``)."""
+    from repro_torch.distributed.sharding import spec_tree
+    return spec_tree(opt.state_template(param_template), ctx)
 
 
 def _groups(paths, stacks):

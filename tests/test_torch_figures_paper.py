@@ -116,10 +116,16 @@ def test_expected_answers_are_the_reference_s(expected):
     assert expected == reference_answers_on_one_cpu()
 
 
+# Fig 7 holds Basic-BO at parity level 3 on the CPU too: its powers
+# drift with the host's float32 rounding (fig7_space_torch.CPU_LEVEL3)
+CPU_RULES = {"fig7": dict(level3=fig7.CPU_LEVEL3)}
+
+
 @pytest.mark.parametrize("name", list(FIGURES))
 def test_port_figure_gives_the_reference_s_answers(port, expected, name):
     got = FIGURES[name].answers(port[name])
-    assert FIGURES[name].mismatches(got, expected[name]) == []
+    assert FIGURES[name].mismatches(got, expected[name],
+                                    **CPU_RULES.get(name, {})) == []
 
 
 @pytest.mark.parametrize("name", list(FIGURES))
@@ -159,6 +165,14 @@ def test_mismatches_see_a_changed_number(expected):
         "/Bayes-Split-Edge/acc_per_step/*"]
     assert fig7.mismatches(got["fig7"], expected["fig7"]) == [
         "/samples/Basic-BO/*/p"]
+    assert fig7.mismatches(got["fig7"], expected["fig7"],
+                           level3=fig7.CPU_LEVEL3) == []
+    moved = json.loads(json.dumps(got["fig7"]))
+    moved["samples"]["Basic-BO"][5]["feasible"] ^= True
+    moved["samples"]["Bayes-Split-Edge"][5]["p"] += 2 * fig7.BO_POWER_TOL
+    assert fig7.mismatches(moved, expected["fig7"],
+                           level3=fig7.CPU_LEVEL3) == [
+        "/samples/Basic-BO/*/feasible", "/samples/Bayes-Split-Edge/*/p"]
     assert profiling.mismatches(got["profiling"], expected["profiling"]) == [
         "/layers/*/tx_mean_s"]
     assert trace.mismatches(got["trace_robustness"],

@@ -2,8 +2,10 @@
 the same numpy-seeded data. Tolerances: kernel values and one Adam step
 rtol 1e-6; the MLL and its gradient rtol 1e-5; fitted hyperparameters
 after 150 Adam steps rtol 1e-4 (autodiff orders differ); posteriors
-given the same fitted cache rtol 1e-5 for the mean and its gradient,
-1e-3 for sigma (f32 cancellation in sv - |L^-1 k|^2)."""
+given the same fitted cache rtol 1e-5 for the mean and its gradient;
+sigma, where sv - |L^-1 k|^2 cancels in float32, held in both packages
+to a float64 evaluation of the same posterior within the cancellation's
+bound (``_sigma64``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,6 +182,44 @@ def _ref_cache(S=3, seed=0):
     return cache, from_reference(cache, "cpu")
 
 
+U32 = 2.0 ** -24                     # float32 unit roundoff
+
+
+def _sigma64(cache, A):
+    """sigma of each lane's posterior at A in float64 from the cache's own
+    float32 values (theta, L, x, mask, y_sigma), and the bound on a
+    float32 evaluation's error. With n data rows, the float32 kernel
+    values, the backward-stable triangular solve and the sum of n squares
+    make at most 2n roundings, each relative to the terms that cancel, so
+    the variance errs by at most 2 n u (sv + |L^-1 k|^2) to first order;
+    the bound on sigma is that interval's image under sqrt(.) y_sigma."""
+    from scipy.linalg import solve_triangular
+
+    sig, bound = [], []
+    for b in range(A.shape[0]):
+        ls = np.exp(np.float64(cache["theta"]["log_ls"][b]))
+        sv = np.exp(np.float64(cache["theta"]["log_sv"][b]))
+        x = cache["x"][b].astype(np.float64)
+        r = np.sqrt(((x[:, None] - A[b][None].astype(np.float64)) ** 2
+                     ).sum(-1)) / ls
+        k = (sv * (1 + np.sqrt(5) * r + 5 * r * r / 3) * np.exp(
+            -np.sqrt(5) * r) * cache["mask"][b][:, None])
+        v = solve_triangular(cache["L"][b].astype(np.float64), k,
+                             lower=True)
+        s2 = np.sum(v * v, axis=0)
+        var, tol = sv - s2, 2 * x.shape[0] * U32 * (sv + s2)
+        ys = np.float64(cache["y_sigma"][b])
+        sig.append(np.sqrt(np.maximum(var, 1e-12)) * ys)
+        bound.append(ys * (np.sqrt(np.maximum(var + tol, 1e-12))
+                           - np.sqrt(np.maximum(var - tol, 1e-12))))
+    return np.array(sig), np.array(bound)
+
+
+def _assert_sigma(sig, sig64, bound):
+    err = np.abs(np.asarray(sig, np.float64) - sig64)
+    assert np.all(err <= bound), (err.max(), bound.flat[err.argmax()])
+
+
 def test_posteriors_equal_given_the_same_cache():
     cache_r, cache_p = _ref_cache()
     rng = np.random.default_rng(5)
@@ -187,16 +227,17 @@ def test_posteriors_equal_given_the_same_cache():
     cj = jax.tree.map(jnp.asarray, cache_r)
     mu_r, sig_r = jax.vmap(ref.posterior_batch)(cj, jnp.asarray(A))
     mu_p, sig_p = port.posterior_batch(cache_p, torch.as_tensor(A))
+    sig64, bound = _sigma64(cache_r, A)
     np.testing.assert_allclose(mu_p.numpy(), np.asarray(mu_r), rtol=1e-5)
-    np.testing.assert_allclose(sig_p.numpy(), np.asarray(sig_r), rtol=1e-3,
-                               atol=1e-4)
+    _assert_sigma(sig_p.numpy(), sig64, bound)
+    _assert_sigma(sig_r, sig64, bound)
     mu_r, sig_r, g_r = jax.vmap(ref.posterior_with_grad_batch)(
         cj, jnp.asarray(A))
     mu_p, sig_p, g_p = port.posterior_with_grad_batch(cache_p,
                                                       torch.as_tensor(A))
     np.testing.assert_allclose(mu_p.numpy(), np.asarray(mu_r), rtol=1e-5)
-    np.testing.assert_allclose(sig_p.numpy(), np.asarray(sig_r), rtol=1e-3,
-                               atol=1e-4)
+    _assert_sigma(sig_p.numpy(), sig64, bound)
+    _assert_sigma(sig_r, sig64, bound)
     np.testing.assert_allclose(g_p.numpy(), np.asarray(g_r), rtol=1e-5,
                                atol=1e-4)
     # one lane without the lane axis, as the single-point posterior
