@@ -6,7 +6,9 @@
 (``python3 chip_smoke.py --bo-group G OUT.json`` runs one group of phases
 4b-4f alone and writes its launches to OUT.json: the script starts one
 such process for each group. ``--mesh-rank R W PORT DIR`` and
-``--mesh-nccl PORT DIR`` are phase 7's rank processes, which it starts.)
+``--mesh-nccl PORT DIR`` are phase 7's rank processes, and
+``--train-mesh-rank R W PORT DIR`` and ``--train-mesh-nccl PORT DIR``
+phase 8's, which it starts.)
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -252,13 +254,46 @@ Phases, each of which raises on failure (non-zero exit):
    float32 copy, any other token choice a tie (``TP_TIE_FACTOR``).
    Phase 2 also holds ``decode_attention`` with its log-sum-exp
    (``DECODE_LSE_SHAPES``) against the plain version.
+8. training on the mesh, run beside phases 4b-4f (they wait on the
+   host; its ranks need nothing of the phases before it):
+   ``MESH_RANKS`` gloo ranks sharing the card, then one NCCL process of
+   world size 1, each printing ``mesh_train_*``
+   lines (loss, gnorm, the worst gradient leaf and moment against the
+   1-rank step, launches, collectives by kind with bytes and bytes
+   staged through the host, step time on the host's clock, peak
+   memory): (a) one float32 AdamW step of Qwen2-1.5B at full width and
+   depth, B 4 x S 512, on (data 1, model 2) tensor parallel and on
+   (data 2, model 1) with FSDP, each held to the 1-rank step on the same
+   weights and batch (run by each rank in turn, its shards kept) at
+   ``MESH_STEP_TOL`` (loss, gnorm, every gradient leaf and moment by its
+   norm; RWKV6-3B's ``mix.u`` at ``MESH_LOOSE_FACTOR`` times that, and
+   each RWKV6-3B leaf's bar raised by its own kernel-against-plain
+   difference in the 1-rank step, ``MESH_NOISE_ARCHS``); (b) 5
+   bf16 steps on each mesh through ``launch.train.build`` at
+   ``TRAIN_RUN``'s lr, the first batch's loss falling, the mesh's token
+   losses on it within twice the 1-rank bf16 run's own (per-token) error
+   against float32, and the first step's loss their mean; (c) one
+   float32 step of RecurrentGemma-2B and
+   RWKV6-3B (one pattern cycle, 2 layers) on (1, 2) and of 2 MoE layers
+   of Qwen1.5-MoE-A2.7B with Adafactor in both ``moe_sharding`` modes on
+   (1, 2) and in ``"tensor"`` mode on (2, 1) (the global batch routed
+   whole, as the reference's jit routes it with a model axis of one),
+   each held as (a); (d) 2 layers, bf16: 2 steps on (1, 2), a save
+   (gathered, one rank writes), a restore onto (2, 1) with FSDP equal
+   bit for bit, a third step whose token losses lie within three times
+   the 2-layer model's own bf16 error of an unbroken 1-rank run's; (e)
+   one bf16 step of (b)'s model over a world-1 NCCL mesh (NCCL
+   initialised, no collective run), equal bit for bit to the same step
+   with no mesh. Phase 2 holds each kernel these steps launch,
+   forward and backward, at the shape a rank sees
+   (``MESH_FLASH_SHAPES``, the scans' ``mesh_tp`` rows).
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
 each figure of 4f, the executor run of 4g, each model's split,
 serving and generation runs, and each training run and step check of
-phase 6, and each rank's whole run and generation of phase 7) and read
-just after:
+phase 6, each rank's whole run and generation of phase 7, and each
+rank's mesh step and bf16 run of phase 8) and read just after:
 each kernel of the path must have launched as often as the model's
 layers say (``MODEL_RUNS``: per forward and per decode step), every other
 kernel never, and the plain versions never. In phases 3, 4, 4b-4g
@@ -310,6 +345,22 @@ ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 QWEN = dict(Hq=12, Hkv=2, hd=128)   # Qwen2-1.5B's attention heads
 MOE = dict(Hq=16, Hkv=16, hd=128)   # Qwen1.5-MoE-A2.7B's
 KIMI = dict(Hq=64, Hkv=8, hd=112)   # Kimi K2's (the pool's one hd 112)
+# phase 8's shapes, one rank's (forward and backward): Qwen2-1.5B's B 4 x
+# S 512 on (data 1, model 2), 6/1 heads a rank, in float32 (8a) and bf16
+# (8b, 8d); its whole batch over a world-1 NCCL mesh (8e); and 8c's
+# float32 steps at B 2 x S 512: RecurrentGemma-2B's local layer, whose
+# heads the rules replicate, and Qwen1.5-MoE-A2.7B's 8/8 heads a rank on
+# (1, 2) and its 16/16 on (2, 1), one sequence a rank. (FSDP's (2, 1)
+# ranks run Qwen2-1.5B's B 2 x S 512 at 12/2 heads: the training rows.)
+MESH_FLASH_SHAPES = [
+    ("mesh_tp", 4, 512, 0, torch.bfloat16, 6, 1, 128),
+    ("mesh_tp_f32", 4, 512, 0, torch.float32, 6, 1, 128),
+    ("mesh_nccl", 4, 512, 0, torch.bfloat16, *QWEN.values()),
+    ("mesh_dp_f32", 2, 512, 0, torch.float32, *QWEN.values()),
+    ("mesh_recurrentgemma_f32", 2, 512, 2048, torch.float32, 10, 1, 256),
+    ("mesh_moe_tp_f32", 2, 512, 0, torch.float32, 8, 8, 128),
+    ("mesh_moe_dp_f32", 1, 512, 0, torch.float32, *MOE.values()),
+]
 # flash attention: (name, B, S, window, dtype, Hq, Hkv, hd)
 FLASH_SHAPES = [
     ("split_serving", 2, 32, 0, torch.bfloat16, *QWEN.values()),
@@ -330,6 +381,7 @@ FLASH_SHAPES = [
     ("moe_split_serving", 2, 32, 0, torch.bfloat16, *MOE.values()),
     ("moe_train", 4, 512, 0, torch.bfloat16, *MOE.values()),
     ("kimi_prefill", 1, 512, 0, torch.bfloat16, *KIMI.values()),
+    *MESH_FLASH_SHAPES,
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 0, torch.float32, 4, 2, 32),
     ("case1", 1, 256, 0, torch.float32, 8, 8, 64),
@@ -353,6 +405,7 @@ FLASH_BWD_SHAPES = [
     ("moe_heads", 2, 512, 0, torch.bfloat16, *MOE.values()),
     ("moe_train", 4, 512, 0, torch.bfloat16, *MOE.values()),
     ("kimi_train", 1, 512, 0, torch.bfloat16, *KIMI.values()),
+    *(row for row in MESH_FLASH_SHAPES if row[0] != "mesh_dp_f32"),
     *(row for row in FLASH_SHAPES if row[0].startswith("case")),
 ]
 FLASH_BWD_MAIN = "train"
@@ -414,6 +467,8 @@ RGLRU_SHAPES = [
     ("prefill_bf16", 2, 512, 2560, torch.bfloat16),
     # RecurrentGemma-2B's window: the kernel runs S in 16 pieces
     ("prefill_2k", 1, 2048, 2560, torch.float32),
+    # one rank's channels in phase 8c: (data 1, model 2), B 2 x S 512
+    ("mesh_tp", 2, 512, 1280, torch.float32),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 64, 32, torch.float32),
     ("case1", 1, 100, 48, torch.float32),
@@ -426,6 +481,8 @@ RWKV_SHAPES = [
     ("split_serving", 2, 32, 16, 160, torch.float32),
     ("decode", 2, 1, 16, 160, torch.float32),
     ("prefill_bf16", 2, 512, 16, 160, torch.bfloat16),
+    # one rank's heads in phase 8c: (data 1, model 2), B 2 x S 512
+    ("mesh_tp", 2, 512, 8, 160, torch.float32),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 64, 2, 16, torch.float32),
     ("case1", 1, 100, 4, 32, torch.float32),
@@ -448,12 +505,14 @@ RGLRU_BWD_SHAPES = [
     ("train", 2, 512, 2560),
     ("split_serving", 2, 32, 2560),
     ("one_step", 2, 1, 2560),
+    ("mesh_tp", 2, 512, 1280),
     ("case0", 2, 64, 32),
     ("case1", 1, 100, 48),
 ]
 RWKV_BWD_SHAPES = [
     ("train", 2, 512, 16, 160, False),
     ("split_serving", 2, 32, 16, 160, False),
+    ("mesh_tp", 2, 512, 8, 160, False),
     ("case0", 2, 64, 2, 16, False),
     ("case1", 1, 100, 4, 32, False),
     ("case2", 2, 48, 2, 16, False),
@@ -3529,11 +3588,12 @@ def moe_recorded():
     records = []
     dispatch = moe._dispatch_ffn_capacity
 
-    def recorded(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap):
+    def recorded(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap, **kw):
         load = torch.bincount(topi.reshape(-1), minlength=cfg.n_experts)
         records.append(dict(T=xt.shape[0], k=topi.shape[1], E=e_n, C=cap,
                             load=load.tolist(), ids=topi))
-        return dispatch(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap)
+        return dispatch(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n, cap,
+                        **kw)
 
     with mock.patch.object(moe, "_dispatch_ffn_capacity", recorded):
         yield records
@@ -4219,8 +4279,8 @@ def moe_routes_recorded(model):
     names, ids = moe_layer_names(model), {}
     route = moe._route
 
-    def recorded(xt, router_w, cfg):
-        topw, topi, aux = route(xt, router_w, cfg)
+    def recorded(xt, router_w, cfg, batch_ctx=None):
+        topw, topi, aux = route(xt, router_w, cfg, batch_ctx)
         ids.setdefault(names[id(router_w)], []).append(topi)
         return topw, topi, aux
 
@@ -4249,7 +4309,8 @@ def moe_routes_pinned(model, ids):
 
     names, flips = moe_layer_names(model), {}
 
-    def pinned(xt, router_w, cfg):
+    def pinned(xt, router_w, cfg, batch_ctx=None):
+        assert batch_ctx is None, "routes are pinned off a mesh only"
         name = names[id(router_w)]
         pin = ids[name][0]
         T, k, E = xt.shape[0], cfg.top_k, cfg.n_experts
@@ -4286,6 +4347,17 @@ def route_line(cfg, routes, flips):
                 pinned="plain route's experts set to the kernel route's")
 
 
+def step_optimizer(name, lr, model):
+    """``name``'s optimizer (6b's and phase 8's one-step checks) over a
+    cosine schedule with no warm-up to 10 steps."""
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.trainer import stacked_leaves
+
+    sched = optim.cosine_schedule(lr, 0, 10)
+    return (optim.adafactor(sched, stacks=stacked_leaves(model))
+            if name == "adafactor" else optim.adamw(sched))
+
+
 def step_check_phase(kernels, arch=TRAIN_ARCH):
     """6b: one step of ``arch`` at full width and ``STEP_CHECK_LAYERS``
     layers, float32, with its 6a run's optimizer, through the kernels and
@@ -4303,9 +4375,7 @@ def step_check_phase(kernels, arch=TRAIN_ARCH):
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.models import transformer as tfm
-    from repro_torch.train import optimizer as optim
-    from repro_torch.train.trainer import (stacked_leaves, trainable_params,
-                                           value_and_grad)
+    from repro_torch.train.trainer import trainable_params, value_and_grad
 
     c = STEP_CHECK
     t_part = [time.perf_counter()]
@@ -4323,10 +4393,8 @@ def step_check_phase(kernels, arch=TRAIN_ARCH):
     plain_model = copy.deepcopy(model)
     batch = device_batch(SyntheticTokenPipeline(cfg.vocab_size, c["batch"],
                                                 c["seq"]), 0)
-    sched = optim.cosine_schedule(c["lr"], 0, 10)
     optimizer = train_run(arch)["optimizer"]
-    opt = (optim.adafactor(sched, stacks=stacked_leaves(model))
-           if optimizer == "adafactor" else optim.adamw(sched))
+    opt = step_optimizer(optimizer, c["lr"], model)
     pk, pp = trainable_params(model), trainable_params(plain_model)
     sk, sp = opt.init(pk), opt.init(pp)
     lap("setup")
@@ -4948,6 +5016,59 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def start_processes(cmds, d):
+    """Start ``cmds`` (name -> this script's arguments) together, each
+    writing its output to files in ``d``; (processes, files, start)."""
+    procs, files = {}, {}
+    try:
+        for name, args in cmds.items():
+            files[name] = [Path(d) / f"{name}.{x}" for x in ("out", "err")]
+            with open(files[name][0], "w") as o, \
+                    open(files[name][1], "w") as e:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), *args],
+                    cwd=ROOT, stdout=o, stderr=e)
+    except BaseException:
+        stop_processes((procs, files, None))
+        raise
+    return procs, files, time.perf_counter()
+
+
+def stop_processes(started) -> None:
+    for p in started[0].values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def finish_processes(started, timeout) -> None:
+    """Wait for ``start_processes``' processes, a failed one ending the
+    others and failing the phase; their output printed once all have
+    ended."""
+    procs, files, t1 = started
+    try:
+        while (any(p.poll() is None for p in procs.values())
+               and not any(p.poll() for p in procs.values())
+               and time.perf_counter() - t1 < timeout):
+            time.sleep(0.5)
+    finally:
+        stop_processes(started)
+    for name, (out, err) in files.items():
+        sys.stdout.write(out.read_text())
+        sys.stdout.flush()
+        sys.stderr.write(err.read_text())
+        sys.stderr.flush()
+    codes = {n: p.returncode for n, p in procs.items() if p.returncode}
+    if codes:
+        raise AssertionError(f"processes failed (exit codes; negative: "
+                             f"ended by the script): {codes}")
+
+
+def spawn_ranks(cmds, d, timeout):
+    """``cmds`` run together to their end (``finish_processes``)."""
+    finish_processes(start_processes(cmds, d), timeout)
+
+
 def mesh_phase(seconds: dict) -> dict:
     """Phase 7: the 2-layer expert-mode MoE's 1-rank run made here and
     phase 5's runs written for the ranks; MESH_RANKS gloo ranks and the
@@ -4971,35 +5092,9 @@ def mesh_phase(seconds: dict) -> dict:
         cmds = {f"rank{r}": ["--mesh-rank", str(r), str(MESH_RANKS),
                              str(port), d] for r in range(MESH_RANKS)}
         cmds["nccl"] = ["--mesh-nccl", str(free_port()), d]
-        procs, files = {}, {}
         t1 = time.perf_counter()
-        try:
-            for name, args in cmds.items():
-                files[name] = [Path(d) / f"{name}.{x}" for x in ("out", "err")]
-                with open(files[name][0], "w") as o, \
-                        open(files[name][1], "w") as e:
-                    procs[name] = subprocess.Popen(
-                        [sys.executable, str(Path(__file__).resolve()),
-                         *args], cwd=ROOT, stdout=o, stderr=e)
-            while (any(p.poll() is None for p in procs.values())
-                   and not any(p.poll() for p in procs.values())
-                   and time.perf_counter() - t1 < MESH_TIMEOUT_S):
-                time.sleep(0.5)
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-        for name, (out, err) in files.items():
-            sys.stdout.write(out.read_text())
-            sys.stdout.flush()
-            sys.stderr.write(err.read_text())
-            sys.stderr.flush()
+        spawn_ranks(cmds, d, MESH_TIMEOUT_S)
         seconds["7 ranks"] = time.perf_counter() - t1
-        codes = {n: p.returncode for n, p in procs.items() if p.returncode}
-        if codes:
-            raise AssertionError(f"phase 7 processes failed (exit codes; "
-                                 f"negative: ended by the script): {codes}")
         ranks = [json.loads((Path(d) / f"rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
         nccl = json.loads((Path(d) / "nccl.json").read_text())
@@ -5049,6 +5144,701 @@ def mesh_phase(seconds: dict) -> dict:
         rank_seconds=[r["seconds"] for r in ranks],
         nccl_seconds=nccl["seconds"])))
     seconds["7"] = time.perf_counter() - t0
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training on the mesh
+# ---------------------------------------------------------------------------
+
+# 8a-8b: Qwen2-1.5B at full width and depth, B 4 x S 512 in one
+# microbatch, over (data 1, model 2), tensor parallel, and (data 2,
+# model 1) with FSDP: MESH_RANKS gloo ranks sharing the card
+MESH_TRAIN = dict(batch=4, seq=512)
+MESH_TRAIN_MESHES = (("tp", (1, 2), False), ("fsdp", (2, 1), True))
+# 8a and 8c: one float32 step of the mesh against the 1-rank step on the
+# same weights and global batch (each rank runs that step itself, one
+# rank at a time, and keeps its shards of the gradients and moments).
+# The CPU tests' bars (tests/test_torch_mesh_train.py): the loss and
+# gnorm within MESH_STEP_TOL relative; each gradient leaf within
+# MESH_STEP_TOL of its norm, each AdamW moment within twice that; the
+# leaves split over ranks are compared over the whole leaf (the ranks'
+# sums of squares added). RWKV6-3B's ``mix.u`` leaves (MESH_LOOSE_LEAVES)
+# at MESH_LOOSE_FACTOR times those bars: that gradient sums the WKV
+# scan's terms with cancellation, and the order of those sums moves it by
+# 1.74e-5 of its norm on the CPU before any mesh, 2.56e-5 between the
+# card's 8- and 16-head scans
+MESH_STEP_TOL = 1e-5
+MESH_LOOSE_LEAVES = (".mix.u",)
+MESH_LOOSE_FACTOR = 4.0
+# and where an architecture's float32 gradients move with the order of
+# sums by as much as the bar (RWKV6-3B, its WKV scan: 6b's step through
+# the kernels lies up to 2.4e-5 of a leaf's largest element from the
+# plain versions' on the card, and the mesh moved ``mix.wk`` by 1.22e-5
+# of its norm in a run with no such term), the 1-rank step also
+# runs through the plain versions, and each leaf's bar is raised by that
+# leaf's own kernel-against-plain difference, by its norm
+MESH_NOISE_ARCHS = ("rwkv6-3b",)
+MESH_STEP_LR = 1e-3
+# 8b: TRAIN_RUN's lr, 5 steps on each mesh through ``launch.train``'s
+# ``build``. Its bar, token by token on the first batch before the first
+# step: the mean |difference| of the mesh's and the float32 model's
+# token losses within TP_ERR_FACTOR times the 1-rank bf16 run's own (as
+# 7b's); and the first step's loss the mean of the mesh's token losses
+# within MESH_STEP_TOL relative (float32 sums in another order). (The
+# difference of two mean losses can cancel to near zero: no bar.)
+MESH_BF16 = dict(steps=5, lr=TRAIN_RUN["lr"])
+# 8c: (arch, moe_sharding, mesh shape, optimizer), one float32 step each
+# at full width and STEP_CHECK_LAYERS layers, B 2 x S 512; the MoE at
+# (2, 1) routes the global batch, as the reference's jit does with a
+# model axis of one (its per-data-shard shard_map needs model > 1)
+MESH_FAMILY = (("recurrentgemma-2b", None, (1, 2), "adamw"),
+               ("rwkv6-3b", None, (1, 2), "adamw"),
+               (MOE_ARCH, "tensor", (1, 2), "adafactor"),
+               (MOE_ARCH, "expert", (1, 2), "adafactor"),
+               (MOE_ARCH, "tensor", (2, 1), "adafactor"))
+MESH_FAMILY_BATCH = dict(batch=2, seq=512)
+# 8d: 2 layers at full width, bf16: 2 steps on (1, 2), saved, restored on
+# (2, 1) with FSDP, one more step; against an unbroken 1-rank run, token
+# by token on the third batch before the third step: the mean |difference|
+# of the two runs' token losses within TP_TIE_FACTOR times the 2-layer
+# model's own bf16 error against float32 on that batch (its seed-0
+# weights: the TP run's error at most twice it, the 1-rank run's once, as
+# 7b's ties), and the third step's loss the mean of its token losses
+# within MESH_STEP_TOL relative
+MESH_ELASTIC = dict(layers=2, steps=2, batch=4, seq=512)
+MESH_TRAIN_TIMEOUT_S = 600
+
+
+def one_rank_step(cfg, ctxs, optimizer, lr, batch):
+    """The 1-rank step of ``cfg`` (weights from seed 0) on the global
+    ``batch``, on this rank: for each ``ctxs`` entry (name -> ShardCtx)
+    its loss and gnorm, and this rank's shards under that ctx of each
+    gradient leaf and, for AdamW, of the moments after the step, kept in
+    host memory (the card is shared with the other rank and, in the
+    script, with phases 4b-4f); the model freed. For MESH_NOISE_ARCHS
+    also each leaf's (and moment's) difference between the step through
+    the plain versions and this one, by its norm (``noise``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import trainable_params, value_and_grad
+
+    def step(plain):
+        model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                               DEVICE)
+        params = trainable_params(model)
+        opt = step_optimizer(optimizer, lr, model)
+        with plain_route() if plain else contextlib.nullcontext():
+            (loss, _), grads = value_and_grad(model, batch, cfg)
+        _, state, met = opt.update(grads, opt.init(params), params)
+        return params, loss, grads, state, met
+
+    noise = {}
+    if cfg.name in MESH_NOISE_ARCHS:
+        _, _, gp, sp, _ = step(True)
+    params, loss, grads, state, met = step(False)
+    if cfg.name in MESH_NOISE_ARCHS:
+        def rel(a, b):
+            return float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b))
+        noise = {k: rel(gp[k], grads[k]) for k in grads}
+        if optimizer == "adamw":
+            noise.update({f"{m}:{k}": rel(sp[m][k], state[m][k])
+                          for m in ("m", "v") for k in grads})
+        del gp, sp
+    out = {}
+    for name, ctx in ctxs.items():
+        def mine(tree):
+            return {k: ctx.local(v, params[k].axes).cpu()
+                    for k, v in tree.items()}
+        out[name] = dict(loss=float(loss), gnorm=float(met["gnorm"]),
+                         grads=mine(grads), noise=noise)
+        if optimizer == "adamw":
+            out[name]["m"] = mine(state["m"])
+            out[name]["v"] = mine(state["v"])
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_errors(ctx, params, got, want):
+    """Each leaf's |got - want| over |want| in the norm of the whole
+    leaf: each rank's sums of squares added over the mesh axes the leaf
+    is split on, one collective a set of axes."""
+    from repro_torch.distributed.collectives import mesh_collective
+
+    groups = {}
+    for k in want:
+        groups.setdefault(ctx.split_axes(params[k].axes), []).append(k)
+    out = {}
+    for axes, names in groups.items():
+        sums = []
+        for k in names:
+            w = want[k].to(got[k].device).float()
+            sums.append(torch.stack([
+                torch.sum(torch.square(got[k].float() - w)),
+                torch.sum(torch.square(w))]))
+        sums = torch.stack(sums)
+        for a in axes:
+            sums = mesh_collective("sum", sums, ctx, a)
+        for k, (d2, r2) in zip(names, sums.tolist()):
+            out[k] = (d2 / r2) ** 0.5 if r2 else d2 ** 0.5
+    return out
+
+
+def mesh_step(kernels, what, cfg, ctx, optimizer, lr, batch, one):
+    """One step of ``cfg`` over ``ctx`` (the rank's shards, seed 0) on
+    the rank's shard of the global ``batch``, launches and collectives
+    counted, held to ``one`` (``one_rank_step``'s) at MESH_STEP_TOL;
+    returns its row."""
+    from repro_torch.distributed import collectives
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import (local_batch, reduce_gradients,
+                                           trainable_params, value_and_grad)
+
+    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE, ctx=ctx)
+    params = trainable_params(model)
+    opt = step_optimizer(optimizer, lr, model)
+    state = opt.init(params)
+    mine = local_batch(batch, ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    with plain_calls_counted() as plain:
+        (loss, _), grads = value_and_grad(model, mine, cfg, ctx)
+        grads = reduce_gradients(grads, params, ctx)
+        _, state, met = opt.update(grads, state, params, ctx=ctx)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    coll = collectives.counts()
+    check_launches(what, counts, train_launches(cfg, 1), plain)
+    grad_err = leaf_errors(ctx, params, grads, one["grads"])
+    moment_err = {}
+    for k in ("m", "v"):
+        if k in one:
+            for n, e in leaf_errors(ctx, params, state[k], one[k]).items():
+                moment_err[f"{k}:{n}"] = e
+    def leaf_bar(name):
+        return MESH_STEP_TOL * (MESH_LOOSE_FACTOR if name.endswith(
+            MESH_LOOSE_LEAVES) else 1.0) * (2 if ":" in name else 1) + one[
+                "noise"].get(name, 0.0)
+
+    def worst(errs, loose):
+        errs = {k: e for k, e in errs.items()
+                if k.endswith(MESH_LOOSE_LEAVES) == loose}
+        k = max(errs, key=errs.get) if errs else None
+        return dict(leaf=k, rel_err=errs.get(k),
+                    bar=leaf_bar(k) if k else None)
+
+    row = dict(
+        what=what, arch=cfg.name, layers=cfg.n_layers, optimizer=optimizer,
+        ranks=ctx.axis_sizes, fsdp=ctx.rules.get("embed") is not None,
+        moe_sharding=cfg.moe_sharding if cfg.moe else None,
+        loss=float(loss), loss_1rank=one["loss"], gnorm=float(met["gnorm"]),
+        gnorm_1rank=one["gnorm"],
+        grad_rel_err_max=max(grad_err.values()),
+        grad_worst=worst(grad_err, False),
+        grad_worst_loose=worst(grad_err, True),
+        moment_worst=worst(moment_err, False),
+        moment_worst_loose=worst(moment_err, True),
+        leaves=len(grad_err), noise_max=max(one["noise"].values(),
+                                            default=None),
+        launches=counts, collectives=coll,
+        step_s=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tol=dict(loss_gnorm=MESH_STEP_TOL, grad=MESH_STEP_TOL,
+                 moment=2 * MESH_STEP_TOL, loose_leaves=MESH_LOOSE_LEAVES,
+                 loose_factor=MESH_LOOSE_FACTOR))
+    log("mesh_train_step", json.dumps(row))
+    bad = [k for k in ("loss", "gnorm") if abs(row[k] - row[f"{k}_1rank"])
+           > MESH_STEP_TOL * abs(row[f"{k}_1rank"])]
+    bad += [k for k, e in {**grad_err, **moment_err}.items()
+            if e > leaf_bar(k)]
+    if bad:
+        raise AssertionError(f"{what}: the mesh step differs from the "
+                             f"1-rank step ({bad[:8]}): {row}")
+    del model, params, grads, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def serially(rank, world, fn):
+    """``fn()`` on each rank in turn (one rank's 1-rank step at a time on
+    the shared card); every rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def mesh_checks(kernels, rank, world, what, cfg, meshes, optimizer, lr,
+                batch):
+    """8a or 8c: the 1-rank step (each rank in turn, keeping its shards
+    for every mesh), then each mesh's step held to it. ``meshes``: name
+    -> (mesh, fsdp). Returns the rows by name."""
+    from repro_torch.distributed.sharding import make_ctx
+
+    ctxs = {name: make_ctx(cfg, mesh, fsdp=fsdp)
+            for name, (mesh, fsdp) in meshes.items()}
+    one = serially(rank, world, lambda: one_rank_step(cfg, ctxs, optimizer,
+                                                      lr, batch))
+    rows = {}
+    for name, ctx in ctxs.items():
+        rows[name] = mesh_step(kernels, f"{what} {name}", cfg, ctx,
+                               optimizer, lr, batch, one.pop(name))
+    return rows
+
+
+def token_losses(cfg, batch, ctx=None, model=None):
+    """Each token's loss of the global ``batch`` (B * S, in order), no
+    gradient: float32 logits, 256 tokens at a time. ``model`` (seed 0 on
+    one rank, made and freed here, where None) may hold a rank's shards
+    under ``ctx``: the rank's rows then run through the mesh's forward,
+    logits over a vocab split over ``model`` are gathered, and the rows'
+    losses gathered over the batch axes."""
+    from repro_torch.distributed.collectives import mesh_collective
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import local_batch
+
+    made = model is None
+    if made:
+        model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                               DEVICE)
+    tokens = local_batch(batch, ctx)["tokens"]
+    labels = tokens[:, 1:].reshape(-1).long()
+    B, S = tokens[:, 1:].shape
+    with torch.no_grad():
+        hidden, _, _ = tfm.forward(
+            model, tokens=tokens[:, :-1], mode="train",
+            positions=torch.arange(S, dtype=torch.int32,
+                                   device=DEVICE).expand(B, S))
+        w = tfm.unembed_weight(model).float()
+        out = []
+        for h, lab in zip(hidden.float().reshape(B * S, -1).split(256),
+                          labels.split(256)):
+            logits = h @ w
+            if model.vocab_ctx is not None:
+                logits = mesh_collective("gather", logits, model.vocab_ctx,
+                                         "model", dim=-1)
+            logits[:, cfg.vocab_size:] = float("-inf")
+            out.append(torch.logsumexp(logits, -1)
+                       - logits.gather(1, lab[:, None])[:, 0])
+        out = torch.cat(out)
+        for a in reversed(ctx.batch_axes if ctx is not None else ()):
+            out = mesh_collective("gather", out, ctx, a, dim=0)
+    del hidden, w
+    if made:
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_bar(cfg16, batch, factor=TP_ERR_FACTOR):
+    """A bf16 bar on ``batch``: (the float32 model's token losses, on the
+    host; dict of the float32 and 1-rank bf16 mean losses, the 1-rank
+    run's own error, the mean |difference| of its and the float32
+    model's token losses, and ``factor`` times that, ``bar``)."""
+    n32 = token_losses(dataclasses.replace(cfg16, dtype="float32",
+                                           param_dtype="float32"), batch)
+    n16 = token_losses(cfg16, batch)
+    own = float((n16 - n32).abs().mean())
+    return n32.cpu(), dict(loss_float32=float(n32.mean()),
+                           loss_1rank_bf16=float(n16.mean()), own_err=own,
+                           factor=factor, bar=factor * own)
+
+
+def mesh_bf16_run(kernels, what, cfg, ctx, pipe, steps, ref):
+    """8b on one mesh: ``steps`` steps through ``launch.train.build`` (the
+    rank's shards from seed 0, its shard of each batch); each step's
+    loss and ms on the host's clock, the collectives by kind, the peak
+    memory; the loss on the first batch must fall, and the mesh's token
+    losses on it before the first step lie within ``ref``'s bar
+    (``bf16_bar``'s) of the float32 model's, their mean the first step's
+    loss."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.train import build
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import (local_batch, loss_fn,
+                                           trainable_params)
+
+    model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                           DEVICE, ctx=ctx)
+    opt, step_fn = build(cfg, model, lr=MESH_BF16["lr"],
+                         total_steps=steps, ctx=ctx)
+    params = trainable_params(model)
+    state = (params, opt.init(params), ())
+    n32, bar = ref
+    tok = token_losses(cfg, device_batch(pipe, 0), ctx, model).cpu()
+    batches = [local_batch(device_batch(pipe, s), ctx) for s in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    collectives.reset_counts()
+    losses, ms = [], []
+    with plain_calls_counted() as plain:
+        for b in batches:
+            t0 = time.perf_counter()
+            state, met = step_fn(state, b)
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    coll = collectives.counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(what, counts, {k: v * steps for k, v in
+                                  train_launches(cfg, 1).items()}, plain)
+    with torch.no_grad():
+        after = float(loss_fn(model, batches[0], cfg, ctx)[0])
+    row = dict(what=what, ranks=ctx.axis_sizes,
+               fsdp=ctx.rules.get("embed") is not None, losses=losses,
+               first_batch_loss_after=after, step_ms=ms,
+               token_err=float((tok - n32).abs().mean()),
+               token_bar=bar["bar"], tokens_mean=float(tok.mean()),
+               first_loss_vs_tokens=abs(losses[0] - float(tok.mean())),
+               first_loss_float32_err=abs(losses[0] - bar["loss_float32"]),
+               launches=counts, collectives=coll, peak_memory_gb=peak)
+    log("mesh_train_bf16", json.dumps(row))
+    if not after < losses[0]:
+        raise AssertionError(f"{what}: the first batch's loss did not fall: "
+                             f"{losses[0]} -> {after}")
+    if row["token_err"] > bar["bar"]:
+        raise AssertionError(f"{what}: the token losses lie "
+                             f"{row['token_err']} from float32's, "
+                             f"{bar['bar']} allowed")
+    if row["first_loss_vs_tokens"] > MESH_STEP_TOL * abs(losses[0]):
+        raise AssertionError(f"{what}: first loss {losses[0]}, its tokens' "
+                             f"mean {row['tokens_mean']}")
+    del model, params, state, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_elastic(kernels, rank, world, meshes, pipe, d):
+    """8d: 2 layers at full width, bf16: the unbroken 1-rank run's 3
+    losses and its token losses on the third batch (rank 0), then 2 steps
+    on (1, 2), a save (gathered, rank 0 writes), a restore onto (2, 1)
+    with FSDP, every leaf equal to the saved one bit for bit (gathered
+    again), and a third step whose token losses lie within MESH_ELASTIC's
+    bar of the unbroken run's."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import mesh_collective
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.train import build, copy_state
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import (local_batch, state_shardings,
+                                           trainable_params)
+
+    c = MESH_ELASTIC
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=c["layers"])
+    steps = c["steps"] + 1
+
+    def run(ctx):
+        model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(0),
+                               DEVICE, ctx=ctx)
+        opt, step_fn = build(cfg, model, lr=MESH_BF16["lr"],
+                             total_steps=steps, ctx=ctx)
+        params = trainable_params(model)
+        return model, step_fn, (params, opt.init(params), ())
+
+    def unbroken():
+        _, bar = bf16_bar(cfg, device_batch(pipe, c["steps"]),
+                          TP_TIE_FACTOR)
+        model, step_fn, state = run(None)
+        losses = []
+        for s in range(steps):
+            if s == c["steps"]:
+                tok = token_losses(cfg, device_batch(pipe, s), None,
+                                   model).cpu()
+            state, met = step_fn(state, device_batch(pipe, s))
+            losses.append(float(met["loss"]))
+        del model, state
+        torch.cuda.empty_cache()
+        return losses, tok, bar
+    whole, whole_tok, bar = mesh_collective(
+        "gather_object", unbroken() if rank == 0 else None,
+        group=torch.distributed.group.WORLD)[0]
+    t0 = time.perf_counter()
+    ctx12 = make_ctx(cfg, meshes["tp"])
+    model, step_fn, state = run(ctx12)
+    losses = []
+    for s in range(c["steps"]):
+        state, met = step_fn(state, local_batch(device_batch(pipe, s),
+                                                ctx12))
+        losses.append(float(met["loss"]))
+    shard = state_shardings(state, state[0], ctx12)
+    saved = ckpt._map_leaves(lambda _, t: t.clone(),
+                             ckpt.gather_tree(state, shard))
+    mgr = ckpt.CheckpointManager(d, async_save=False, shardings=shard)
+    t1 = time.perf_counter()
+    mgr.maybe_save(c["steps"], state, force=True)
+    mgr.wait()
+    save_s = time.perf_counter() - t1
+    del model, state
+    torch.cuda.empty_cache()
+    ctx21 = make_ctx(cfg, meshes["fsdp"], fsdp=True)
+    model, step_fn, state = run(ctx21)
+    shard21 = state_shardings(state, state[0], ctx21)
+    t1 = time.perf_counter()
+    found, back = ckpt.CheckpointManager(d).restore_latest(state, DEVICE,
+                                                           shard21)
+    copy_state(state, back)
+    del back
+    restore_s = time.perf_counter() - t1
+    got = ckpt._flatten(ckpt.gather_tree(state, shard21))
+    want = ckpt._flatten(saved)
+    differ = [k for k in want if got[k].dtype != want[k].dtype
+              or not torch.equal(got[k], want[k])]
+    del got, want, saved
+    tok = token_losses(cfg, device_batch(pipe, c["steps"]), ctx21,
+                       model).cpu()
+    kernels.reset_launch_counts()
+    with plain_calls_counted() as plain:
+        state, met = step_fn(state, local_batch(
+            device_batch(pipe, c["steps"]), ctx21))
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_launches("8d the restored step", counts, train_launches(cfg, 1),
+                   plain)
+    losses.append(float(met["loss"]))
+    row = dict(layers=c["layers"], saved_step=c["steps"],
+               restored_step=found, leaves_differing=differ,
+               losses=losses, unbroken_losses=whole,
+               third_loss_err=abs(losses[-1] - whole[-1]),
+               token_err=float((tok - whole_tok).abs().mean()), bar=bar,
+               third_loss_vs_tokens=abs(losses[-1] - float(tok.mean())),
+               save_s=save_s, restore_s=restore_s,
+               checkpoint_gb=sum(f.stat().st_size for f in Path(d).rglob("*")
+                                 if f.is_file()) / 1e9,
+               wall_s=time.perf_counter() - t0, launches=counts)
+    log("mesh_train_elastic", json.dumps(row))
+    if found != c["steps"] or differ:
+        raise AssertionError(f"8d: restored step {found}, leaves differing "
+                             f"from the saved ones: {differ[:8]}")
+    if row["token_err"] > bar["bar"]:
+        raise AssertionError(f"8d: the token losses after the restore lie "
+                             f"{row['token_err']} from the unbroken run's, "
+                             f"{bar['bar']} allowed")
+    if row["third_loss_vs_tokens"] > MESH_STEP_TOL * abs(losses[-1]):
+        raise AssertionError(f"8d: third loss {losses[-1]}, its tokens' "
+                             f"mean {float(tok.mean())}")
+    del model, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_mesh_rank(rank: int, world: int, port: int, d: str) -> int:
+    """A gloo rank of phase 8 (``--train-mesh-rank``): 8a-8d; its rows
+    and launches by path written to ``d/rank{rank}.json``."""
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group("gloo", rank, world, "127.0.0.1", port)
+    seconds, by_path, out = {}, {}, dict(rank=rank)
+    lap = [time.perf_counter()]
+
+    def done(name):
+        seconds[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    try:
+        meshes = {name: make_mesh(shape, ("data", "model"), "gloo")
+                  for name, shape, _ in MESH_TRAIN_MESHES}
+        fsdp = {name: f for name, _, f in MESH_TRAIN_MESHES}
+        cfg16 = get_config(TRAIN_ARCH)
+        cfg32 = dataclasses.replace(cfg16, dtype="float32",
+                                    param_dtype="float32")
+        pipe = SyntheticTokenPipeline(cfg16.vocab_size, **MESH_TRAIN)
+        batch = device_batch(pipe, 0)
+        out["8a"] = mesh_checks(kernels, rank, world, "8a", cfg32,
+                                {n: (meshes[n], fsdp[n]) for n in meshes},
+                                "adamw", MESH_STEP_LR, batch)
+        for name, row in out["8a"].items():
+            by_path[f"train_mesh_step:{name}:rank{rank}"] = row["launches"]
+        done("8a")
+        ref = serially(rank, world, lambda: bf16_bar(cfg16, batch))
+        out["8b"] = dict(ref[1])
+        for name in meshes:
+            ctx = make_ctx(cfg16, meshes[name], fsdp=fsdp[name])
+            row = mesh_bf16_run(kernels, f"8b {name}", cfg16, ctx, pipe,
+                                MESH_BF16["steps"], ref)
+            out["8b"][name] = row
+            by_path[f"train_mesh_bf16:{name}:rank{rank}"] = row["launches"]
+            done(f"8b {name}")
+        out["8c"] = []
+        for arch, mode, shape, optimizer in MESH_FAMILY:
+            cfg = dataclasses.replace(
+                get_config(arch), n_layers=STEP_CHECK_LAYERS[arch],
+                dtype="float32", param_dtype="float32")
+            if mode:
+                cfg = dataclasses.replace(cfg, moe_sharding=mode)
+            fam = SyntheticTokenPipeline(cfg.vocab_size, **MESH_FAMILY_BATCH)
+            mesh = meshes["tp" if shape == (1, 2) else "fsdp"]
+            key = f"{arch}:{mode or ''}:{'x'.join(map(str, shape))}"
+            row = mesh_checks(kernels, rank, world, "8c", cfg,
+                              {key: (mesh, False)}, optimizer, MESH_STEP_LR,
+                              device_batch(fam, 0))[key]
+            out["8c"].append(row)
+            by_path[f"train_mesh_step:{key}:rank{rank}"] = row["launches"]
+            done(f"8c {key}")
+        out["8d"] = mesh_elastic(kernels, rank, world, meshes, pipe,
+                                 str(Path(d) / "elastic"))
+        by_path[f"train_mesh_elastic:rank{rank}"] = out["8d"]["launches"]
+        done("8d")
+        out.update(seconds=seconds, by_path=by_path,
+                   wall_s=time.perf_counter() - t_start)
+        torch.cuda.empty_cache()      # 8e's process steps once this is out
+        Path(d, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_mesh_nccl(port: int, d: str) -> int:
+    """8e (``--train-mesh-nccl``): one bf16 step of 8b's model with no
+    mesh, then the same step over a world-1 NCCL ``("data", "model")``
+    mesh (every axis of one rank: no collective runs, NCCL is only
+    initialised), its loss and parameters after the step equal to the
+    first's bit for bit; the losses, the leaves that differ and the
+    mesh step's launches written to ``d/nccl.json``."""
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.train import build
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainer import trainable_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group("nccl", 0, 1, "127.0.0.1", port)
+    try:
+        # started with the gloo ranks (its start-up beside their work), it
+        # steps once they have ended and freed the card's memory
+        t_wait = time.perf_counter()
+        while not all(Path(d, f"rank{r}.json").exists()
+                      for r in range(MESH_RANKS)):
+            if time.perf_counter() - t_wait > MESH_TRAIN_TIMEOUT_S:
+                raise TimeoutError("8e: the gloo ranks never ended")
+            time.sleep(0.5)
+        waited_s = time.perf_counter() - t_wait
+        cfg = get_config(TRAIN_ARCH)
+        batch = device_batch(SyntheticTokenPipeline(cfg.vocab_size,
+                                                    **MESH_TRAIN), 0)
+
+        def made(ctx):
+            model = tfm.init_model(cfg, torch.Generator(DEVICE).manual_seed(
+                0), DEVICE, ctx=ctx)
+            opt, step_fn = build(cfg, model, lr=MESH_BF16["lr"],
+                                 total_steps=MESH_BF16["steps"], ctx=ctx)
+            params = trainable_params(model)
+            return step_fn, (params, opt.init(params), ())
+
+        step_fn, state = made(None)
+        state, met = step_fn(state, batch)
+        loss_none, params_none = float(met["loss"]), state[0]
+        del step_fn, state
+        torch.cuda.empty_cache()
+        step_fn, state = made(make_ctx(cfg, make_mesh(
+            (1, 1), ("data", "model"), "nccl")))
+        kernels.reset_launch_counts()
+        with plain_calls_counted() as plain:
+            t1 = time.perf_counter()
+            state, met = step_fn(state, batch)
+            loss, params = float(met["loss"]), state[0]
+            step_s = time.perf_counter() - t1
+        counts = kernels.launch_counts()
+        check_launches("8e", counts, train_launches(cfg, 1), plain)
+        differ = [k for k in params_none
+                  if not torch.equal(params[k], params_none[k])]
+        Path(d, "nccl.json").write_text(json.dumps(dict(
+            loss=loss, loss_no_mesh=loss_none, leaves=len(params),
+            leaves_differing=differ, step_s=step_s, launches=counts,
+            backend=dist.get_backend(), waited_s=waited_s,
+            wall_s=time.perf_counter() - t0)))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_train_start(d):
+    """Start phase 8's processes, writing into ``d``: MESH_RANKS gloo ranks
+    that run 8a-8d and one NCCL process of world size 1 that runs 8e once
+    they have ended."""
+    torch.cuda.empty_cache()
+    port = free_port()
+    cmds = {f"train{r}": ["--train-mesh-rank", str(r), str(MESH_RANKS),
+                          str(port), d] for r in range(MESH_RANKS)}
+    cmds["nccl"] = ["--train-mesh-nccl", str(free_port()), d]
+    return start_processes(cmds, d)
+
+
+def mesh_train_phase(seconds: dict) -> dict:
+    """Phase 8 alone: ``mesh_train_start`` and ``mesh_train_finish``."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        return mesh_train_finish(mesh_train_start(d), d, seconds)
+
+
+def mesh_train_finish(started, d, seconds: dict) -> dict:
+    """Phase 8's end: its processes waited for, every rank's rows
+    printed, 8e's step held to the step with no mesh bit for bit.
+    Returns the kernel launches by path."""
+    finish_processes(started, MESH_TRAIN_TIMEOUT_S)
+    seconds["8"] = time.perf_counter() - started[2]
+    ranks = [json.loads((Path(d) / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    nccl = json.loads((Path(d) / "nccl.json").read_text())
+    by_path = {}
+    for rank in ranks:
+        by_path.update(rank["by_path"])
+    by_path["train_mesh_nccl:rank0"] = nccl["launches"]
+    log("mesh_train_nccl", json.dumps(nccl))
+    if nccl["loss"] != nccl["loss_no_mesh"] or nccl["leaves_differing"]:
+        raise AssertionError(f"8e: the world-1 NCCL step differs from the "
+                             f"step with no mesh: loss {nccl['loss']} "
+                             f"against {nccl['loss_no_mesh']}, leaves "
+                             f"{nccl['leaves_differing'][:8]}")
+    log("mesh_train", json.dumps(dict(
+        ranks=MESH_RANKS,
+        step_8a={n: [r["8a"][n]["step_s"] for r in ranks]
+                 for n in ranks[0]["8a"]},
+        grad_rel_err_max={n: max(r["8a"][n]["grad_rel_err_max"]
+                                 for r in ranks) for n in ranks[0]["8a"]},
+        bf16_step_ms={n: [r["8b"][n]["step_ms"] for r in ranks]
+                      for n in ("tp", "fsdp")},
+        bf16_losses={n: ranks[0]["8b"][n]["losses"] for n in ("tp", "fsdp")},
+        family={row["what"]: row["grad_rel_err_max"]
+                for row in ranks[0]["8c"]},
+        bf16_token_err={n: ranks[0]["8b"][n]["token_err"]
+                        for n in ("tp", "fsdp")},
+        bf16_token_bar=ranks[0]["8b"]["bar"],
+        elastic_token_err=ranks[0]["8d"]["token_err"],
+        elastic_token_bar=ranks[0]["8d"]["bar"]["bar"],
+        rank_seconds=[r["seconds"] for r in ranks])))
     return by_path
 
 
@@ -5198,7 +5988,18 @@ def main() -> int:
                              f"path (sequential {seq_counts}, batched "
                              f"{bat_counts})")
     timed("4 breakdown", breakdown_phase, core)
-    bo_counts = bo_phases(seconds)
+    # phases 4b-4f, and beside them phase 8 (training on the mesh): its
+    # ranks need nothing of the phases before it, and 4b-4f wait on the
+    # host, not the card
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d8:
+        train8 = mesh_train_start(d8)
+        try:
+            bo_counts = bo_phases(seconds)
+        except BaseException:
+            stop_processes(train8)
+            raise
+        mesh8_counts = mesh_train_finish(train8, d8, seconds)
     lap[0] = time.perf_counter()
     vgg_counts = timed("4g", vgg_phase, core, kernels, seq_counts, seq_res)
 
@@ -5241,6 +6042,10 @@ def main() -> int:
     # phase 7: the mesh, ranks sharing the card
     lap[0] = time.perf_counter()
     for path, counts in mesh_phase(seconds).items():
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+    for path, counts in mesh8_counts.items():      # phase 8's, above
         for name, n in counts.items():
             if n:
                 by_path[name][path] = n
@@ -5334,4 +6139,9 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(int(r), int(w), int(port), d))
     if sys.argv[1:2] == ["--mesh-nccl"]:
         sys.exit(mesh_nccl(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--train-mesh-rank"]:
+        r, w, port, d = sys.argv[2:6]
+        sys.exit(train_mesh_rank(int(r), int(w), int(port), d))
+    if sys.argv[1:2] == ["--train-mesh-nccl"]:
+        sys.exit(train_mesh_nccl(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

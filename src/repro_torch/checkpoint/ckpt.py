@@ -17,6 +17,14 @@ patterns (``BF16_HOST``), restored bit for bit. ``process_index`` and
 ``process_count`` come from ``torch.distributed`` when it is
 initialised, else 0 and 1.
 
+Under a mesh (``shardings``: a tree of ``sharding.NamedSharding``
+matching the state's, None where a leaf is not on the mesh) a save
+gathers each leaf whole on every rank and the mesh's first rank writes
+it, so a mesh
+checkpoint is the same file as a one-rank one; ``restore`` and
+``restore_latest`` with ``shardings`` cut each leaf to the rank's shard
+of the target mesh, whatever mesh wrote it: the elastic restart.
+
 Durability note: the commit is the ``os.rename`` of the staging dir to
 its final name, followed by an fsync of the *parent* directory — the
 rename alone only mutates the in-memory dentry cache, so a power cut
@@ -277,24 +285,82 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
-def restore(ckpt_dir: str, step: int, template: Any,
-            device="cuda") -> Any:
+def _at_path(tree, key: str):
+    """The node of ``tree`` at a flat key."""
+    for part in key.split(_SEP):
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) \
+            else tree[part]
+    return tree
+
+
+def gather_tree(tree, shardings):
+    """Every leaf of ``tree`` whole: gathered over the mesh where its
+    sharding says so (collectives: every rank calls this alike)."""
+    if shardings is None:
+        return tree
+    return _map_leaves(lambda k, v: v if _at_path(shardings, k) is None
+                       else _at_path(shardings, k).gather(v.detach()), tree)
+
+
+def _mesh_ctx(shardings):
+    """The ``ShardCtx`` of the first sharded leaf, None if none is."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, dict):
+        kids = shardings.values()
+    elif isinstance(shardings, (list, tuple)):
+        kids = shardings
+    else:
+        return shardings.ctx
+    for k in kids:
+        ctx = _mesh_ctx(k)
+        if ctx is not None:
+            return ctx
+    return None
+
+
+def _lead(ctx) -> bool:
+    """Whether this rank is the mesh's first (index 0 along every axis):
+    the one that writes."""
+    return all(ctx.index(a) == 0 for a in ctx.axis_sizes)
+
+
+def _mesh_barrier(ctx) -> None:
+    """Every rank of the mesh waits for the others (a barrier an axis)."""
+    for a in ctx.axis_sizes:
+        if ctx.size(a) > 1:
+            torch.distributed.barrier(group=ctx.group(a))
+
+
+def restore(ckpt_dir: str, step: int, template: Any, device="cuda",
+            shardings: Any = None) -> Any:
     """Restore into ``template``'s structure, every leaf a tensor on
-    ``device`` with the dtype it was saved with."""
+    ``device`` with the dtype it was saved with; with ``shardings`` each
+    leaf is the rank's shard of it on that (possibly another) mesh."""
     dev = resolve_device(device)
     flat = load_flat(ckpt_dir, step)
-    return _map_leaves(lambda k, _: to_tensor(flat[k], dev), template)
+
+    def leaf(k, _):
+        t = to_tensor(flat[k], dev)
+        sh = None if shardings is None else _at_path(shardings, k)
+        return t if sh is None else sh.local(t)
+
+    return _map_leaves(leaf, template)
 
 
 class CheckpointManager:
-    """save-every-k + retention + async writes + auto-resume."""
+    """save-every-k + retention + async writes + auto-resume. With
+    ``shardings`` the state is a mesh's: each save gathers every leaf
+    (all ranks take part) and the mesh's first rank writes; ``wait`` then
+    also waits for every rank of the mesh."""
 
     def __init__(self, ckpt_dir: str, save_interval: int = 100,
-                 keep: int = 3, async_save: bool = True):
+                 keep: int = 3, async_save: bool = True, shardings=None):
         self.dir = ckpt_dir
         self.save_interval = save_interval
         self.keep = keep
         self.async_save = async_save
+        self.shardings = shardings
         self._pending: Optional[threading.Thread] = None
         os.makedirs(ckpt_dir, exist_ok=True)
 
@@ -302,6 +368,10 @@ class CheckpointManager:
         if not force and (step % self.save_interval != 0):
             return False
         self.wait()
+        tree = gather_tree(tree, self.shardings)
+        ctx = _mesh_ctx(self.shardings)
+        if ctx is not None and not _lead(ctx):
+            return True
         if self.async_save:
             # copy to host memory NOW — the caller may overwrite these
             # tensors as soon as we return
@@ -323,6 +393,9 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        ctx = _mesh_ctx(self.shardings)
+        if ctx is not None:
+            _mesh_barrier(ctx)
 
     def _gc(self):
         steps = sorted(
@@ -333,9 +406,9 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template, device="cuda"):
+    def restore_latest(self, template, device="cuda", shardings=None):
         self.wait()
         s = latest_step(self.dir)
         if s is None:
             return None, None
-        return s, restore(self.dir, s, template, device)
+        return s, restore(self.dir, s, template, device, shardings)

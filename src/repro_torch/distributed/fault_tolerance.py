@@ -7,7 +7,9 @@
     hosts) -> data shard map;
   * ``TrainController`` — checkpoint every k steps, auto-resume,
     SIGTERM-safe shutdown and a failure-injection hook; the crash path
-    saves the last completed step.
+    saves the last completed step, once. Over a mesh, ``agree`` makes
+    every rank stop after the same step (a SIGTERM reaches the ranks at
+    different times, and a save is a collective).
 """
 from __future__ import annotations
 
@@ -126,6 +128,8 @@ class TrainController:
     ckpt_manager: "object"                 # checkpoint.CheckpointManager
     max_steps: int = 1000
     failure_injector: Optional[Callable] = None  # (step) -> None | raises
+    # (this rank's stop flag) -> whether any rank stops
+    agree: Optional[Callable] = None
 
     def run(self, state, start_step: int = 0, install_sigterm: bool = True):
         self._stop = False
@@ -137,17 +141,21 @@ class TrainController:
         if install_sigterm:
             prev = signal.signal(signal.SIGTERM, on_term)
         metrics = None
-        step = start_step
+        step, saved, stop = start_step, None, False
         try:
-            while step < self.max_steps and not self._stop:
+            while step < self.max_steps and not stop:
                 if self.failure_injector is not None:
                     self.failure_injector(step)
                 state, metrics = self.step_fn(state, self.batch_fn(step))
                 step += 1
-                self.ckpt_manager.maybe_save(step, state)
+                if self.ckpt_manager.maybe_save(step, state):
+                    saved = step
+                stop = (self._stop if self.agree is None
+                        else self.agree(self._stop))
         finally:
             # preemption / crash path: persist the last completed step
-            self.ckpt_manager.maybe_save(step, state, force=True)
+            if saved != step:
+                self.ckpt_manager.maybe_save(step, state, force=True)
             self.ckpt_manager.wait()
             if install_sigterm and prev is not None:
                 signal.signal(signal.SIGTERM, prev)

@@ -290,6 +290,11 @@ class ShardCtx:
             n *= sizes[a]
         return idx, n
 
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the batch is split over (the ``batch`` rule)."""
+        return self._mesh_axes(self.rules.get("batch"))
+
     def size(self, axis: str) -> int:
         """The size of a mesh axis (1 if the mesh has none)."""
         return self.axis_sizes.get(axis, 1)
@@ -303,6 +308,18 @@ class ShardCtx:
     def sharded(self, logical: str, axis: str = "model") -> bool:
         """Whether ``logical`` maps to mesh axis ``axis`` of size > 1."""
         return self.rules.get(logical) == axis and self.size(axis) > 1
+
+    def dim_axes(self, axes) -> Tuple[Tuple[str, ...], ...]:
+        """Per dim of a leaf with logical ``axes``, the mesh axes of more
+        than one rank that the dim is split over."""
+        return tuple(tuple(a for a in self._mesh_axes(entry)
+                           if self.size(a) > 1)
+                     for entry in self.spec(axes))
+
+    def split_axes(self, axes) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank that a leaf with logical
+        ``axes`` is split over."""
+        return tuple(a for d in self.dim_axes(axes) for a in d)
 
     def local_shape(self, shape, axes) -> Tuple[int, ...]:
         """The shape of this rank's shard of a tensor of ``shape`` with
@@ -342,6 +359,30 @@ class ShardCtx:
             raise ValueError(f"an AbstractMesh has no process group for "
                              f"{axis!r} (size {self.size(axis)})")
         return self.mesh.get_group(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Where a leaf with logical ``axes`` lies on the mesh of ``ctx``: the
+    counterpart of the reference's ``NamedSharding`` (the ``shardings``
+    of a checkpoint's save and restore)."""
+    ctx: ShardCtx
+    axes: Tuple[Optional[str], ...]
+
+    def local(self, t):
+        """This rank's shard of the whole leaf ``t``, a tensor of its
+        own (never a view holding the whole)."""
+        part = self.ctx.local(t, self.axes)
+        return part.clone() if part.shape != t.shape else part
+
+    def gather(self, t):
+        """The whole leaf from this rank's shard ``t``, on every rank."""
+        from repro_torch.distributed.collectives import mesh_collective
+
+        for d, entry in enumerate(self.ctx.spec(self.axes)):
+            for a in reversed(self.ctx._mesh_axes(entry)):
+                t = mesh_collective("gather", t, self.ctx, a, dim=d)
+        return t
 
 
 def _div(n: int, k: int) -> bool:

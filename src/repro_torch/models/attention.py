@@ -53,11 +53,16 @@ class Attention(nn.Module):
                    dtype=dtype)
 
 
-def qkv_proj(p: Attention, x, cfg, positions):
-    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+def qkv_proj(p: Attention, x, cfg, positions, xq=None, xkv=None):
+    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE applied.
+    ``xq`` and ``xkv``, where given, stand for ``x`` in the query and in
+    the key and value products (the same values: a mesh path's
+    ``copy_to`` of it)."""
+    xq = x if xq is None else xq
+    xkv = x if xkv is None else xkv
+    q = torch.einsum("bsd,dhk->bshk", xq, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", xkv, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", xkv, p.wv)
     if cfg.qkv_bias:
         q = q + p.bq.to(q.dtype)
         k = k + p.bk.to(k.dtype)

@@ -13,6 +13,15 @@ so on), so a reference pytree maps onto them leaf by leaf
 ``repro.models.common.init_params`` does, its logical ``axes`` and its
 ``full_shape``: under a ``ShardCtx`` a module holds this rank's shard of
 each leaf (``add_params``).
+
+Under FSDP (the rules put ``embed`` on a ``data`` axis of more than one
+rank) a module holds each leaf with an ``embed`` dim cut along it over
+``data``; ``gathered(module)`` is what a forward reads instead of the
+module: each such leaf gathered whole when first read
+(``collectives.fsdp_gather``, its gradient reduce-scattered back), every
+other attribute the module's own. The gathered leaves live as long as
+that forward's autograd graph needs them; under remat the recompute
+gathers them again. Without FSDP ``gathered`` returns the module itself.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.collectives import fsdp_gather
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -59,6 +70,47 @@ def add_params(module: nn.Module, template: dict, ctx=None, *, device,
         setattr(module, name, new_param(shape, t.init, t.scale,
                                         device=device, dtype=dtype,
                                         axes=t.axes, full_shape=t.shape))
+        if "embed" in t.axes and fsdp_axis(ctx) is not None:
+            module.fsdp_ctx = ctx
+
+
+def fsdp_axis(ctx):
+    """The mesh axis FSDP cuts the ``embed`` dims over, None where the
+    rules cut none (or it has one rank)."""
+    if ctx is None:
+        return None
+    axis = ctx.rules.get("embed")
+    return axis if axis is not None and ctx.size(axis) > 1 else None
+
+
+class _Gathered:
+    """A module's attributes with its FSDP shards gathered whole, each
+    once; submodules come wrapped alike."""
+
+    def __init__(self, module):
+        object.__setattr__(self, "_m", module)
+        object.__setattr__(self, "_got", {})
+
+    def __getattr__(self, name):
+        got = self._got
+        if name in got:
+            return got[name]
+        v = getattr(self._m, name)
+        if isinstance(v, nn.Parameter) and v.axes and "embed" in v.axes:
+            ctx = self._m.fsdp_ctx
+            v = fsdp_gather(v, ctx, fsdp_axis(ctx), v.axes.index("embed"))
+        elif isinstance(v, nn.Module):
+            v = gathered(v)
+        got[name] = v
+        return v
+
+
+def gathered(module):
+    """What a forward reads of ``module``: the module itself, or under
+    FSDP a view with its ``embed``-sharded leaves gathered whole."""
+    if getattr(module, "fsdp_ctx", None) is None:
+        return module
+    return _Gathered(module)
 
 
 def new_param(shape, init: str = "normal", scale: float = 1.0, *,
@@ -132,14 +184,14 @@ class Norm(nn.Module):
     """RMSNorm (``w`` zeros: the ``(1 + w)`` form) or LayerNorm (``w``
     ones, ``b`` zeros), as ``norm_template``."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, ctx=None):
         super().__init__()
         self.layer = cfg.norm_type == "layernorm"
         self.eps = cfg.norm_eps
-        add_params(self, norm_template(cfg), device=device, dtype=dtype)
+        add_params(self, norm_template(cfg), ctx, device=device, dtype=dtype)
 
     def forward(self, x):
-        return apply_norm(self, x)
+        return apply_norm(gathered(self), x)
 
 
 def apply_norm(p: Norm, x):

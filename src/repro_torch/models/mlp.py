@@ -4,15 +4,18 @@ Counterpart of ``repro/models/mlp.py``. GELU is the tanh form, as
 
 Under a ``ShardCtx`` whose rules put ``ff`` on the ``model`` axis the
 module holds its columns of ``wg``/``wu``/``wi`` and rows of ``wd``: the
-down projection gives a partial sum, added over ``model`` before the
-bias."""
+input, replicated over ``model``, enters the rank's columns through
+``copy_to`` (its gradient summed over ``model``), and the down
+projection gives a partial sum, added over ``model`` (``all_sum``)
+before the bias. Under FSDP the forward reads its leaves gathered
+(``common.gathered``)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import mesh_collective
-from repro_torch.models.common import P, add_params
+from repro_torch.distributed.collectives import all_sum, copy_to
+from repro_torch.models.common import P, add_params, gathered
 
 
 def mlp_template(cfg, d_ff: int = 0, ff_axis: str = "ff"):
@@ -47,23 +50,24 @@ class MLP(nn.Module):
         return self.mlp_type in ("swiglu", "geglu")
 
     def forward(self, x):
-        return mlp_apply(self, x)
+        return mlp_apply(gathered(self), x)
 
 
 def mlp_apply(p: MLP, x, reduce: bool = True):
     """The MLP of ``x``. With ``reduce=False`` under a sharded ``ff``, the
     rank's partial sum without the bias ``bd`` (the caller sums over
     ``model`` and adds it)."""
+    x = copy_to(x, p.ctx)
     if p.gated:
         g = x @ p.wg
         u = x @ p.wu
         act = (F.silu(g) if p.mlp_type == "swiglu"
                else F.gelu(g, approximate="tanh"))
         y = (act * u) @ p.wd
-        return mesh_collective("sum", y, p.ctx) if reduce else y
+        return all_sum(y, p.ctx) if reduce else y
     h = x @ p.wi + p.bi.to(x.dtype)
     h = F.gelu(h, approximate="tanh")
     y = h @ p.wd
     if not reduce:
         return y
-    return mesh_collective("sum", y, p.ctx) + p.bd.to(x.dtype)
+    return all_sum(y, p.ctx) + p.bd.to(x.dtype)

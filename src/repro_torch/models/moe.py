@@ -5,7 +5,22 @@ shared experts. Counterpart of ``repro/models/moe.py``.
 Under a ``ShardCtx`` the reference's two ``shard_map`` modes run as local
 shards with explicit sums over the ``model`` axis (``MoE``,
 ``moe_apply``): ``"expert"`` (each rank its E/m experts) and
-``"tensor"`` (each rank its d_ff slice of every expert).
+``"tensor"`` (each rank its d_ff slice of every expert). The tokens and
+routing weights, replicated over ``model``, enter the rank's experts
+through ``collectives.copy_to``. Over the batch axes the reference has
+two rules, and the port keeps both (measured on the reference, not read
+from it):
+
+- with ``model`` of more than one rank, its ``shard_map`` routes each
+  data shard alone: the capacity comes from the shard's tokens, the aux
+  loss is the shard's, and the value the step reports is data shard 0's
+  (``collectives.first_of``), while each shard's gradient is its own aux
+  over the shard count;
+- with ``model`` of one rank there is no ``shard_map``: GSPMD routes the
+  global batch, so the aux loss is taken over every token (the routing
+  probabilities and counts summed over the batch axes), the capacity
+  comes from the global token count, and an assignment's place in its
+  expert counts the assignments of the data shards before it.
 
 Three rules keep the port on the reference's answers and bit for bit
 repeatable on the card:
@@ -41,8 +56,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import mesh_collective
-from repro_torch.models.common import P, add_params, torch_dtype
+from repro_torch.distributed.collectives import (all_sum, copy_to,
+                                                 first_of, mesh_collective)
+from repro_torch.models.common import P, add_params, gathered, torch_dtype
 from repro_torch.models.mlp import MLP, mlp_apply, mlp_template
 
 
@@ -82,9 +98,17 @@ class MoE(nn.Module):
         if cfg.n_shared_experts:
             self.shared = MLP(cfg, d_ff=cfg.d_ff * cfg.n_shared_experts,
                               device=device, dtype=dtype, ctx=ctx)
+        # the batch axes: routed as one batch (``batch_ctx``, model of one
+        # rank) or shard by shard with shard 0's aux reported (``data_ctx``)
+        self.batch_ctx, self.data_ctx = None, None
+        if ctx is not None and any(ctx.size(a) > 1 for a in ctx.batch_axes):
+            if self.mode is None:
+                self.batch_ctx = ctx
+            else:
+                self.data_ctx = ctx
 
     def forward(self, x):
-        return moe_apply(self, x, self.cfg)
+        return moe_apply(gathered(self), x, self.cfg)
 
 
 @contextlib.contextmanager
@@ -105,19 +129,45 @@ def _counts(ids, n: int):
     return (ids.reshape(-1, 1) == torch.arange(n, device=ids.device)).sum(0)
 
 
-def _route(xt, router_w, cfg):
+def _route(xt, router_w, cfg, batch_ctx=None):
     """softmax -> top-k -> renormalize. Returns (weights, ids, aux):
     (T, k) float32, (T, k) int64, and the Switch-style load-balance loss
-    E * sum_e f_e p_e, f_e the share of top-k assignments to e."""
+    E * sum_e f_e p_e, f_e the share of top-k assignments to e. Under
+    ``batch_ctx`` the shares and mean probabilities are over the tokens
+    of every batch shard."""
     T, k, E = xt.shape[0], cfg.top_k, cfg.n_experts
     with no_tf32():
         logits = xt.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)
     topw = topw / topw.sum(dim=-1, keepdim=True)
-    pe = probs.mean(dim=0)
-    fe = _counts(topi, E).float() / (T * k)
+    if batch_ctx is None:
+        pe = probs.mean(dim=0)
+        fe = _counts(topi, E).float() / (T * k)
+    else:
+        axes = batch_ctx.batch_axes
+        Tg = T * _shards(batch_ctx)
+        pe = all_sum(probs.sum(dim=0), batch_ctx, axes) / Tg
+        fe = all_sum(_counts(topi, E), batch_ctx, axes).float() / (Tg * k)
     return topw, topi, E * torch.sum(fe * pe)
+
+
+def _shards(ctx) -> int:
+    """How many shards the batch is split into."""
+    n = 1
+    for a in ctx.batch_axes:
+        n *= ctx.size(a)
+    return n
+
+
+def _earlier(counts, ctx):
+    """Each expert's assignments on the batch shards before this rank's
+    (rank order over the batch axes, row-major)."""
+    rows = counts[None]
+    for a in reversed(ctx.batch_axes):
+        rows = mesh_collective("gather", rows, ctx, a, dim=0)
+    idx = ctx.shards(ctx.rules.get("batch"))[0]
+    return rows[:idx].sum(dim=0)
 
 
 def _assignments(topi, topw, k, e_lo: int, e_n: int):
@@ -214,11 +264,13 @@ def _dispatch_ffn(xt, topw, topi, wg, wu, wd, cfg, e_lo: int, e_n: int,
 
 
 def _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo: int,
-                           e_n: int, cap_per_expert: int):
+                           e_n: int, cap_per_expert: int, before=None):
     """GShard-style fixed-capacity dispatch: each expert's first C
     assignments (in token order) fill a dense (E_loc, C, D) buffer, the
     expert products are batched matmuls, and each assignment gathers its
-    row back. Overflow beyond C drops. xt: (T, D) -> (T, D)."""
+    row back. Overflow beyond C drops. xt: (T, D) -> (T, D). ``before``
+    (E_loc,): assignments to each expert that come before these tokens
+    (other batch shards'), taking their places first."""
     T, D = xt.shape
     k = cfg.top_k
     C = cap_per_expert
@@ -231,11 +283,16 @@ def _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo: int,
     counts = _counts(eid, e_n + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = ranked - starts[eid]
-    keep = is_local & (pos < C)
     # slot (e, c) holds the assignment of rank c in expert e, if any
     c = torch.arange(C, device=xt.device)
     src = starts[:e_n, None] + c
-    filled = c < counts[:e_n, None]
+    if before is None:
+        keep = is_local & (pos < C)
+        filled = c < counts[:e_n, None]
+    else:
+        room = C - before
+        keep = is_local & (pos < torch.cat([room, room.new_zeros(1)])[eid])
+        filled = (c < counts[:e_n, None]) & (c < room[:, None])
     take = order[src.clamp(max=A - 1)]
     slot = (eid * C + pos).clamp(0, e_n * C - 1)
     xb = _Dispatch.apply(xt, flat_t[take], filled, keep, slot, k)  # (E,C,D)
@@ -286,21 +343,28 @@ def moe_apply(p: MoE, x, cfg):
         ctx=p.ctx if p.mode == "tensor" else None))
     xt = x.reshape(-1, D)
     T = xt.shape[0]
-    topw, topi, aux = _route(xt, p.router, cfg)
+    topw, topi, aux = _route(xt, p.router, cfg, p.batch_ctx)
     e_lo, e_n, m = 0, cfg.n_experts, 1
     if p.mode == "expert":
         m = p.ctx.size("model")
         e_n = cfg.n_experts // m
         e_lo = p.ctx.index("model") * e_n
+    # the tokens and weights enter the rank's experts (a no-op off a mesh)
+    xe, we = copy_to(xt, p.ctx), copy_to(topw, p.ctx)
     if cfg.moe_dispatch == "capacity":
-        cap_e = max(int(T * cfg.top_k * cfg.capacity_factor
+        Tc, before = T, None
+        if p.batch_ctx is not None:
+            Tc = T * _shards(p.batch_ctx)
+            before = _earlier(_counts(topi, cfg.n_experts), p.batch_ctx)
+        cap_e = max(int(Tc * cfg.top_k * cfg.capacity_factor
                         / cfg.n_experts), 4)
-        out = _dispatch_ffn_capacity(xt, topw, topi, wg, wu, wd, cfg, e_lo,
-                                     e_n, cap_e)
+        kw = {} if before is None else dict(before=before)
+        out = _dispatch_ffn_capacity(xe, we, topi, wg, wu, wd, cfg, e_lo,
+                                     e_n, cap_e, **kw)
     else:
         cap = (int(T * cfg.top_k * cfg.capacity_factor / m) if m > 1
                else T * cfg.top_k)
-        out = _dispatch_ffn(xt, topw, topi, wg, wu, wd, cfg, e_lo, e_n,
+        out = _dispatch_ffn(xe, we, topi, wg, wu, wd, cfg, e_lo, e_n,
                             max(cap, 8))
     out = out.reshape(x.shape)
     if p.mode is None:
@@ -312,11 +376,16 @@ def moe_apply(p: MoE, x, cfg):
     split = cfg.n_shared_experts and p.shared.ctx is not None
     if split:
         out = out + mlp_apply(p.shared, x, reduce=False)
-    out = mesh_collective("sum", out, p.ctx)
+    out = all_sum(out, p.ctx)
     if split and not p.shared.gated:
         out = out + p.shared.bd.to(x.dtype)
     elif cfg.n_shared_experts and not split:
         out = out + mlp_apply(p.shared, x)
     if p.mode == "expert":
-        aux = mesh_collective("mean", aux, p.ctx)
+        # the reference's pmean of an aux every rank computed alike: the
+        # same bits, and the gradient of the rank's own
+        mean = mesh_collective("mean", aux.detach(), p.ctx)
+        aux = aux + (mean - aux.detach()) if aux.requires_grad else mean
+    if p.data_ctx is not None:
+        aux = first_of(aux, p.data_ctx, p.data_ctx.batch_axes)
     return out, aux

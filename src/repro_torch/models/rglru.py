@@ -25,7 +25,11 @@ holds the values rounded to ``u``'s dtype, which the reference returns.
 
 Under a ``ShardCtx`` that puts ``lru`` on the ``model`` axis each rank
 holds its channels (and state), runs ``rglru_scan`` on them, and the out
-projection's partial sums are added over ``model``.
+projection's partial sums are added over ``model``: the input enters
+through ``collectives.copy_to`` and the sum is ``all_sum``, so the
+gradient crosses the ranks. Gates taken on every channel of a block
+(``gather_u``) gather ``u`` and the biases over ``model`` and keep the
+rank's channels of the result through ``copy_to``.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import mesh_collective
+from repro_torch.distributed.collectives import (all_gather, all_sum,
+                                                 copy_to)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.common import P, add_params
 
@@ -112,16 +117,15 @@ def gates(p: RGLRU, u):
     if p.gather_u:
         R_loc = u.shape[-1]
         c0 = p.ctx.index("model") * R_loc
-        full = mesh_collective("gather", u, p.ctx, dim=-1)
-        r, i = _gates(p, full, _full_bias(p))
+        full = all_gather(u, p.ctx, dim=-1)
+        r, i = (copy_to(g, p.ctx) for g in _gates(p, full, _full_bias(p)))
         return r[..., c0:c0 + R_loc], i[..., c0:c0 + R_loc]
     return _gates(p, u, (p.ba, p.bx))
 
 
 def _full_bias(p: RGLRU):
     """``ba`` and ``bx`` over every channel, gathered over ``model``."""
-    return tuple(mesh_collective("gather", b, p.ctx, dim=-1)
-                 for b in (p.ba, p.bx))
+    return tuple(all_gather(b, p.ctx, dim=-1) for b in (p.ba, p.bx))
 
 
 def _gates(p: RGLRU, u, biases):
@@ -147,6 +151,7 @@ def rglru_apply(p: RGLRU, x, state: Optional[dict] = None
     """x: (B,S,D). state: {"h": (B,R) f32, "conv": (B,cw-1,R)} or None,
     updated in place. Returns (out (B,S,D), state)."""
     B, S, D = x.shape
+    x = copy_to(x, p.ctx)
     y = x @ p.wy
     u = x @ p.wx
     u, conv_new = causal_conv(p, u, None if state is None else state["conv"])
@@ -166,4 +171,4 @@ def rglru_apply(p: RGLRU, x, state: Optional[dict] = None
         state["conv"].copy_(conv_new)
     gate = F.gelu(y.float(), approximate="tanh")
     out = (hs * gate).to(x.dtype) @ p.wo
-    return mesh_collective("sum", out, p.ctx), state
+    return all_sum(out, p.ctx), state

@@ -26,7 +26,11 @@ holds its wkv heads and their state, runs ``rwkv6_scan`` on them (the
 decay, gate and group norm taken on those heads' channels), and the out
 projection's partial sums are added over ``model``; the channel mix
 splits its hidden units where ``ff`` is sharded, its partial sums added
-before the receptance gate.
+before the receptance gate. Every tensor replicated over ``model`` that
+enters a rank's heads or hidden units (the mixed inputs, the decay
+LoRA's hidden, and the replicated leaves cut to the rank's channels by
+``RWKVMix.channels``) goes through ``collectives.copy_to``, and the sums
+are ``all_sum``, so the gradient crosses the ranks.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import mesh_collective
+from repro_torch.distributed.collectives import all_sum, copy_to
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.models.common import P, add_params
 
@@ -94,10 +98,12 @@ class RWKVMix(nn.Module):
 
     def channels(self, t, dim: int = -1):
         """``t``'s slice along ``dim`` (of d_model) that this rank's
-        heads cover; ``t`` itself when the heads are whole."""
+        heads cover; ``t`` itself when the heads are whole. ``t`` is
+        replicated over ``model``: its gradient is summed there."""
         if self.heads_ctx is None:
             return t
         n = self.wr.shape[1] * self.wr.shape[2]
+        t = copy_to(t, self.heads_ctx)
         return t.narrow(dim, self.heads_ctx.index("model") * n, n)
 
 
@@ -128,14 +134,17 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     d = xx - xf
     mr, mk, mv, mw, mg = (xf + d * p.mu[i].float() for i in range(5))
 
+    hc = p.heads_ctx
+
     def heads(m, w):
-        return torch.einsum("bsd,dhk->bshk", m.to(x.dtype), w).float()
+        return torch.einsum("bsd,dhk->bshk", copy_to(m, hc).to(x.dtype),
+                            w).float()
 
     r, k, v = heads(mr, p.wr), heads(mk, p.wk), heads(mv, p.wv)
-    g = F.silu(mg.to(x.dtype) @ p.channels(p.wg))
+    g = F.silu(copy_to(mg, hc).to(x.dtype) @ p.channels(p.wg))
 
-    w_raw = p.channels(p.w0).float() + torch.tanh(
-        mw @ p.w_lora_a.float()) @ p.channels(p.w_lora_b).float()
+    w_raw = p.channels(p.w0).float() + copy_to(torch.tanh(
+        mw @ p.w_lora_a.float()), hc) @ p.channels(p.w_lora_b).float()
     logw = -torch.exp(torch.clamp(w_raw, -20.0, 8.0))    # (B,S,D), <= 0
     logw = logw.reshape(B, S, H, hd)
 
@@ -151,7 +160,7 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
                         p.channels(p.gn_b).float())
     y = (y * g.float()).to(x.dtype)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, hd), p.wo)
-    return mesh_collective("sum", out, p.heads_ctx), state
+    return all_sum(out, hc), state
 
 
 def rwkv_channel_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
@@ -162,9 +171,8 @@ def rwkv_channel_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     d = xx - xf
     mk = (xf + d * p.mu_cm[0].float()).to(x.dtype)
     mr = (xf + d * p.mu_cm[1].float()).to(x.dtype)
-    kk = torch.square(torch.relu(mk @ p.wk_cm))
-    out = torch.sigmoid(mr @ p.wr_cm) * mesh_collective(
-        "sum", kk @ p.wv_cm, p.ff_ctx)
+    kk = torch.square(torch.relu(copy_to(mk, p.ff_ctx) @ p.wk_cm))
+    out = torch.sigmoid(mr @ p.wr_cm) * all_sum(kk @ p.wv_cm, p.ff_ctx)
     if state is not None:
         state["x_prev_cm"].copy_(xf[:, -1])
     return out, state

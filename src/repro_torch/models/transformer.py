@@ -37,11 +37,14 @@ templates they call) are the reference's, leaf for leaf: ``P(shape,
 axes, init, scale)`` trees with no tensors, which
 ``distributed.sharding.spec_tree`` maps to specs.
 
-Under a ``ShardCtx`` (``Transformer(cfg, ctx=...)``: serving over a
-``("data", "model")`` mesh) each rank holds its shards and runs the
-reference's partitioning as local code with explicit collectives over
-the ``model`` axis (``distributed.collectives.mesh_collective``), the
-form of the reference's own ``shard_map`` regions: the embedding is a
+Under a ``ShardCtx`` (``Transformer(cfg, ctx=...)``: serving or
+training over a ``("data", "model")`` mesh) each rank holds its shards
+and runs the reference's partitioning as local code with explicit
+collectives over the ``model`` axis (``distributed.collectives``: each
+carries its gradient, ``all_sum`` where the ranks' partial sums meet,
+``copy_to`` where a tensor replicated over ``model`` enters a rank's own
+work), the form of the reference's own ``shard_map`` regions: the
+embedding is a
 masked lookup of the rank's vocab rows, summed; the logits are the
 rank's vocab columns, gathered; attention runs the rank's heads (in
 ``attn_sharding="padded"`` mode, query heads zero-padded per KV group,
@@ -54,8 +57,11 @@ rules put the KV cache's sequence on ``model`` (a KV head count the axis
 does not divide), each rank holds its slice of the ring, and a decode
 step merges the ranks' partial attention by log-sum-exp
 (``decode_attention`` with ``return_lse``): the cache is never
-gathered. FSDP (``embed`` on ``data``) and sequence parallelism are
-rules only here; they run with training under a mesh.
+gathered. Under FSDP (``embed`` on ``data``) each rank also holds its
+part of every ``embed`` dim, and each module's forward reads its leaves
+gathered whole over ``data`` (``common.gathered``; the gradient is
+reduce-scattered back), again in a remat's recompute. Sequence
+parallelism (``seq`` on ``model``) belongs to the dry run and raises.
 """
 from __future__ import annotations
 
@@ -67,14 +73,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.collectives import mesh_collective
+from repro_torch.distributed.collectives import (all_gather, all_sum,
+                                                 copy_to, mesh_collective)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention.ref import merge_lse
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (P, Norm, add_params, init_tensor,
-                                       norm_template, padded_vocab,
-                                       stack_templates, torch_dtype)
+from repro_torch.models.common import (P, Norm, add_params, gathered,
+                                       init_tensor, norm_template,
+                                       padded_vocab, stack_templates,
+                                       torch_dtype)
 from repro_torch.models.mlp import MLP, mlp_template
 from repro_torch.models.moe import MoE, moe_template
 from repro_torch.models.rglru import (RGLRU, rglru_apply,
@@ -135,13 +143,12 @@ def check_supported(cfg) -> None:
 
 
 def check_ctx(ctx) -> None:
-    """Raise for rules the model layer does not run yet: FSDP (``embed``
-    on a mesh axis) and sequence parallelism (``seq``)."""
-    if ctx is not None and (ctx.rules.get("embed") is not None
-                            or ctx.rules.get("seq") is not None):
+    """Raise for sequence parallelism (``seq`` on a mesh axis), which
+    the model layer does not run: it belongs to the dry run."""
+    if ctx is not None and ctx.rules.get("seq") is not None:
         raise NotImplementedError(
-            "FSDP and sequence parallelism run with training under a "
-            "mesh, which the port's model layer does not run yet")
+            "sequence parallelism belongs to the dry run, which the port "
+            "does not have yet")
 
 
 def attention_window(cfg, kind: str) -> int:
@@ -316,8 +323,8 @@ class AttentionBlock(nn.Module):
         self.cfg = cfg
         self.kind = kind
         self.window = attention_window(cfg, kind)
-        self.ln1 = Norm(cfg, **kw)
-        self.ln2 = Norm(cfg, **kw)
+        self.ln1 = Norm(cfg, ctx=ctx, **kw)
+        self.ln2 = Norm(cfg, ctx=ctx, **kw)
         self.attn = attn.Attention(cfg, ctx=ctx, **kw)
         self.mlp = (MoE(cfg, ctx=ctx, **kw) if cfg.moe and kind == "attn"
                     else MLP(cfg, ctx=ctx, **kw))
@@ -327,9 +334,21 @@ class AttentionBlock(nn.Module):
     def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
         cfg = self.cfg
         h = self.ln1(x)
-        q, k, v = attn.qkv_proj(self.attn, h, cfg, positions)
+        at = gathered(self.attn)
         sh = self.shard
-        if sh is not None:
+        if sh is None or not sh.act:
+            q, k, v = attn.qkv_proj(at, h, cfg, positions)
+        else:
+            # the rank's heads take h, replicated over model, through
+            # copy_to; q, k or v computed whole enter through it instead
+            hl = copy_to(h, sh.ctx)
+            q, k, v = attn.qkv_proj(at, h, cfg, positions,
+                                    xq=hl if sh.q_local else h,
+                                    xkv=hl if sh.kv_local else h)
+            if not sh.q_local:
+                q = copy_to(q, sh.ctx)
+            if not sh.kv_local:
+                k, v = copy_to(k, sh.ctx), copy_to(v, sh.ctx)
             q = sh.queries(q)
         if mode == "decode":
             o = self._decode(q, k, v, positions, cache, t)
@@ -343,11 +362,12 @@ class AttentionBlock(nn.Module):
                                     window=self.window)
         if cache is not None and mode != "decode":
             _prefill_write(cache, k, v, positions, *self._ring(cache))
-        if sh is None:
-            x = x + attn.out_proj(self.attn, o)
+        if sh is None or not sh.act:
+            x = x + attn.out_proj(at, o)
         else:
-            y = torch.einsum("bshk,hkd->bsd", o, sh.out_weight(self.attn.wo))
-            x = x + (mesh_collective("sum", y, sh.ctx) if sh.act else y)
+            wo = at.wo if sh.q_local else copy_to(at.wo, sh.ctx)
+            y = torch.einsum("bshk,hkd->bsd", o, sh.out_weight(wo))
+            x = x + all_sum(y, sh.ctx)
         if isinstance(self.mlp, MoE):
             m, aux = self.mlp(self.ln2(x))
             return x + m, aux
@@ -427,13 +447,13 @@ class RGLRUBlock(nn.Module):
     def __init__(self, cfg, *, device, dtype, ctx=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.ln1 = Norm(cfg, **kw)
+        self.ln1 = Norm(cfg, ctx=ctx, **kw)
         self.lru = RGLRU(cfg, ctx=ctx, **kw)
-        self.ln2 = Norm(cfg, **kw)
+        self.ln2 = Norm(cfg, ctx=ctx, **kw)
         self.mlp = MLP(cfg, ctx=ctx, **kw)
 
     def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
-        o, _ = rglru_apply(self.lru, self.ln1(x), cache)
+        o, _ = rglru_apply(gathered(self.lru), self.ln1(x), cache)
         x = x + o
         return x + self.mlp(self.ln2(x)), None
 
@@ -449,14 +469,15 @@ class RWKVBlock(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.ln1 = Norm(cfg, **kw)
+        self.ln1 = Norm(cfg, ctx=ctx, **kw)
         self.mix = RWKVMix(cfg, ctx=ctx, **kw)
-        self.ln2 = Norm(cfg, **kw)
+        self.ln2 = Norm(cfg, ctx=ctx, **kw)
 
     def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
-        o, _ = rwkv_time_mix(self.mix, self.ln1(x), self.cfg, cache)
+        mix = gathered(self.mix)
+        o, _ = rwkv_time_mix(mix, self.ln1(x), self.cfg, cache)
         x = x + o
-        o2, _ = rwkv_channel_mix(self.mix, self.ln2(x), self.cfg, cache)
+        o2, _ = rwkv_channel_mix(mix, self.ln2(x), self.cfg, cache)
         return x + o2, None
 
 
@@ -490,7 +511,7 @@ class Transformer(nn.Module):
         self.ctx = ctx
         own = embed_templates(cfg)
         add_params(self, {"embed": own.pop("embed")}, ctx, **kw)
-        self.final_norm = Norm(cfg, **kw)
+        self.final_norm = Norm(cfg, ctx=ctx, **kw)
         add_params(self, own, ctx, **kw)           # unembed, if untied
         self.layers = nn.ModuleList(
             make_block(cfg, kind, ctx=ctx, **kw)
@@ -603,22 +624,24 @@ def embed_lookup(model: Transformer, tokens):
     """The token embeddings. Where the vocab is split over ``model``, each
     rank looks up the ids in its rows (zero elsewhere) and the ranks'
     rows are summed: exact, one term of each sum being non-zero."""
+    embed = gathered(model).embed
     if model.vocab_ctx is None:
-        return torch.nn.functional.embedding(tokens.long(), model.embed)
+        return torch.nn.functional.embedding(tokens.long(), embed)
     ctx = model.vocab_ctx
-    vloc = model.embed.shape[0]
+    vloc = embed.shape[0]
     ids = tokens.long() - ctx.index("model") * vloc
     ok = (ids >= 0) & (ids < vloc)
-    out = torch.nn.functional.embedding(ids.clamp(0, vloc - 1), model.embed)
+    out = torch.nn.functional.embedding(ids.clamp(0, vloc - 1), embed)
     out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
                                                       device=out.device))
-    return mesh_collective("sum", out, ctx)
+    return all_sum(out, ctx)
 
 
 def unembed_weight(model: Transformer):
+    """(D, Vp) or, where the vocab is split, the rank's columns."""
     if model.cfg.tie_embeddings:
-        return model.embed.t()
-    return model.unembed
+        return gathered(model).embed.t()
+    return gathered(model).unembed
 
 
 def logits_fn(model: Transformer, hidden):
@@ -627,7 +650,7 @@ def logits_fn(model: Transformer, hidden):
     out = hidden @ unembed_weight(model)
     if model.vocab_ctx is None:
         return out
-    return mesh_collective("gather", out, model.vocab_ctx, dim=-1)
+    return all_gather(out, model.vocab_ctx, dim=-1)
 
 
 def forward(model: Transformer, *, tokens=None, embeds=None, positions,

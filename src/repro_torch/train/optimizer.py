@@ -22,6 +22,16 @@ the gradient tree exists (at Qwen1.5-MoE-A2.7B's 14.3 B parameters it
 would be 57.3 GB); ``clip_by_global_norm`` stays for the reference's
 API.
 
+Under a ``ShardCtx`` (``update(..., ctx=ctx)``; the parameters are the
+rank's shards, each carrying its logical ``axes``) every statistic is
+taken over the whole leaf, as the reference's jit takes it over its
+global arrays: the clip's global norm sums each rank's squares over the
+mesh axes its leaf is split on (a replicated leaf counts once), and
+Adafactor's row and column means, the mean of ``vr`` and the RMS of the
+update are each a local sum, summed over the split axes, over the full
+count. The state is the rank's shard of each leaf's state, so it lies
+as ``opt_spec_tree`` says. Without a ctx the arithmetic is unchanged.
+
 ``Optimizer.state_template`` maps a parameter template tree
 (``models.transformer.model_template``, ``P`` leaves in the reference's
 stacked layout) to the state's template, as the reference's: AdamW's
@@ -39,6 +49,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.collectives import mesh_collective
 from repro_torch.models.common import P
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -70,16 +81,60 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
-def global_norm(tree):
+def _sum_over(x, ctx, axes):
+    for a in axes:
+        x = mesh_collective("sum", x, ctx, a)
+    return x
+
+
+def _full_count(x, ctx, axes) -> int:
+    n = x.numel()
+    for a in axes:
+        n *= ctx.size(a)
+    return n
+
+
+def _mean(x, dim, ctx=None, axes=()):
+    """``x.mean(dim)`` of the whole leaf, ``dim`` split over ``axes``."""
+    if not axes:
+        return x.mean(dim=dim)
+    n = x.shape[dim]
+    for a in axes:
+        n *= ctx.size(a)
+    return _sum_over(x.sum(dim=dim), ctx, axes) / n
+
+
+def _rms(u, ctx=None, axes=()):
+    """sqrt(mean(u^2) + 1e-12) over the whole leaf, split over ``axes``."""
+    if not axes:
+        return torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+    sq = _sum_over(torch.sum(torch.square(u)), ctx, axes)
+    return torch.sqrt(sq / _full_count(u, ctx, axes) + 1e-12)
+
+
+def global_norm(tree, ctx=None, params=None):
+    """The norm of every leaf together; under ``ctx`` each rank's squares
+    summed over the mesh axes its leaf (``params``' leaf's ``axes``) is
+    split on."""
+    if ctx is None:
+        total = 0
+        for x in tree_leaves(tree):
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(total)
+    by_axes = {}
+    for x, p in zip(tree_leaves(tree), tree_leaves(params)):
+        key = ctx.split_axes(p.axes)
+        by_axes[key] = (by_axes.get(key, 0)
+                        + torch.sum(torch.square(x.float())))
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for key in sorted(by_axes):
+        total = total + _sum_over(by_axes[key], ctx, key)
     return torch.sqrt(total)
 
 
-def clip_scale(grads, max_norm):
+def clip_scale(grads, max_norm, ctx=None, params=None):
     """(scale, global norm): ``g.float() * scale`` is a leaf clipped."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, ctx, params)
     # a tensor over a tensor: ``max_norm / t`` is ``t.reciprocal() *
     # max_norm`` in torch, which rounds twice
     scale = torch.clamp(torch.full_like(gn, max_norm)
@@ -108,9 +163,9 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, ctx=None):
         step = state["step"] + 1
-        scale, gnorm = clip_scale(grads, max_grad_norm)
+        scale, gnorm = clip_scale(grads, max_grad_norm, ctx, params)
         t = step.to(F32)
         lr = lr_fn(step)
         c1 = 1.0 - torch.pow(b1, t)
@@ -160,22 +215,26 @@ def _leaf_state(shape, reps: int, device) -> dict:
                 vc=torch.zeros(shape[:-2] + shape[-1:], **z))
 
 
-def _moments(g, s, beta, eps):
+def _moments(g, s, beta, eps, ctx=None, da=None):
     """(u, new state): the reference's second moment of the whole leaf
-    ``g`` (float32) from its state ``s``, and g over its square root."""
+    ``g`` (float32) from its state ``s``, and g over its square root.
+    ``da``: per dim of ``g``, the mesh axes of ``ctx`` it is split over
+    (None: whole)."""
     g2 = torch.square(g) + eps
     if _factored(g.shape):
-        ns = dict(vr=beta * s["vr"] + (1 - beta) * g2.mean(dim=-1),
-                  vc=beta * s["vc"] + (1 - beta) * g2.mean(dim=-2))
-        return _over_factored(g, ns, eps), ns
+        ra, ca = (da[-1], da[-2]) if da else ((), ())
+        ns = dict(vr=beta * s["vr"] + (1 - beta) * _mean(g2, -1, ctx, ra),
+                  vc=beta * s["vc"] + (1 - beta) * _mean(g2, -2, ctx, ca))
+        return _over_factored(g, ns, eps, ctx, da), ns
     ns = dict(v=beta * s["v"] + (1 - beta) * g2)
     return g * torch.rsqrt(ns["v"] + eps), ns
 
 
-def _over_factored(g, s, eps):
+def _over_factored(g, s, eps, ctx=None, da=None):
     vr, vc = s["vr"], s["vc"]
+    vr_mean = _mean(vr, -1, ctx, da[-2] if da else ())
     denom = (vr[..., None] * vc[..., None, :]
-             / torch.clamp(vr.mean(dim=-1)[..., None, None], min=eps))
+             / torch.clamp(vr_mean[..., None, None], min=eps))
     return g * torch.rsqrt(denom + eps)
 
 
@@ -209,15 +268,27 @@ def adafactor(lr_fn, eps: float = 1e-30, clip_thresh: float = 1.0,
                                      device=leaves[0].device))
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, ctx=None):
         step = state["step"] + 1
-        scale, gnorm = clip_scale(grads, max_grad_norm)
+        scale, gnorm = clip_scale(grads, max_grad_norm, ctx, params)
         t = step.to(F32)
         beta = 1.0 - torch.pow(t, -decay)
         lr = lr_fn(step)
         paths = _leaf_paths(params)
         gs, ps = tree_leaves(grads), tree_leaves(params)
         ss = [_get(state["v"], k) for k in paths]
+
+        def da(i, stacked=False):
+            """Per dim, the mesh axes leaf i (stacked: with its layers
+            dim first) is split over; None off a mesh."""
+            if ctx is None:
+                return None
+            d = ctx.dim_axes(ps[i].axes)
+            return ((),) + d if stacked else d
+
+        def split(i):
+            """The mesh axes leaf i is split over."""
+            return () if ctx is None else ctx.split_axes(ps[i].axes)
 
         def g32(i):
             return gs[i].float() * scale
@@ -231,29 +302,32 @@ def adafactor(lr_fn, eps: float = 1e-30, clip_thresh: float = 1.0,
         for group in _groups(paths, stacks):
             if len(group) == 1:
                 (i,) = group
-                u, ns = _moments(g32(i), ss[i], beta, eps)
+                u, ns = _moments(g32(i), ss[i], beta, eps, ctx, da(i))
                 _write(ss[i], ns)
-                apply(i, u, torch.sqrt(torch.mean(torch.square(u)) + 1e-12))
+                apply(i, u, _rms(u, ctx, split(i)))
             elif ps[group[0]].dim() >= 2:
                 sq = 0
                 for i in group:
-                    u, ns = _moments(g32(i), ss[i], beta, eps)
+                    u, ns = _moments(g32(i), ss[i], beta, eps, ctx, da(i))
                     _write(ss[i], ns)
                     sq = sq + torch.sum(torch.square(u))
                 del u
-                n = sum(ps[i].numel() for i in group)
-                rms_u = torch.sqrt(sq / n + 1e-12)
+                axes = split(group[0])
+                n = sum(_full_count(ps[i], ctx, axes) for i in group)
+                rms_u = torch.sqrt(_sum_over(sq, ctx, axes) / n + 1e-12)
                 for i in group:
-                    apply(i, _over_factored(g32(i), ss[i], eps), rms_u)
+                    apply(i, _over_factored(g32(i), ss[i], eps, ctx, da(i)),
+                          rms_u)
             else:
                 s0 = ss[group[0]]
                 stacked = ({k: torch.stack([ss[i][k] for i in group])
                             for k in s0} if "v" in s0 else
                            dict(vr=torch.stack([ss[i]["vr"] for i in group]),
                                 vc=s0["vc"]))
+                sda = da(group[0], stacked=True)
                 u, ns = _moments(torch.stack([g32(i) for i in group]),
-                                 stacked, beta, eps)
-                rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+                                 stacked, beta, eps, ctx, sda)
+                rms_u = _rms(u, ctx, split(group[0]))
                 for r, i in enumerate(group):
                     _write(ss[i], {k: v if k == "vc" else v[r]
                                    for k, v in ns.items()})

@@ -1,6 +1,6 @@
 """Train step: microbatched gradient accumulation, the remat'd forward,
-the chunked cross-entropy and the optimizer update. Counterpart of
-``repro/train/trainer.py`` without a mesh.
+the chunked (vocab-parallel) cross-entropy and the optimizer update.
+Counterpart of ``repro/train/trainer.py``.
 
 The parameters are the model's own (``trainable_params``: every
 parameter of the ``Transformer``, turned trainable, by its module name);
@@ -13,17 +13,39 @@ updated in place (``optimizer.py``). Gradients come from
 ``torch.autograd.grad``, in the parameters' dtype (bf16 parameters give
 bf16 gradients, as JAX's do); with microbatches they are summed in
 float32, each divided by the count, as the reference's scan does.
-``make_batch_spec`` belongs to the dry run and waits for the mesh
-tooling.
+
+Under a ``ShardCtx`` the model holds the rank's shards and the batch is
+the rank's shard of the global batch (``local_batch``). The loss is the
+global batch's, the same on every rank (the cross-entropy's mean over
+the batch axes carries the gradient back over their size), the model's
+collectives carry the gradient across ``model`` and FSDP's gathers
+reduce-scatter it over ``data``; the step then sums over the batch axes
+every gradient leaf its rank holds whole along them
+(``reduce_gradients``: flat float32 buckets, one collective a bucket and
+axis, not one a leaf), and the optimizer takes its statistics over the
+whole leaves (``optimizer.py``). ``make_batch_spec`` gives a global
+batch's shapes, dtypes and specs.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from repro_torch.distributed.collectives import mesh_collective
+from repro_torch.distributed.sharding import NamedSharding
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import torch_dtype
+from repro_torch.models.frontends import uses_embeds
 from repro_torch.train.losses import vocab_parallel_ce
 
 AUX_COEF = 0.01   # MoE load-balance loss weight
+# the logical axes of a batch's leaves
+BATCH_AXES = dict(tokens=("batch", None), embeds=("batch", "seq", "act_embed"),
+                  labels=("batch", "seq"))
+# the elements of one gradient bucket (float32: 256 MB)
+BUCKET_NUMEL = 64 * 2 ** 20
+BatchSpec = collections.namedtuple("BatchSpec", "shape dtype")
 
 
 def trainable_params(model) -> dict:
@@ -79,6 +101,40 @@ def value_and_grad(model, batch, cfg, ctx=None):
             dict(zip(params, grads)))
 
 
+def reduce_gradients(grads, params, ctx):
+    """The gradients summed over the batch axes wherever the rank holds
+    the leaf whole along them (FSDP's leaves arrive summed over ``data``
+    by their reduce-scatter): leaves with the same axes to sum over are
+    cut into flat float32 buckets of at most ``BUCKET_NUMEL`` elements,
+    each summed by one collective an axis. A new dict by name."""
+    if ctx is None:
+        return grads
+    batch = tuple(a for a in ctx.batch_axes if ctx.size(a) > 1)
+    groups = {}
+    for name, p in params.items():
+        axes = tuple(a for a in batch if a not in ctx.split_axes(p.axes))
+        groups.setdefault(axes, []).append(name)
+    out = dict(grads)
+    for axes, names in groups.items():
+        if not axes:
+            continue
+        bucket, size = [], 0
+        for i, name in enumerate(names):
+            bucket.append(name)
+            size += grads[name].numel()
+            if size >= BUCKET_NUMEL or i == len(names) - 1:
+                flat = torch.cat([grads[n].float().reshape(-1)
+                                  for n in bucket])
+                for a in axes:
+                    flat = mesh_collective("sum", flat, ctx, a)
+                for n, part in zip(bucket, torch.split(
+                        flat, [grads[n].numel() for n in bucket])):
+                    out[n] = part.view(grads[n].shape).to(grads[n].dtype)
+                bucket, size = [], 0
+                del flat
+    return out
+
+
 def make_train_step(cfg, ctx, opt, num_microbatches: int = 1):
     def train_step(model, opt_state, batch):
         if num_microbatches <= 1:
@@ -100,7 +156,8 @@ def make_train_step(cfg, ctx, opt, num_microbatches: int = 1):
                 del g
             parts = dict(nll=loss, aux=torch.zeros((), device=loss.device))
         params = trainable_params(model)
-        _, opt_state, om = opt.update(grads, opt_state, params)
+        grads = reduce_gradients(grads, params, ctx)
+        _, opt_state, om = opt.update(grads, opt_state, params, ctx=ctx)
         metrics = dict(loss=loss, nll=parts["nll"], aux=parts["aux"], **om)
         return model, opt_state, metrics
 
@@ -109,3 +166,60 @@ def make_train_step(cfg, ctx, opt, num_microbatches: int = 1):
 
 def _device(batch):
     return next(iter(batch.values())).device
+
+
+def make_batch_spec(cfg, ctx, batch: int, seq: int):
+    """(specs, shardings) of one global batch: ``BatchSpec(shape,
+    dtype)`` by name, and each leaf's ``ShardCtx.spec`` entries (the
+    reference's ``PartitionSpec``). Token configs take ``tokens`` (B,
+    S+1) int32, its sequence never split (S+1 need not divide the model
+    axis); frontend configs ``embeds`` (B,S,D) in ``cfg.dtype`` and
+    ``labels`` (B,S) int32."""
+    if uses_embeds(cfg):
+        specs = dict(embeds=BatchSpec((batch, seq, cfg.d_model),
+                                      torch_dtype(cfg.dtype)),
+                     labels=BatchSpec((batch, seq), torch.int32))
+    else:
+        specs = dict(tokens=BatchSpec((batch, seq + 1), torch.int32))
+    return specs, {k: ctx.spec(BATCH_AXES[k]) for k in specs}
+
+
+def local_batch(batch, ctx):
+    """The rank's shard of a global batch (its rows over the batch
+    axes); ``batch`` itself without a ctx."""
+    if ctx is None:
+        return batch
+    return {k: ctx.local(v, BATCH_AXES[k]) for k, v in batch.items()}
+
+
+def state_shardings(state, params, ctx):
+    """A ``NamedSharding`` for each tensor of a training state (the
+    parameters, the optimizer's state, the error state) that lies on the
+    mesh as its parameter does, None for the rest (the step count): the
+    ``shardings`` of ``checkpoint.ckpt``'s save and restore. A dict keyed
+    by parameter names maps each value to its parameter: a tensor of the
+    parameter's shape, or Adafactor's moments of it."""
+    def moment(key, p, t):
+        if key == "v" or t.dim() == 0:
+            axes = p.axes if key == "v" else ()
+        elif key == "vr":
+            axes = p.axes[:-1]
+        else:
+            axes = p.axes if p.dim() == 1 else p.axes[:-2] + p.axes[-1:]
+        return NamedSharding(ctx, axes)
+
+    def like(node, p):
+        if isinstance(node, dict):
+            return {k: moment(k, p, v) for k, v in node.items()}
+        return NamedSharding(ctx, p.axes)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if tree and set(tree) <= set(params):
+                return {k: like(v, params[k]) for k, v in tree.items()}
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return None
+
+    return walk(state)

@@ -210,7 +210,9 @@ def test_chunked_ce_and_grads_match_reference(B, S, n_chunks):
 
 def test_vocab_parallel_ce_without_mesh_and_bf16_weights():
     """``vocab_parallel_ce`` with no mesh is the dense path on float32
-    hidden; bf16 weights give a bf16 gradient, summed in float32."""
+    hidden; bf16 weights give a bf16 gradient, summed in float32; a mesh
+    of one rank takes the same path bit for bit (the vocab-sharded path
+    is held in ``tests/test_torch_mesh_train.py``)."""
     from repro_torch.configs import get_config, reduced
     cfg = reduced(get_config("qwen2-1.5b"))
     h, w, labels = _ce_inputs(2, 6, 16, 64, 50)
@@ -223,8 +225,10 @@ def test_vocab_parallel_ce_without_mesh_and_bf16_weights():
     assert torch.equal(loss, want)
     loss.backward()
     assert th.grad.dtype == tw.grad.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="mesh"):
-        losses.vocab_parallel_ce(th, tw, tl, cfg, object())
+    from repro_torch.distributed.sharding import local_ctx
+    assert torch.equal(losses.vocab_parallel_ce(th, tw, tl, cfg,
+                                                local_ctx(cfg), n_chunks=3),
+                       want)
 
 
 # ---------------------------------------------------------------------------
