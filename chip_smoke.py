@@ -262,13 +262,16 @@ Phases, each of which raises on failure (non-zero exit):
    1-rank step, launches, collectives by kind with bytes and bytes
    staged through the host, step time on the host's clock, peak
    memory): (a) one float32 AdamW step of Qwen2-1.5B at full width and
-   depth, B 4 x S 512, on (data 1, model 2) tensor parallel and on
+   depth, B 4 x S 512, on (data 1, model 2) tensor parallel, on the
+   same mesh with sequence parallelism (``MESH_SP``) and on
    (data 2, model 1) with FSDP, each held to the 1-rank step on the same
-   weights and batch (run by each rank in turn, its shards kept) at
+   weights and batch (run once by rank 0, its gradients and moments
+   mapped into the other rank by CUDA IPC) at
    ``MESH_STEP_TOL`` (loss, gnorm, every gradient leaf and moment by its
    norm; RWKV6-3B's ``mix.u`` at ``MESH_LOOSE_FACTOR`` times that, and
    each RWKV6-3B leaf's bar raised by its own kernel-against-plain
-   difference in the 1-rank step, ``MESH_NOISE_ARCHS``); (b) 5
+   difference in the 1-rank step, ``MESH_NOISE_ARCHS``, which must stay
+   within ``MESH_NOISE_CAP``); (b) 5
    bf16 steps on each mesh through ``launch.train.build`` at
    ``TRAIN_RUN``'s lr, the first batch's loss falling, the mesh's token
    losses on it within twice the 1-rank bf16 run's own (per-token) error
@@ -278,6 +281,8 @@ Phases, each of which raises on failure (non-zero exit):
    of Qwen1.5-MoE-A2.7B with Adafactor in both ``moe_sharding`` modes on
    (1, 2) and in ``"tensor"`` mode on (2, 1) (the global batch routed
    whole, as the reference's jit routes it with a model axis of one),
+   and with sequence parallelism on (1, 2) for the first two and the
+   ``"tensor"`` MoE (their launches under paths of their own, ``:sp``),
    each held as (a); (d) 2 layers, bf16: 2 steps on (1, 2), a save
    (gathered, one rank writes), a restore onto (2, 1) with FSDP equal
    bit for bit, a third step whose token losses lie within three times
@@ -287,6 +292,14 @@ Phases, each of which raises on failure (non-zero exit):
    with no mesh. Phase 2 holds each kernel these steps launch,
    forward and backward, at the shape a rank sees
    (``MESH_FLASH_SHAPES``, the scans' ``mesh_tp`` rows).
+9. the dry run (``python -m repro_torch.launch.dryrun``) of
+   ``DRYRUN_CELLS`` on the pod mesh (256 fake ranks), in children on
+   this host's torch, run beside phase 6's first training run: fake CUDA
+   tensors over a ``"fake"`` process group, nothing allocated on the
+   card, no kernel launched; a ``dryrun`` line a cell (status, FLOPs,
+   argument and peak bytes a rank, trace seconds); any status but ok
+   fails. Phase 2 also logs the host time the kernels' ``torch.library``
+   operators add to a launch (``op_overhead``).
 
 Launch counters are zeroed just before each main path (phases 3, 4, each
 whole run of 4b, each stream of 4c, each fleet of 4d, each row of 4e,
@@ -5016,18 +5029,21 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start_processes(cmds, d):
-    """Start ``cmds`` (name -> this script's arguments) together, each
-    writing its output to files in ``d``; (processes, files, start)."""
+def start_processes(cmds, d, env=None):
+    """Start ``cmds`` (name -> this script's arguments, or ``["-m",
+    module, ...]``) together, each writing its output to files in ``d``;
+    (processes, files, start)."""
     procs, files = {}, {}
     try:
         for name, args in cmds.items():
             files[name] = [Path(d) / f"{name}.{x}" for x in ("out", "err")]
+            script = [] if args[:1] == ["-m"] else [
+                str(Path(__file__).resolve())]
             with open(files[name][0], "w") as o, \
                     open(files[name][1], "w") as e:
                 procs[name] = subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()), *args],
-                    cwd=ROOT, stdout=o, stderr=e)
+                    [sys.executable, *script, *args],
+                    cwd=ROOT, stdout=o, stderr=e, env=env)
     except BaseException:
         stop_processes((procs, files, None))
         raise
@@ -5156,9 +5172,13 @@ def mesh_phase(seconds: dict) -> dict:
 # model 1) with FSDP: MESH_RANKS gloo ranks sharing the card
 MESH_TRAIN = dict(batch=4, seq=512)
 MESH_TRAIN_MESHES = (("tp", (1, 2), False), ("fsdp", (2, 1), True))
+# 8a's third ctx: sequence parallelism (seq on model) over the tp mesh
+MESH_SP = dict(sp="tp")
 # 8a and 8c: one float32 step of the mesh against the 1-rank step on the
-# same weights and global batch (each rank runs that step itself, one
-# rank at a time, and keeps its shards of the gradients and moments).
+# same weights and global batch (rank 0 runs that step once and keeps its
+# gradients and moments on the card; the other rank maps them into its
+# own process, CUDA IPC, and each takes its shards as views: nothing is
+# copied).
 # The CPU tests' bars (tests/test_torch_mesh_train.py): the loss and
 # gnorm within MESH_STEP_TOL relative; each gradient leaf within
 # MESH_STEP_TOL of its norm, each AdamW moment within twice that; the
@@ -5177,8 +5197,11 @@ MESH_LOOSE_FACTOR = 4.0
 # plain versions' on the card, and the mesh moved ``mix.wk`` by 1.22e-5
 # of its norm in a run with no such term), the 1-rank step also
 # runs through the plain versions, and each leaf's bar is raised by that
-# leaf's own kernel-against-plain difference, by its norm
+# leaf's own kernel-against-plain difference, by its norm; a difference
+# past MESH_NOISE_CAP of the leaf's norm (twice that for a moment,
+# MESH_LOOSE_FACTOR times for MESH_LOOSE_LEAVES) fails the phase
 MESH_NOISE_ARCHS = ("rwkv6-3b",)
+MESH_NOISE_CAP = 2e-5
 MESH_STEP_LR = 1e-3
 # 8b: TRAIN_RUN's lr, 5 steps on each mesh through ``launch.train``'s
 # ``build``. Its bar, token by token on the first batch before the first
@@ -5188,15 +5211,17 @@ MESH_STEP_LR = 1e-3
 # within MESH_STEP_TOL relative (float32 sums in another order). (The
 # difference of two mean losses can cancel to near zero: no bar.)
 MESH_BF16 = dict(steps=5, lr=TRAIN_RUN["lr"])
-# 8c: (arch, moe_sharding, mesh shape, optimizer), one float32 step each
-# at full width and STEP_CHECK_LAYERS layers, B 2 x S 512; the MoE at
-# (2, 1) routes the global batch, as the reference's jit does with a
-# model axis of one (its per-data-shard shard_map needs model > 1)
-MESH_FAMILY = (("recurrentgemma-2b", None, (1, 2), "adamw"),
-               ("rwkv6-3b", None, (1, 2), "adamw"),
-               (MOE_ARCH, "tensor", (1, 2), "adafactor"),
-               (MOE_ARCH, "expert", (1, 2), "adafactor"),
-               (MOE_ARCH, "tensor", (2, 1), "adafactor"))
+# 8c: (arch, moe_sharding, mesh shape, optimizer, sequence parallelism
+# too), one float32 step each at full width and STEP_CHECK_LAYERS layers,
+# B 2 x S 512 (with sequence parallelism also a second step over the same
+# mesh, seq on model, held to the same 1-rank step); the MoE at (2, 1)
+# routes the global batch, as the reference's jit does with a model axis
+# of one (its per-data-shard shard_map needs model > 1)
+MESH_FAMILY = (("recurrentgemma-2b", None, (1, 2), "adamw", True),
+               ("rwkv6-3b", None, (1, 2), "adamw", True),
+               (MOE_ARCH, "tensor", (1, 2), "adafactor", True),
+               (MOE_ARCH, "expert", (1, 2), "adafactor", False),
+               (MOE_ARCH, "tensor", (2, 1), "adafactor", False))
 MESH_FAMILY_BATCH = dict(batch=2, seq=512)
 # 8d: 2 layers at full width, bf16: 2 steps on (1, 2), saved, restored on
 # (2, 1) with FSDP, one more step; against an unbroken 1-rank run, token
@@ -5210,15 +5235,13 @@ MESH_ELASTIC = dict(layers=2, steps=2, batch=4, seq=512)
 MESH_TRAIN_TIMEOUT_S = 600
 
 
-def one_rank_step(cfg, ctxs, optimizer, lr, batch):
+def one_rank_step(cfg, optimizer, lr, batch):
     """The 1-rank step of ``cfg`` (weights from seed 0) on the global
-    ``batch``, on this rank: for each ``ctxs`` entry (name -> ShardCtx)
-    its loss and gnorm, and this rank's shards under that ctx of each
-    gradient leaf and, for AdamW, of the moments after the step, kept in
-    host memory (the card is shared with the other rank and, in the
-    script, with phases 4b-4f); the model freed. For MESH_NOISE_ARCHS
-    also each leaf's (and moment's) difference between the step through
-    the plain versions and this one, by its norm (``noise``)."""
+    ``batch``: its loss and gnorm, its gradients and, for AdamW, its
+    moments after the step, whole and on the card; the model freed. For
+    MESH_NOISE_ARCHS also each leaf's (and moment's) difference between
+    the step through the plain versions and this one, by its norm
+    (``noise``)."""
     from repro_torch.models import transformer as tfm
     from repro_torch.train.trainer import trainable_params, value_and_grad
 
@@ -5245,19 +5268,48 @@ def one_rank_step(cfg, ctxs, optimizer, lr, batch):
             noise.update({f"{m}:{k}": rel(sp[m][k], state[m][k])
                           for m in ("m", "v") for k in grads})
         del gp, sp
-    out = {}
-    for name, ctx in ctxs.items():
-        def mine(tree):
-            return {k: ctx.local(v, params[k].axes).cpu()
-                    for k, v in tree.items()}
-        out[name] = dict(loss=float(loss), gnorm=float(met["gnorm"]),
-                         grads=mine(grads), noise=noise)
-        if optimizer == "adamw":
-            out[name]["m"] = mine(state["m"])
-            out[name]["v"] = mine(state["v"])
-    del params, grads, state
+    out = dict(loss=float(loss), gnorm=float(met["gnorm"]), grads=grads,
+               noise=noise)
+    if optimizer == "adamw":
+        out["m"], out["v"] = state["m"], state["v"]
+    del params
     torch.cuda.empty_cache()
     return out
+
+
+def shared_from_rank0(rank, value):
+    """Rank 0's ``value`` (a dict whose tensors lie on the card, nested a
+    level at most) in every rank's process: the other ranks map rank 0's
+    card memory (CUDA IPC, the card they share), so nothing is copied.
+    Rank 0 keeps its tensors alive until every rank has dropped them
+    (``done_with_shared``)."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    def pack(v):
+        if isinstance(v, dict):
+            return {k: pack(x) for k, x in v.items()}
+        return ("ipc", reduce_tensor(v)) if torch.is_tensor(v) else v
+
+    def unpack(v):
+        if isinstance(v, dict):
+            return {k: unpack(x) for k, x in v.items()}
+        if isinstance(v, tuple) and len(v) == 2 and v[0] == "ipc":
+            fn, args = v[1]
+            return fn(*args)
+        return v
+
+    box = [pack(value) if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return value if rank == 0 else unpack(box[0])
+
+
+def done_with_shared() -> None:
+    """Every rank past its use of ``shared_from_rank0``'s tensors."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
 
 
 def leaf_errors(ctx, params, got, want):
@@ -5288,8 +5340,8 @@ def leaf_errors(ctx, params, got, want):
 def mesh_step(kernels, what, cfg, ctx, optimizer, lr, batch, one):
     """One step of ``cfg`` over ``ctx`` (the rank's shards, seed 0) on
     the rank's shard of the global ``batch``, launches and collectives
-    counted, held to ``one`` (``one_rank_step``'s) at MESH_STEP_TOL;
-    returns its row."""
+    counted, held to ``one`` (``one_rank_step``'s, whole: the rank's
+    shards are views of it) at MESH_STEP_TOL; returns its row."""
     from repro_torch.distributed import collectives
     from repro_torch.models import transformer as tfm
     from repro_torch.train.trainer import (local_batch, reduce_gradients,
@@ -5315,16 +5367,30 @@ def mesh_step(kernels, what, cfg, ctx, optimizer, lr, batch, one):
     counts = kernels.launch_counts()
     coll = collectives.counts()
     check_launches(what, counts, train_launches(cfg, 1), plain)
-    grad_err = leaf_errors(ctx, params, grads, one["grads"])
+
+    def mine(tree):
+        return {k: ctx.local(v, params[k].axes) for k, v in tree.items()}
+
+    grad_err = leaf_errors(ctx, params, grads, mine(one["grads"]))
     moment_err = {}
     for k in ("m", "v"):
         if k in one:
-            for n, e in leaf_errors(ctx, params, state[k], one[k]).items():
+            for n, e in leaf_errors(ctx, params, state[k],
+                                    mine(one[k])).items():
                 moment_err[f"{k}:{n}"] = e
+
+    def factor(name):
+        return (MESH_LOOSE_FACTOR if name.endswith(MESH_LOOSE_LEAVES)
+                else 1.0) * (2 if ":" in name else 1)
+
     def leaf_bar(name):
-        return MESH_STEP_TOL * (MESH_LOOSE_FACTOR if name.endswith(
-            MESH_LOOSE_LEAVES) else 1.0) * (2 if ":" in name else 1) + one[
-                "noise"].get(name, 0.0)
+        return MESH_STEP_TOL * factor(name) + one["noise"].get(name, 0.0)
+
+    noisy = {k: e for k, e in one["noise"].items()
+             if e > MESH_NOISE_CAP * factor(k)}
+    if noisy:
+        raise AssertionError(f"{what}: the 1-rank step's kernel-against-"
+                             f"plain gap passes MESH_NOISE_CAP: {noisy}")
 
     def worst(errs, loose):
         errs = {k: e for k, e in errs.items()
@@ -5346,6 +5412,7 @@ def mesh_step(kernels, what, cfg, ctx, optimizer, lr, batch, one):
         moment_worst_loose=worst(moment_err, True),
         leaves=len(grad_err), noise_max=max(one["noise"].values(),
                                             default=None),
+        seq_parallel=ctx.rules.get("seq") is not None,
         launches=counts, collectives=coll,
         step_s=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         tol=dict(loss_gnorm=MESH_STEP_TOL, grad=MESH_STEP_TOL,
@@ -5379,19 +5446,25 @@ def serially(rank, world, fn):
 
 def mesh_checks(kernels, rank, world, what, cfg, meshes, optimizer, lr,
                 batch):
-    """8a or 8c: the 1-rank step (each rank in turn, keeping its shards
-    for every mesh), then each mesh's step held to it. ``meshes``: name
-    -> (mesh, fsdp). Returns the rows by name."""
+    """8a or 8c: the 1-rank step, run once by rank 0 and mapped into the
+    others (``shared_from_rank0``), then each mesh's step held to it.
+    ``meshes``: name -> (mesh, fsdp, seq_parallel). Returns the rows by
+    name."""
+    import torch.distributed as dist
     from repro_torch.distributed.sharding import make_ctx
 
-    ctxs = {name: make_ctx(cfg, mesh, fsdp=fsdp)
-            for name, (mesh, fsdp) in meshes.items()}
-    one = serially(rank, world, lambda: one_rank_step(cfg, ctxs, optimizer,
-                                                      lr, batch))
+    ctxs = {name: make_ctx(cfg, mesh, fsdp=fsdp, seq_parallel=sp)
+            for name, (mesh, fsdp, sp) in meshes.items()}
+    one = one_rank_step(cfg, optimizer, lr, batch) if rank == 0 else None
+    dist.barrier()
+    one = shared_from_rank0(rank, one)
     rows = {}
     for name, ctx in ctxs.items():
         rows[name] = mesh_step(kernels, f"{what} {name}", cfg, ctx,
-                               optimizer, lr, batch, one.pop(name))
+                               optimizer, lr, batch, one)
+    done_with_shared()
+    del one
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -5666,8 +5739,10 @@ def train_mesh_rank(rank: int, world: int, port: int, d: str) -> int:
                                     param_dtype="float32")
         pipe = SyntheticTokenPipeline(cfg16.vocab_size, **MESH_TRAIN)
         batch = device_batch(pipe, 0)
-        out["8a"] = mesh_checks(kernels, rank, world, "8a", cfg32,
-                                {n: (meshes[n], fsdp[n]) for n in meshes},
+        ctxs8a = {n: (meshes[n], fsdp[n], False) for n in meshes}
+        ctxs8a.update({n: (meshes[m], fsdp[m], True)
+                       for n, m in MESH_SP.items()})
+        out["8a"] = mesh_checks(kernels, rank, world, "8a", cfg32, ctxs8a,
                                 "adamw", MESH_STEP_LR, batch)
         for name, row in out["8a"].items():
             by_path[f"train_mesh_step:{name}:rank{rank}"] = row["launches"]
@@ -5682,7 +5757,7 @@ def train_mesh_rank(rank: int, world: int, port: int, d: str) -> int:
             by_path[f"train_mesh_bf16:{name}:rank{rank}"] = row["launches"]
             done(f"8b {name}")
         out["8c"] = []
-        for arch, mode, shape, optimizer in MESH_FAMILY:
+        for arch, mode, shape, optimizer, sp in MESH_FAMILY:
             cfg = dataclasses.replace(
                 get_config(arch), n_layers=STEP_CHECK_LAYERS[arch],
                 dtype="float32", param_dtype="float32")
@@ -5691,11 +5766,15 @@ def train_mesh_rank(rank: int, world: int, port: int, d: str) -> int:
             fam = SyntheticTokenPipeline(cfg.vocab_size, **MESH_FAMILY_BATCH)
             mesh = meshes["tp" if shape == (1, 2) else "fsdp"]
             key = f"{arch}:{mode or ''}:{'x'.join(map(str, shape))}"
-            row = mesh_checks(kernels, rank, world, "8c", cfg,
-                              {key: (mesh, False)}, optimizer, MESH_STEP_LR,
-                              device_batch(fam, 0))[key]
-            out["8c"].append(row)
-            by_path[f"train_mesh_step:{key}:rank{rank}"] = row["launches"]
+            ctxs = {key: (mesh, False, False)}
+            if sp:
+                ctxs[f"{key}:sp"] = (mesh, False, True)
+            rows = mesh_checks(kernels, rank, world, "8c", cfg, ctxs,
+                               optimizer, MESH_STEP_LR, device_batch(fam, 0))
+            for name, row in rows.items():
+                out["8c"].append(row)
+                by_path[f"train_mesh_step:{name}:rank{rank}"] = \
+                    row["launches"]
             done(f"8c {key}")
         out["8d"] = mesh_elastic(kernels, rank, world, meshes, pipe,
                                  str(Path(d) / "elastic"))
@@ -5842,6 +5921,89 @@ def mesh_train_finish(started, d, seconds: dict) -> dict:
     return by_path
 
 
+# phase 9: the dry run's cells, (arch, shape, sequence parallelism), on
+# the production pod mesh
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
+                ("qwen2-1.5b", "train_4k", True),
+                ("rwkv6-3b", "prefill_32k", False))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_start(d):
+    """Start phase 9's children, one a cell, writing into ``d``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_TEST_MESH", None)
+    cmds = {f"dryrun{i}": ["-m", "repro_torch.launch.dryrun", "--arch", a,
+                           "--shape", shape, "--mesh", "pod", "--out", d,
+                           "--tag", f"phase9_{i}"]
+            + (["--seq-parallel"] if sp else [])
+            for i, (a, shape, sp) in enumerate(DRYRUN_CELLS)}
+    return start_processes(cmds, d, env=env)
+
+
+def dryrun_finish(started, d, seconds: dict) -> None:
+    """Phase 9's end: its children waited for, a ``dryrun`` line a
+    cell; a status other than ok fails the phase."""
+    finish_processes(started, DRYRUN_TIMEOUT_S)
+    seconds["9"] = time.perf_counter() - started[2]
+    for i, (arch, shape, sp) in enumerate(DRYRUN_CELLS):
+        res = json.loads(Path(d, f"{arch}__{shape}__pod__phase9_{i}.json")
+                         .read_text())
+        row = dict(arch=arch, shape=shape, seq_parallel=sp,
+                   status=res["status"], error=res.get("error"))
+        if res["status"] == "ok":
+            mem = res["memory"]
+            row.update(n_chips=res["n_chips"], device=res["device"],
+                       flops=res["analysis"]["flops"],
+                       traced_flops=res["analysis"]["traced_flops"],
+                       argument_bytes=mem["argument_bytes"],
+                       peak_bytes=mem["peak_bytes"], split=mem["split"],
+                       collective_bytes=res["collective_bytes"],
+                       trace_s=res["trace_s"])
+        log("dryrun", json.dumps(row))
+        if res["status"] != "ok":
+            raise AssertionError(f"phase 9: {arch} {shape} (sequence "
+                                 f"parallelism {sp}) is {res['status']}: "
+                                 f"{res.get('error')}")
+
+
+def op_overhead(kernels) -> dict:
+    """The host time a ``repro_torch`` operator adds to a launch:
+    ``rglru_scan``'s smallest launch called through its operator and
+    through the ``ctypes`` entry directly, many times each, the card kept
+    ahead of the host (the launches queue behind a sleeping kernel), in
+    microseconds a call; logged as an ``op_overhead`` line."""
+    from repro_torch.kernels.rglru_scan import kernel, ops
+
+    a = torch.rand(1, 1, 64, device=DEVICE)
+    b, h0 = torch.rand_like(a), torch.zeros(1, 64, device=DEVICE)
+    hs, h = torch.empty_like(a), torch.empty_like(h0)
+    n = 2000
+
+    def per_call(fn):
+        fn(a, b, h0, hs, h)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(a, b, h0, hs, h)
+            best = min(best, (time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        return best
+
+    direct = per_call(kernel.launch)
+    through = per_call(ops._launch)
+    kernels.reset_launch_counts()
+    row = dict(kernel="rglru_scan", calls=n, direct_us=direct,
+               operator_us=through, added_us=through - direct)
+    log("op_overhead", json.dumps(row))
+    return row
+
+
 def matern_entry(rows, post_rows, by_path, main):
     """``matern_score``'s item of the ``kernels`` line. The main path
     launches the posterior entry, so the item's times are its cold and
@@ -5979,6 +6141,7 @@ def main() -> int:
     rwkv_rows = timed("2 rwkv6_scan", rwkv6_phase, kernels)
     rglru_bwd_rows = timed("2 rglru_scan_bwd", rglru_bwd_phase, kernels)
     rwkv_bwd_rows = timed("2 rwkv6_scan_bwd", rwkv6_bwd_phase, kernels)
+    timed("2 op overhead", op_overhead, kernels)
 
     # phases 3 and 4: the BO engines
     seq_counts, seq_res = timed("3", sequential_phase, core, kernels)
@@ -6016,8 +6179,18 @@ def main() -> int:
                 if n:
                     by_path[name][f"{path}:{run.arch}"] = n
 
-    # phase 6: training, one model at a time
-    train_counts = {TRAIN_ARCH: timed("6a train", train_phase, kernels)}
+    # phase 6: training, one model at a time; phase 9 (the dry run, on
+    # the host) beside its first run, which waits on the card
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d9:
+        dry9 = dryrun_start(d9)
+        try:
+            train_counts = {TRAIN_ARCH: timed("6a train", train_phase,
+                                              kernels)}
+        except BaseException:
+            stop_processes(dry9)
+            raise
+        dryrun_finish(dry9, d9, seconds)
+    lap[0] = time.perf_counter()
     step_counts = {TRAIN_ARCH: timed("6b step check", step_check_phase,
                                      kernels)}
     timed("6c resume", resume_phase, kernels)

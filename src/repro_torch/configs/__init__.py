@@ -9,7 +9,7 @@ import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES, ModelConfig, ShapeConfig, get_config, list_configs, reduced,
-    register,
+    register, shape_applicable,
 )
 
 _ARCH_MODULES = [

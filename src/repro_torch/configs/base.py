@@ -98,6 +98,22 @@ class ModelConfig:
         return self.rwkv_head_dim
 
     @property
+    def attention_free(self) -> bool:
+        return self.n_heads == 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports long-context decode with bounded state (long_500k)."""
+        if self.attention_free:
+            return True
+        if self.attn_type == "swa" and self.window > 0:
+            return True
+        # hybrid: all attention layers are windowed
+        if "rglru" in self.block_pattern and "attn" not in self.block_pattern:
+            return True
+        return False
+
+    @property
     def n_rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
@@ -176,6 +192,15 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """long_500k only runs on sub-quadratic archs (task-sheet rule)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            f"{cfg.name} is pure full-attention; long_500k requires "
+            "sub-quadratic attention (skip noted in DESIGN.md §4)")
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

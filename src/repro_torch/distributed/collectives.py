@@ -35,7 +35,22 @@ The model's and the loss's mesh paths carry gradients through five
   part);
 - ``all_mean``: an all-reduce mean of a value whose gradient is the same
   on every rank (the loss over the batch axes); the backward divides it
-  by the axis size.
+  by the axis size;
+
+and Megatron's sequence-parallel pair, for a residual stream whose
+sequence is cut over ``model`` (``seq`` on ``model``):
+
+- ``gather_seq``: the ranks' slices concatenated along the sequence (kind
+  ``gather``); the backward is a reduce-scatter (kind
+  ``reduce_scatter``): each rank's gradient of the whole sequence is one
+  term, and the rank keeps its slice of the sum;
+- ``scatter_seq``: the rank's slice of the sum over the axis (kind
+  ``reduce_scatter``), the row-parallel exit; the backward gathers the
+  slices (kind ``gather``).
+
+``all_gather`` and ``all_sum`` are right only where every rank's gradient
+downstream is already whole; inside a block under sequence parallelism
+the pair above takes their place.
 
 ``first_of`` gives every rank the value of the axis's rank 0, its
 backward dividing by the axis size: the reference's ``shard_map``
@@ -79,16 +94,20 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """kind -> {calls, bytes, staged_bytes, seconds} since the last
-    ``reset_counts``; ``bytes`` is what this rank sent."""
+    """kind -> {calls, bytes, result_bytes, staged_bytes, seconds} since
+    the last ``reset_counts``; ``bytes`` is what this rank sent (float32
+    for sums, maxima and means), ``result_bytes`` what the collective
+    gave it, in the tensor's dtype (the reference dry run's count of an
+    HLO collective's result)."""
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
-def _count(kind, nbytes, staged, seconds):
-    c = _COUNTS.setdefault(kind, dict(calls=0, bytes=0, staged_bytes=0,
-                                      seconds=0.0))
+def _count(kind, nbytes, staged, seconds, result=0):
+    c = _COUNTS.setdefault(kind, dict(calls=0, bytes=0, result_bytes=0,
+                                      staged_bytes=0, seconds=0.0))
     c["calls"] += 1
     c["bytes"] += nbytes
+    c["result_bytes"] += result
     c["staged_bytes"] += staged
     c["seconds"] += seconds
 
@@ -155,7 +174,7 @@ def mesh_collective(kind: str, x, ctx=None, axis: str = "model",
         nbytes = y.numel() * y.element_size()
     out = out.to(x.device)
     _count(kind, nbytes, 2 * nbytes if staged else 0,
-           time.perf_counter() - t0)
+           time.perf_counter() - t0, out.numel() * out.element_size())
     return out
 
 
@@ -346,6 +365,43 @@ def _gather(kind, x, ctx, axis, dim):
     if not _recorded(x):
         return mesh_collective(kind, x, ctx, axis, dim)
     return _Gather.apply(x, ctx, axis, dim, kind)
+
+
+class _Seq(torch.autograd.Function):
+    """``gather_seq`` (``kind`` "gather") and ``scatter_seq`` (kind
+    "reduce_scatter") along ``dim`` over one axis, each the other's
+    backward."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, axis, dim, kind):
+        fctx.ctx, fctx.axis, fctx.dim = ctx, axis, dim
+        fctx.back = "reduce_scatter" if kind == "gather" else "gather"
+        return mesh_collective(kind, x, ctx, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (mesh_collective(fctx.back, g, fctx.ctx, fctx.axis,
+                                fctx.dim), None, None, None, None)
+
+
+def _seq(kind, x, ctx, axis, dim):
+    if not _axes(ctx, axis):
+        return x
+    if not _recorded(x):
+        return mesh_collective(kind, x, ctx, axis, dim)
+    return _Seq.apply(x, ctx, axis, dim, kind)
+
+
+def gather_seq(x, ctx, axis="model", dim=1):
+    """The ranks' sequence slices of ``x`` concatenated along ``dim``;
+    the gradient is reduce-scattered back to the rank's slice."""
+    return _seq("gather", x, ctx, axis, dim)
+
+
+def scatter_seq(x, ctx, axis="model", dim=1):
+    """The rank's slice along ``dim`` of the sum of ``x`` over ``axis``;
+    the gradient's slices are gathered."""
+    return _seq("reduce_scatter", x, ctx, axis, dim)
 
 
 def all_sum(x, ctx, axis="model"):

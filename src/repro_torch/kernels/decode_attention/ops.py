@@ -11,6 +11,11 @@ With ``return_lse=True`` it also returns each row's natural log-sum-exp
 of the scaled scores (B, Hq) in float32, which the merge kernel writes
 in the same launch: the mesh path merges attention over a cache whose
 slots are spread over ranks with it (``models/transformer.py``).
+
+The launch is the operator ``repro_torch::decode_attention``
+(``kernels/library.py``), whose fake implementation lets a fake trace
+follow this path; its FLOP formula is 4 B Hq T hd (q k^T and p v over
+every slot, filled or not).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.library import has_storage, kernel_op
 
 DTYPES = (torch.float32, torch.bfloat16)
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -89,9 +95,22 @@ def _check(q, k, v, kv_pos, q_pos, window):
                          "times kv heads at most 65535, the cache at "
                          "least one slot")
     for name, t in dict(k=k, v=v).items():
-        if not _aligned(t):
+        if has_storage(t) and not _aligned(t):
             raise ValueError(f"decode_attention: {name} must be 16-byte "
                              "aligned with strides in 16-byte steps")
+
+
+def _flops(q, k, *args, out_shape=None):
+    B, Hq, hd = q
+    return 4 * B * Hq * k[1] * hd
+
+
+@kernel_op("decode_attention(Tensor q, Tensor k, Tensor v, Tensor kv_pos, "
+           "Tensor q_pos, Tensor(a!) out, Tensor(b!)? lse, int window, "
+           "int n_split, int chunk) -> ()", _flops)
+def _launch(q, k, v, kv_pos, q_pos, out, lse, window, n_split, chunk):
+    kernel.launch(q, k, v, kv_pos, q_pos, out, window, n_split, chunk, lse)
+    decode_attention.launches += 1
 
 
 def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0,
@@ -102,7 +121,7 @@ def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_pos, q_pos, window=window,
                                     return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
     _check(q, k, v, kv_pos, q_pos, window)
@@ -110,8 +129,7 @@ def decode_attention(q, k, v, kv_pos, q_pos, window: int = 0,
     lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
            if return_lse else None)
     n_split, chunk = decode_splits(q.shape[0], k.shape[2], k.shape[1])
-    kernel.launch(q, k, v, kv_pos, q_pos, out, window, n_split, chunk, lse)
-    decode_attention.launches += 1
+    _launch(q, k, v, kv_pos, q_pos, out, lse, window, n_split, chunk)
     return (out, lse) if return_lse else out
 
 

@@ -20,6 +20,15 @@ writes each row's log-sum-exp and whose backward is the backward kernel
 as plain calls. ``flash_attention.launches`` counts the forward's
 launches, ``flash_attention_bwd.launches`` the backward's (one call is
 one launch: three CUDA kernels in bfloat16, four in float32).
+
+Each launch is an operator of the ``repro_torch`` library
+(``kernels/library.py``): ``flash_attention`` and
+``flash_attention_bwd``, whose fake implementations let a fake trace
+follow this path. Their FLOP formulas count the dense (Sq, Skv) score
+matrix whatever the mask, as the reference's dense-attention variant
+does: 4 B Hq Sq Skv hd forward (q k^T and p v) and 8 backward (dv, dp,
+dq, dk; the plain backward, autograd through ``attention_ref``, also
+runs the forward again, which the kernel's saved log-sum-exp replaces).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_lse_ref,
                                                      attention_ref)
+from repro_torch.kernels.library import has_storage, kernel_op
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -60,17 +70,46 @@ def _check(q, k, v, window):
     if B > 65535 or Hq > 65535:
         raise ValueError("flash_attention: batch and heads must each be "
                          "at most 65535")
-    if q.dtype == torch.bfloat16:
-        for name, t in dict(q=q, k=k, v=v).items():
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(f"flash_attention: bfloat16 {name} must "
-                                 "be 16-byte aligned with strides in "
-                                 "16-byte steps")
+    _check_aligned("flash_attention", q=q, k=k, v=v)
+
+
+def _check_aligned(what, **tensors):
+    """bfloat16 tensors 16-byte aligned with strides in 16-byte steps
+    (a tensor with no storage, meta or fake, has no pointer to check)."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and has_storage(t) and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError(f"{what}: bfloat16 {name} must be 16-byte "
+                             "aligned with strides in 16-byte steps")
 
 
 def _device(q, what):
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what} runs on CUDA or the CPU, not {q.device}")
+
+
+def _fwd_flops(q, k, *args, out_shape=None):
+    B, Sq, Hq, hd = q
+    return 4 * B * Hq * Sq * k[1] * hd
+
+
+def _bwd_flops(q, k, *args, out_shape=None):
+    return 2 * _fwd_flops(q, k)
+
+
+@kernel_op("flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
+           "Tensor(b!)? lse, bool causal, int window) -> ()", _fwd_flops)
+def _launch(q, k, v, out, lse, causal, window):
+    kernel.launch(q, k, v, out, causal, window, lse=lse)
+    flash_attention.launches += 1
+
+
+@kernel_op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+           "Tensor dout, Tensor lse, Tensor(a!) dq, Tensor(b!) dk, "
+           "Tensor(c!) dv, bool causal, int window) -> ()", _bwd_flops)
+def _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window):
+    kernel.launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window)
+    flash_attention_bwd.launches += 1
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
@@ -84,8 +123,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
     B, Sq, Hq, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
-    kernel.launch(q, k, v, out, causal, window, lse=lse)
-    flash_attention.launches += 1
+    _launch(q, k, v, out, lse, causal, window)
     return out, lse
 
 
@@ -101,12 +139,7 @@ def _check_bwd(q, k, out, lse, dout):
             or tuple(lse.shape) != (B, Hq, Sq) or not lse.is_contiguous()):
         raise ValueError("flash_attention_bwd: lse must be contiguous "
                          f"float32 {(B, Hq, Sq)} on {q.device}")
-    if q.dtype == torch.bfloat16:
-        for name, t in dict(out=out, dout=dout).items():
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(f"flash_attention_bwd: bfloat16 {name} "
-                                 "must be 16-byte aligned with strides in "
-                                 "16-byte steps")
+    _check_aligned("flash_attention_bwd", out=out, dout=dout)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
@@ -126,8 +159,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    kernel.launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window)
-    flash_attention_bwd.launches += 1
+    _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal, window)
     return dq, dk, dv
 
 
@@ -159,8 +191,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
         return FlashAttention.apply(q, k, v, causal, window)
     _check(q, k, v, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernel.launch(q, k, v, out, causal, window)
-    flash_attention.launches += 1
+    _launch(q, k, v, out, None, causal, window)
     return out
 
 

@@ -16,6 +16,14 @@ bfloat16 raises ``TypeError``, one with ``h_out``, a serving path,
 kernels' launches. ``scan_plan``
 gives, from shapes alone, the kernel's chunks, pieces, grid, shared
 memory, blocks an SM and waves, as ``rglru_scan.cu`` chooses them.
+
+The launches are the operators ``repro_torch::rglru_scan`` and
+``repro_torch::rglru_scan_bwd`` (``kernels/library.py``), whose fake
+implementations let a fake trace follow this path. Their FLOP formulas
+count the elementwise work of the recurrence: a multiply and an add a
+channel and step forward (2 B S R), and three backward (the carried
+gradient's multiply-add and the gradient of a): the plain versions have
+no matrix product, so ``FlopCounterMode`` counts none of it.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.autograd import needs_backward
+from repro_torch.kernels.library import kernel_op
 from repro_torch.kernels.rglru_scan import kernel
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                rglru_scan_ref)
@@ -150,6 +159,31 @@ def _check_bwd(a, h0, hs, dhs, dh_last):
         raise ValueError("rglru_scan: batch must be at most 65535")
 
 
+def _flops(a, *args, out_shape=None):
+    B, S, R = a
+    return 2 * B * S * R
+
+
+def _bwd_flops(a, *args, out_shape=None):
+    B, S, R = a
+    return 3 * B * S * R
+
+
+@kernel_op("rglru_scan(Tensor a, Tensor b, Tensor h0, Tensor(a!) hs, "
+           "Tensor(b!) h_last) -> ()", _flops)
+def _launch(a, b, h0, hs, h_last):
+    kernel.launch(a, b, h0, hs, h_last)
+    rglru_scan.launches += 1
+
+
+@kernel_op("rglru_scan_bwd(Tensor a, Tensor h0, Tensor hs, Tensor dhs, "
+           "Tensor? dh_last, Tensor(a!) da, Tensor(b!) db, Tensor(c!) dh0) "
+           "-> ()", _bwd_flops)
+def _launch_bwd(a, h0, hs, dhs, dh_last, da, db, dh0):
+    kernel.launch_bwd(a, h0, hs, dhs, dh_last, da, db, dh0)
+    rglru_scan_bwd.launches += 1
+
+
 def rglru_scan_bwd(a, h0, hs, dhs, dh_last=None):
     """(da, db, dh0) of ``rglru_scan(a, b, h0)`` = (hs, h_last) at the
     cotangents (dhs, dh_last); ``dh_last`` None counts as zero. ``hs`` is
@@ -159,7 +193,7 @@ def rglru_scan_bwd(a, h0, hs, dhs, dh_last=None):
     not."""
     if a.device.type == "cpu":
         return rglru_scan_bwd_ref(a, h0, hs, dhs, dh_last)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan_bwd runs on CUDA or the CPU, not "
                          f"{a.device}")
     if dhs.stride(-1) != 1:
@@ -168,8 +202,7 @@ def rglru_scan_bwd(a, h0, hs, dhs, dh_last=None):
     da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     db = torch.empty_like(da)
     dh0 = torch.empty(h0.shape, dtype=torch.float32, device=a.device)
-    kernel.launch_bwd(a, h0, hs, dhs, dh_last, da, db, dh0)
-    rglru_scan_bwd.launches += 1
+    _launch_bwd(a, h0, hs, dhs, dh_last, da, db, dh0)
     return da, db, dh0
 
 
@@ -211,7 +244,7 @@ def rglru_scan(a, b, h0, h_out=None):
         if a.dtype != torch.float32 or b.dtype != torch.float32:
             raise TypeError(f"rglru_scan: the backward kernel is float32 "
                             f"only; autograd records a {a.dtype} call")
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan runs on CUDA or the CPU, not "
                          f"{a.device}")
     if recorded:
@@ -220,8 +253,7 @@ def rglru_scan(a, b, h0, h_out=None):
     hs = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     h_last = (torch.empty(h0.shape, dtype=torch.float32, device=a.device)
               if h_out is None else h_out)
-    kernel.launch(a, b, h0, hs, h_last)
-    rglru_scan.launches += 1
+    _launch(a, b, h0, hs, h_last)
     return hs, h_last
 
 

@@ -23,6 +23,14 @@ instance, tiles, chunk, grid and shared memory, as ``rwkv6_scan.cu``
 chooses them; ``bwd_plan`` the same for the backward's row kernel
 (``rwkv6_scan_bwd.cu``: rows of a block, lanes a row, each span of
 ``CKPT_STEPS`` steps walked once from its saved state).
+
+The launches are the operators ``repro_torch::rwkv6_scan`` and
+``repro_torch::rwkv6_scan_bwd`` (``kernels/library.py``), whose fake
+implementations let a fake trace follow this path. The forward's FLOP
+formula is 8 B S H hd^2, what XLA counts for the reference's step (its
+dry run's ``_rwkv_step_flops``: the outer product k v^T, the bonus, the
+state update and the r . S product); the backward's is twice that, as
+the reference's dry run counts a training step's scan three times.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.autograd import needs_backward
+from repro_torch.kernels.library import kernel_op
 from repro_torch.kernels.rwkv6_scan import kernel
 from repro_torch.kernels.rwkv6_scan.kernel import (BWD_MAX_THREADS,
                                                   BWD_REG_FLOATS,
@@ -234,8 +243,37 @@ def _check(r, k, v, logw, u, s0, s_out):
 
 
 def _device(r, what):
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what} runs on CUDA or the CPU, not {r.device}")
+
+
+def _flops(r, *args, out_shape=None):
+    B, S, H, hd = r
+    return 8 * B * S * H * hd * hd
+
+
+def _bwd_flops(r, *args, out_shape=None):
+    return 2 * _flops(r)
+
+
+@kernel_op("rwkv6_scan(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
+           "Tensor s0, Tensor(a!) o, Tensor(b!) s_out, Tensor(c!)? ckpt) "
+           "-> ()", _flops)
+def _launch(r, k, v, logw, u, s0, o, s_out, ckpt):
+    kernel.launch(r, k, v, logw, u, s0, o, s_out, ckpt)
+    rwkv6_scan.launches += 1
+
+
+@kernel_op("rwkv6_scan_bwd(Tensor r, Tensor k, Tensor v, Tensor logw, "
+           "Tensor u, Tensor ckpt, Tensor do, Tensor ds_last, Tensor(a!) dr, "
+           "Tensor(b!) dk, Tensor(c!) dv, Tensor(d!) dlogw, "
+           "Tensor(e!) du_part, Tensor(f!) du, Tensor(g!) ds0) -> ()",
+           _bwd_flops)
+def _launch_bwd(r, k, v, logw, u, ckpt, do, ds_last, dr, dk, dv, dlogw,
+                du_part, du, ds0):
+    kernel.launch_bwd(r, k, v, logw, u, ckpt, do, ds_last, dr, dk, dv, dlogw,
+                      du_part, du, ds0)
+    rwkv6_scan_bwd.launches += 1
 
 
 def rwkv6_scan_fwd(r, k, v, logw, u, s0):
@@ -257,8 +295,7 @@ def rwkv6_scan_fwd(r, k, v, logw, u, s0):
     s_last = torch.empty(s0.shape, dtype=torch.float32, device=r.device)
     ckpt = torch.empty(B, -(-S // CKPT_STEPS), H, hd, hd,
                        dtype=torch.float32, device=r.device)
-    kernel.launch(r, k, v, logw, u, s0, o, s_last, ckpt)
-    rwkv6_scan.launches += 1
+    _launch(r, k, v, logw, u, s0, o, s_last, ckpt)
     return o, s_last, ckpt
 
 
@@ -293,9 +330,8 @@ def rwkv6_scan_bwd(r, k, v, logw, u, s0, ckpt, do, ds_last=None):
     du_part = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
     du = torch.empty(H, hd, dtype=torch.float32, device=r.device)
     ds0 = torch.empty(s0.shape, dtype=torch.float32, device=r.device)
-    kernel.launch_bwd(r, k, v, logw, u, ckpt, do, ds_last, dr, dk, dv, dlogw,
-                      du_part, du, ds0)
-    rwkv6_scan_bwd.launches += 1
+    _launch_bwd(r, k, v, logw, u, ckpt, do, ds_last, dr, dk, dv, dlogw,
+                du_part, du, ds0)
     return dr, dk, dv, dlogw, du, ds0
 
 
@@ -347,8 +383,7 @@ def rwkv6_scan(r, k, v, logw, u, s0, s_out=None):
     o = torch.empty(r.shape, dtype=r.dtype, device=r.device)
     s_last = (torch.empty(s0.shape, dtype=torch.float32, device=r.device)
               if s_out is None else s_out)
-    kernel.launch(r, k, v, logw, u, s0, o, s_last)
-    rwkv6_scan.launches += 1
+    _launch(r, k, v, logw, u, s0, o, s_last, None)
     return o, s_last
 
 

@@ -22,6 +22,15 @@ module: each such leaf gathered whole when first read
 other attribute the module's own. The gathered leaves live as long as
 that forward's autograd graph needs them; under remat the recompute
 gathers them again. Without FSDP ``gathered`` returns the module itself.
+
+Under sequence parallelism (the rules put ``seq`` on a ``model`` axis of
+more than one rank, ``seq_ctx``) the residual stream between blocks is
+each rank's slice of the sequence. A leaf replicated over ``model`` that
+acts on the rank's slice only (the norms), or on the whole sequence with
+each rank keeping only its slice or its heads of the result, gets only
+part of its gradient on each rank: its module marks it ``seq_partial``
+(``mark_seq_partial``), and the train step sums it over ``model``
+(``train.trainer.reduce_gradients``).
 """
 from __future__ import annotations
 
@@ -103,6 +112,25 @@ class _Gathered:
             v = gathered(v)
         got[name] = v
         return v
+
+
+def seq_ctx(ctx):
+    """``ctx`` where its rules cut the sequence over a ``model`` axis of
+    more than one rank (sequence parallelism), else None."""
+    return ctx if ctx is not None and ctx.sharded("seq") else None
+
+
+def seq_slice(x, ctx, dim: int = 1):
+    """The rank's slice along ``dim`` of a sequence cut over ``model``."""
+    n = x.shape[dim] // ctx.size("model")
+    return x.narrow(dim, ctx.index("model") * n, n)
+
+
+def mark_seq_partial(*params) -> None:
+    """Mark leaves whose gradient each rank holds only a term of under
+    sequence parallelism: the train step sums them over ``model``."""
+    for p in params:
+        p.seq_partial = True
 
 
 def gathered(module):
@@ -189,6 +217,8 @@ class Norm(nn.Module):
         self.layer = cfg.norm_type == "layernorm"
         self.eps = cfg.norm_eps
         add_params(self, norm_template(cfg), ctx, device=device, dtype=dtype)
+        if seq_ctx(ctx) is not None:           # it runs on the rank's slice
+            mark_seq_partial(*self.parameters())
 
     def forward(self, x):
         return apply_norm(gathered(self), x)

@@ -7,15 +7,21 @@ module holds its columns of ``wg``/``wu``/``wi`` and rows of ``wd``: the
 input, replicated over ``model``, enters the rank's columns through
 ``copy_to`` (its gradient summed over ``model``), and the down
 projection gives a partial sum, added over ``model`` (``all_sum``)
-before the bias. Under FSDP the forward reads its leaves gathered
-(``common.gathered``)."""
+before the bias. Under sequence parallelism (``seq`` on ``model``) the
+input is the rank's slice of the sequence: it is gathered whole at the
+entry (``gather_seq``) and the down projection's partial sums are
+reduce-scattered back to the slice (``scatter_seq``); with ``ff`` whole
+the MLP runs on the slice alone, token by token. Under FSDP the forward
+reads its leaves gathered (``common.gathered``)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import all_sum, copy_to
-from repro_torch.models.common import P, add_params, gathered
+from repro_torch.distributed.collectives import (all_sum, copy_to,
+                                                 gather_seq, scatter_seq)
+from repro_torch.models.common import (P, add_params, gathered,
+                                       mark_seq_partial, seq_ctx)
 
 
 def mlp_template(cfg, d_ff: int = 0, ff_axis: str = "ff"):
@@ -42,8 +48,15 @@ class MLP(nn.Module):
         self.mlp_type = cfg.mlp_type
         # the context of the row-parallel sum, None when ff is whole
         self.ctx = ctx if ctx is not None and ctx.sharded("ff") else None
+        # sequence parallelism with ff split: the gather and the
+        # reduce-scatter around the rank's columns
+        self.seq = seq_ctx(ctx) if self.ctx is not None else None
         add_params(self, mlp_template(cfg, d_ff), ctx, device=device,
                    dtype=dtype)
+        if seq_ctx(ctx) is not None and self.ctx is None:
+            mark_seq_partial(*self.parameters())    # on the slice
+        elif self.seq is not None and not self.gated:
+            mark_seq_partial(self.bd)       # after the reduce-scatter
 
     @property
     def gated(self) -> bool:
@@ -56,18 +69,23 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x, reduce: bool = True):
     """The MLP of ``x``. With ``reduce=False`` under a sharded ``ff``, the
     rank's partial sum without the bias ``bd`` (the caller sums over
-    ``model`` and adds it)."""
-    x = copy_to(x, p.ctx)
+    ``model`` and adds it); under sequence parallelism ``x`` is then the
+    whole sequence, gathered by the caller."""
+    if p.seq is None:
+        x = copy_to(x, p.ctx)
+    elif reduce:
+        x = gather_seq(x, p.seq)
     if p.gated:
         g = x @ p.wg
         u = x @ p.wu
         act = (F.silu(g) if p.mlp_type == "swiglu"
                else F.gelu(g, approximate="tanh"))
         y = (act * u) @ p.wd
-        return all_sum(y, p.ctx) if reduce else y
-    h = x @ p.wi + p.bi.to(x.dtype)
-    h = F.gelu(h, approximate="tanh")
-    y = h @ p.wd
+    else:
+        h = x @ p.wi + p.bi.to(x.dtype)
+        h = F.gelu(h, approximate="tanh")
+        y = h @ p.wd
     if not reduce:
         return y
-    return all_sum(y, p.ctx) + p.bd.to(x.dtype)
+    y = all_sum(y, p.ctx) if p.seq is None else scatter_seq(y, p.seq)
+    return y if p.gated else y + p.bd.to(x.dtype)

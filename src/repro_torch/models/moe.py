@@ -44,6 +44,20 @@ repeatable on the card:
 - Router logits are float32 products with TF32 off, since a logit that
   moves changes the top-k experts.
 
+Under sequence parallelism (``seq`` on ``model``) the layer takes the
+rank's slice of the sequence and gathers it whole (``gather_seq``), so
+the routing, the capacity and the aux loss are those of the same tokens
+as without it; the tokens and routing weights then enter the rank's
+experts without ``copy_to`` (the gather's reduce-scatter sums their
+gradient), the routed and shared partial sums are reduce-scattered back
+to the slice (``scatter_seq``), the router is marked ``seq_partial``,
+and the aux loss, which every rank takes on the same tokens, passes
+1/m of its gradient on each. (The reference's ``shard_map`` cuts the
+sequence as well and routes each slice alone, then sums the ranks'
+outputs for different tokens: its step under sequence parallelism moves
+by 3 % of the gradient's norm against its own step without a mesh, and
+the port does not follow it there.)
+
 The expert products are plain batched matrix products, as the
 reference's ``jnp.einsum``/``jax.lax.ragged_dot`` are: no Pallas kernel
 of the reference runs here, so none of the port does.
@@ -57,8 +71,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.collectives import (all_sum, copy_to,
-                                                 first_of, mesh_collective)
-from repro_torch.models.common import P, add_params, gathered, torch_dtype
+                                                 first_of, gather_seq,
+                                                 mesh_collective,
+                                                 scatter_seq)
+from repro_torch.models.common import (P, add_params, gathered,
+                                       mark_seq_partial, seq_ctx,
+                                       torch_dtype)
 from repro_torch.models.mlp import MLP, mlp_apply, mlp_template
 
 
@@ -98,6 +116,9 @@ class MoE(nn.Module):
         if cfg.n_shared_experts:
             self.shared = MLP(cfg, d_ff=cfg.d_ff * cfg.n_shared_experts,
                               device=device, dtype=dtype, ctx=ctx)
+        self.seq = seq_ctx(ctx) if self.mode is not None else None
+        if self.seq is not None:
+            mark_seq_partial(self.router)
         # the batch axes: routed as one batch (``batch_ctx``, model of one
         # rank) or shard by shard with shard 0's aux reported (``data_ctx``)
         self.batch_ctx, self.data_ctx = None, None
@@ -336,6 +357,9 @@ def moe_apply(p: MoE, x, cfg):
     mode every assignment runs against the rank's d_ff slice. Either
     way the routed and shared experts' partial sums are added over
     ``model`` in one collective."""
+    x_in = x
+    if p.seq is not None:
+        x = gather_seq(x, p.seq)
     D = x.shape[-1]
     dt = torch_dtype(cfg.dtype)
     wg, wu, wd = (_dequant(q, s, dt) for q, s in _maybe_quant_experts(
@@ -350,7 +374,8 @@ def moe_apply(p: MoE, x, cfg):
         e_n = cfg.n_experts // m
         e_lo = p.ctx.index("model") * e_n
     # the tokens and weights enter the rank's experts (a no-op off a mesh)
-    xe, we = copy_to(xt, p.ctx), copy_to(topw, p.ctx)
+    xe, we = ((xt, topw) if p.seq is not None
+              else (copy_to(xt, p.ctx), copy_to(topw, p.ctx)))
     if cfg.moe_dispatch == "capacity":
         Tc, before = T, None
         if p.batch_ctx is not None:
@@ -376,16 +401,19 @@ def moe_apply(p: MoE, x, cfg):
     split = cfg.n_shared_experts and p.shared.ctx is not None
     if split:
         out = out + mlp_apply(p.shared, x, reduce=False)
-    out = all_sum(out, p.ctx)
+    out = all_sum(out, p.ctx) if p.seq is None else scatter_seq(out, p.seq)
     if split and not p.shared.gated:
         out = out + p.shared.bd.to(x.dtype)
     elif cfg.n_shared_experts and not split:
-        out = out + mlp_apply(p.shared, x)
+        out = out + mlp_apply(p.shared, x_in)
     if p.mode == "expert":
         # the reference's pmean of an aux every rank computed alike: the
         # same bits, and the gradient of the rank's own
         mean = mesh_collective("mean", aux.detach(), p.ctx)
         aux = aux + (mean - aux.detach()) if aux.requires_grad else mean
+    if p.seq is not None and aux.requires_grad:
+        # every rank took it on the same tokens: each passes 1/m
+        aux = aux.detach() + (aux - aux.detach()) / p.seq.size("model")
     if p.data_ctx is not None:
         aux = first_of(aux, p.data_ctx, p.data_ctx.batch_axes)
     return out, aux

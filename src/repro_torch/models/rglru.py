@@ -29,7 +29,12 @@ projection's partial sums are added over ``model``: the input enters
 through ``collectives.copy_to`` and the sum is ``all_sum``, so the
 gradient crosses the ranks. Gates taken on every channel of a block
 (``gather_u``) gather ``u`` and the biases over ``model`` and keep the
-rank's channels of the result through ``copy_to``.
+rank's channels of the result through ``copy_to``. Under sequence
+parallelism (``seq`` on ``model``) the input is the rank's slice of the
+sequence: the conv and the scan need the whole of it, so it is gathered
+at the entry (``gather_seq``) and the out projection's partial sums are
+reduce-scattered back to the slice (``scatter_seq``); with ``lru`` whole
+every rank runs every channel and keeps its slice of the output.
 """
 from __future__ import annotations
 
@@ -40,9 +45,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.collectives import (all_gather, all_sum,
-                                                 copy_to)
+                                                 copy_to, gather_seq,
+                                                 scatter_seq)
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models.common import P, add_params
+from repro_torch.models.common import (P, add_params, mark_seq_partial,
+                                       seq_ctx, seq_slice)
 
 _C = 8.0  # Griffin's recurrence-gate temperature
 
@@ -89,8 +96,11 @@ class RGLRU(nn.Module):
         # the gates need every channel of a block: gathered when the
         # channels are split over ranks but the blocks are not
         self.gather_u = self.ctx is not None and not ctx.sharded("blocks")
+        self.seq = seq_ctx(ctx)
         add_params(self, rglru_template(cfg), ctx, device=device,
                    dtype=dtype)
+        if self.seq is not None and self.ctx is None:
+            mark_seq_partial(*self.parameters())   # each rank its slice
 
 
 def causal_conv(p: RGLRU, u, conv_cache):
@@ -150,8 +160,8 @@ def rglru_apply(p: RGLRU, x, state: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,D). state: {"h": (B,R) f32, "conv": (B,cw-1,R)} or None,
     updated in place. Returns (out (B,S,D), state)."""
+    x = copy_to(x, p.ctx) if p.seq is None else gather_seq(x, p.seq)
     B, S, D = x.shape
-    x = copy_to(x, p.ctx)
     y = x @ p.wy
     u = x @ p.wx
     u, conv_new = causal_conv(p, u, None if state is None else state["conv"])
@@ -171,4 +181,8 @@ def rglru_apply(p: RGLRU, x, state: Optional[dict] = None
         state["conv"].copy_(conv_new)
     gate = F.gelu(y.float(), approximate="tanh")
     out = (hs * gate).to(x.dtype) @ p.wo
-    return all_sum(out, p.ctx), state
+    if p.seq is None:
+        return all_sum(out, p.ctx), state
+    if p.ctx is None:
+        return seq_slice(out, p.seq), state
+    return scatter_seq(out, p.seq), state

@@ -31,6 +31,17 @@ enters a rank's heads or hidden units (the mixed inputs, the decay
 LoRA's hidden, and the replicated leaves cut to the rank's channels by
 ``RWKVMix.channels``) goes through ``collectives.copy_to``, and the sums
 are ``all_sum``, so the gradient crosses the ranks.
+
+Under sequence parallelism (``seq`` on ``model``) each mix takes the
+rank's slice of the sequence and gathers it whole (``gather_seq``): the
+token shift and the scan need every step. The mixed inputs then enter
+the rank's heads and hidden units without ``copy_to`` (each rank's
+gradient of the gathered sequence is one term, summed by the gather's
+reduce-scatter), and the out projections' partial sums are
+reduce-scattered back to the slice (``scatter_seq``). The channel mix's
+receptance multiplies that slice, so it is taken on the rank's slice of
+``mr``. Where ``heads`` or ``ff`` is whole, every rank runs that mix
+whole and keeps its slice of the output.
 """
 from __future__ import annotations
 
@@ -40,9 +51,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.collectives import all_sum, copy_to
+from repro_torch.distributed.collectives import (all_sum, copy_to,
+                                                 gather_seq, scatter_seq)
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.models.common import P, add_params
+from repro_torch.models.common import (P, add_params, mark_seq_partial,
+                                       seq_ctx, seq_slice)
 
 _LORA = 64  # decay-LoRA rank
 
@@ -93,8 +106,20 @@ class RWKVMix(nn.Module):
         self.heads_ctx = (ctx if ctx is not None and ctx.sharded("heads")
                           else None)
         self.ff_ctx = ctx if ctx is not None and ctx.sharded("ff") else None
+        self.seq = seq_ctx(ctx)
         add_params(self, rwkv_template(cfg), ctx, device=device,
                    dtype=dtype)
+        if self.seq is not None:
+            # the shift mixes and the LoRA's first product are taken on the
+            # whole sequence, the receptance on the slice; a mix whose
+            # heads or hidden units are whole runs whole on every rank
+            names = ["mu", "w_lora_a", "mu_cm", "wr_cm"]
+            if self.heads_ctx is None:
+                names += ["w0", "w_lora_b", "wr", "wk", "wv", "wg", "u",
+                          "gn_w", "gn_b", "wo"]
+            if self.ff_ctx is None:
+                names += ["wk_cm", "wv_cm"]
+            mark_seq_partial(*(getattr(self, n) for n in names))
 
     def channels(self, t, dim: int = -1):
         """``t``'s slice along ``dim`` (of d_model) that this rank's
@@ -127,6 +152,8 @@ def groupnorm_heads(x, w, b, eps: float = 1e-5):
 def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     """x: (B,S,D) normed input. state: the block's state dict (``s``,
     ``x_prev_tm``) or None; updated in place. Returns (out, state)."""
+    if p.seq is not None:
+        x = gather_seq(x, p.seq)
     B, S, D = x.shape
     H, hd = p.wr.shape[1], cfg.rwkv_head_dim
     xf = x.float()
@@ -134,7 +161,9 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     d = xx - xf
     mr, mk, mv, mw, mg = (xf + d * p.mu[i].float() for i in range(5))
 
-    hc = p.heads_ctx
+    # the heads' context of the activations' copy_to: none under sequence
+    # parallelism, where the gather's backward sums their gradient
+    hc = p.heads_ctx if p.seq is None else None
 
     def heads(m, w):
         return torch.einsum("bsd,dhk->bshk", copy_to(m, hc).to(x.dtype),
@@ -160,19 +189,37 @@ def rwkv_time_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
                         p.channels(p.gn_b).float())
     y = (y * g.float()).to(x.dtype)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, hd), p.wo)
-    return all_sum(out, hc), state
+    return _exit(out, p.heads_ctx, p.seq), state
+
+
+def _exit(out, split_ctx, seq):
+    """A mix's output: summed over ``model`` where its heads or hidden
+    units are split (``split_ctx``); under sequence parallelism
+    (``seq``) reduce-scattered to the rank's slice, or the slice kept
+    where they are whole."""
+    if seq is None:
+        return all_sum(out, split_ctx)
+    if split_ctx is None:
+        return seq_slice(out, seq)
+    return scatter_seq(out, seq)
 
 
 def rwkv_channel_mix(p: RWKVMix, x, cfg, state: Optional[dict] = None):
     """x: (B,S,D) normed input. state: the block's state dict
     (``x_prev_cm``) or None; updated in place. Returns (out, state)."""
+    if p.seq is not None:
+        x = gather_seq(x, p.seq)
     xf = x.float()
     xx = shift(xf, None if state is None else state["x_prev_cm"])
     d = xx - xf
     mk = (xf + d * p.mu_cm[0].float()).to(x.dtype)
     mr = (xf + d * p.mu_cm[1].float()).to(x.dtype)
-    kk = torch.square(torch.relu(copy_to(mk, p.ff_ctx) @ p.wk_cm))
-    out = torch.sigmoid(mr @ p.wr_cm) * all_sum(kk @ p.wv_cm, p.ff_ctx)
+    if p.seq is None:
+        mk = copy_to(mk, p.ff_ctx)
+    else:
+        mr = seq_slice(mr, p.seq)
+    kk = torch.square(torch.relu(mk @ p.wk_cm))
+    out = torch.sigmoid(mr @ p.wr_cm) * _exit(kk @ p.wv_cm, p.ff_ctx, p.seq)
     if state is not None:
         state["x_prev_cm"].copy_(xf[:, -1])
     return out, state

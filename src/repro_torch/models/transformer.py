@@ -60,8 +60,21 @@ step merges the ranks' partial attention by log-sum-exp
 gathered. Under FSDP (``embed`` on ``data``) each rank also holds its
 part of every ``embed`` dim, and each module's forward reads its leaves
 gathered whole over ``data`` (``common.gathered``; the gradient is
-reduce-scattered back), again in a remat's recompute. Sequence
-parallelism (``seq`` on ``model``) belongs to the dry run and raises.
+reduce-scattered back), again in a remat's recompute.
+
+Under sequence parallelism (``seq`` on ``model``: the reference's
+``ctx.constrain(x, ("batch", "seq", "act_embed"))``) each rank holds its
+S/m slice of the residual stream between blocks, and the norms run on
+it. A block gathers the sequence where it enters its column-parallel
+work and reduce-scatters its row-parallel exit back to the slice
+(``collectives.gather_seq`` and ``scatter_seq``, in place of ``copy_to``
+and ``all_sum``); with replicated heads the block's output is whole on
+each rank, which keeps its slice. Token shift, the temporal conv and both
+scans run on the gathered sequence. The embedding's vocab-parallel sum
+becomes a reduce-scatter along the sequence; the final hidden state is
+gathered whole with ``all_gather`` (the cross-entropy's backward already
+sums its gradient over ``model``). A sequence that does not divide over
+``model`` (a decode step's one token among them) raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -74,14 +87,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.collectives import (all_gather, all_sum,
-                                                 copy_to, mesh_collective)
+                                                 copy_to, gather_seq,
+                                                 mesh_collective,
+                                                 scatter_seq)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention.ref import merge_lse
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (P, Norm, add_params, gathered,
-                                       init_tensor, norm_template,
-                                       padded_vocab, stack_templates,
+                                       init_tensor, mark_seq_partial,
+                                       norm_template, padded_vocab,
+                                       seq_ctx, seq_slice, stack_templates,
                                        torch_dtype)
 from repro_torch.models.mlp import MLP, mlp_template
 from repro_torch.models.moe import MoE, moe_template
@@ -140,15 +156,6 @@ def check_supported(cfg) -> None:
     for kind in cfg.layer_kinds():
         if kind not in ATTENTION_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
-
-
-def check_ctx(ctx) -> None:
-    """Raise for sequence parallelism (``seq`` on a mesh axis), which
-    the model layer does not run: it belongs to the dry run."""
-    if ctx is not None and ctx.rules.get("seq") is not None:
-        raise NotImplementedError(
-            "sequence parallelism belongs to the dry run, which the port "
-            "does not have yet")
 
 
 def attention_window(cfg, kind: str) -> int:
@@ -330,13 +337,31 @@ class AttentionBlock(nn.Module):
                     else MLP(cfg, ctx=ctx, **kw))
         self.shard = (HeadShard(cfg, ctx) if ctx is not None
                       and ctx.size("model") > 1 else None)
+        self.seq = seq_ctx(ctx)
+        sh = self.shard
+        if self.seq is not None:
+            # leaves replicated over model whose output each rank cuts to
+            # its slice (replicated heads) or to its heads
+            names = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+            if sh.act:
+                names = ((() if sh.q_local else ("wq", "bq"))
+                         + (() if sh.kv_local else ("wk", "wv", "bk", "bv")))
+            mark_seq_partial(*(getattr(self.attn, n) for n in names
+                               if hasattr(self.attn, n)))
 
     def forward(self, x, positions, cache=None, t=None, mode: str = "train"):
         cfg = self.cfg
         h = self.ln1(x)
         at = gathered(self.attn)
         sh = self.shard
-        if sh is None or not sh.act:
+        if self.seq is not None:
+            # the rank's heads (or, replicated, every head) take the whole
+            # sequence; each rank's gradient of it is one term
+            q, k, v = attn.qkv_proj(at, gather_seq(h, self.seq), cfg,
+                                    positions)
+            if sh.act:
+                q = sh.queries(q)
+        elif sh is None or not sh.act:
             q, k, v = attn.qkv_proj(at, h, cfg, positions)
         else:
             # the rank's heads take h, replicated over model, through
@@ -363,11 +388,13 @@ class AttentionBlock(nn.Module):
         if cache is not None and mode != "decode":
             _prefill_write(cache, k, v, positions, *self._ring(cache))
         if sh is None or not sh.act:
-            x = x + attn.out_proj(at, o)
+            y = attn.out_proj(at, o)
+            x = x + (y if self.seq is None else seq_slice(y, self.seq))
         else:
             wo = at.wo if sh.q_local else copy_to(at.wo, sh.ctx)
             y = torch.einsum("bshk,hkd->bsd", o, sh.out_weight(wo))
-            x = x + all_sum(y, sh.ctx)
+            x = x + (all_sum(y, sh.ctx) if self.seq is None
+                     else scatter_seq(y, self.seq))
         if isinstance(self.mlp, MoE):
             m, aux = self.mlp(self.ln2(x))
             return x + m, aux
@@ -503,7 +530,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg, device="cuda", dtype=None, ctx=None):
         super().__init__()
         check_supported(cfg)
-        check_ctx(ctx)
         dev = resolve_device(device)
         dt = torch_dtype(dtype or cfg.param_dtype)
         kw = dict(device=dev, dtype=dt)
@@ -623,10 +649,14 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
 def embed_lookup(model: Transformer, tokens):
     """The token embeddings. Where the vocab is split over ``model``, each
     rank looks up the ids in its rows (zero elsewhere) and the ranks'
-    rows are summed: exact, one term of each sum being non-zero."""
+    rows are summed: exact, one term of each sum being non-zero. Under
+    sequence parallelism the rank's slice of the sequence: the sum is a
+    reduce-scatter along it."""
     embed = gathered(model).embed
+    sp = seq_ctx(model.ctx)
     if model.vocab_ctx is None:
-        return torch.nn.functional.embedding(tokens.long(), embed)
+        out = torch.nn.functional.embedding(tokens.long(), embed)
+        return out if sp is None else seq_slice(out, sp)
     ctx = model.vocab_ctx
     vloc = embed.shape[0]
     ids = tokens.long() - ctx.index("model") * vloc
@@ -634,7 +664,7 @@ def embed_lookup(model: Transformer, tokens):
     out = torch.nn.functional.embedding(ids.clamp(0, vloc - 1), embed)
     out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
                                                       device=out.device))
-    return all_sum(out, ctx)
+    return all_sum(out, ctx) if sp is None else scatter_seq(out, sp)
 
 
 def unembed_weight(model: Transformer):
@@ -657,15 +687,26 @@ def forward(model: Transformer, *, tokens=None, embeds=None, positions,
             cache=None, t=None, mode: str = "train"):
     """Returns (hidden (B,S,D), cache, aux_loss), aux_loss the sum of the
     MoE layers' load-balance losses (zero without MoE). The cache, when
-    given, is written in place and returned."""
+    given, is written in place and returned. Under sequence parallelism
+    ``embeds`` may be whole or the rank's slice; the hidden state comes
+    back whole."""
     dt = torch_dtype(model.cfg.dtype)
+    sp = seq_ctx(model.ctx)
+    S = positions.shape[1]
+    if sp is not None and S % sp.size("model"):
+        raise ValueError(f"sequence parallelism cuts the sequence over the "
+                         f"model axis: length {S} does not divide over its "
+                         f"{sp.size('model')} ranks")
     if embeds is not None:
         x = embeds.to(dt)
+        if sp is not None and x.shape[1] == S:
+            x = seq_slice(x, sp)
     else:
         x = embed_lookup(model, tokens).to(dt)
     x, aux = apply_layers(model, x, positions, 0, len(model.layers), cache,
                           t, mode)
-    return model.final_norm(x), cache, aux
+    x = model.final_norm(x)
+    return (x if sp is None else all_gather(x, sp, dim=1)), cache, aux
 
 
 def apply_layers(model: Transformer, x, positions, lo: int, hi: int,

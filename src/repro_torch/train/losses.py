@@ -168,10 +168,11 @@ class VocabParallelCE(torch.autograd.Function):
                 p = torch.exp(logits - lz[:, None])
                 coef = a_ + g_zsq.float() / T * 2.0 * lz
                 dlog = p * coef[:, None]
-                loc = labels[a:b] - lo
-                ok = (loc >= 0) & (loc < vloc)
-                rows = torch.arange(b - a, device=h.device)[ok]
-                dlog[rows, loc[ok]] = dlog[rows, loc[ok]] - a_
+                # the label's column, where it is this rank's: a compare
+                # against the columns, not a boolean index (whose shape
+                # depends on the data, which a fake trace cannot follow)
+                dlog = torch.where(labels[a:b, None] == col, dlog - a_,
+                                   dlog)
                 dh[a:b] = dlog @ w32.t()
                 dw += hc.t() @ dlog
         # the tokens are replicated over model: dh is each rank's term

@@ -23,7 +23,10 @@ reduce-scatter it over ``data``; the step then sums over the batch axes
 every gradient leaf its rank holds whole along them
 (``reduce_gradients``: flat float32 buckets, one collective a bucket and
 axis, not one a leaf), and the optimizer takes its statistics over the
-whole leaves (``optimizer.py``). ``make_batch_spec`` gives a global
+whole leaves (``optimizer.py``). Under sequence parallelism the leaves
+that hold only the rank's term of their gradient (marked
+``seq_partial``: the norms, replicated heads, the leaves that act on
+the rank's slice) are also summed over ``model``, in the same buckets. ``make_batch_spec`` gives a global
 batch's shapes, dtypes and specs.
 """
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from repro_torch.distributed.collectives import mesh_collective
 from repro_torch.distributed.sharding import NamedSharding
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import seq_ctx, torch_dtype
 from repro_torch.models.frontends import uses_embeds
 from repro_torch.train.losses import vocab_parallel_ce
 
@@ -69,10 +72,14 @@ def stacked_leaves(model) -> list:
 
 def loss_fn(model, batch, cfg, ctx=None):
     """(loss, dict(nll, aux)) of a batch: ``tokens`` (B, S+1), next-token
-    prediction, or ``embeds`` (B,S,D) with ``labels`` (B,S)."""
+    prediction, or ``embeds`` (B,S,D) with ``labels`` (B,S) (under
+    sequence parallelism the rank's slices of both, as ``local_batch``
+    cuts them)."""
     if "embeds" in batch:
         inp = dict(embeds=batch["embeds"])
         labels = batch["labels"]
+        if seq_ctx(ctx) is not None:
+            labels = mesh_collective("gather", labels, ctx, "model", dim=1)
     else:
         tokens = batch["tokens"]
         inp = dict(tokens=tokens[:, :-1])
@@ -104,15 +111,19 @@ def value_and_grad(model, batch, cfg, ctx=None):
 def reduce_gradients(grads, params, ctx):
     """The gradients summed over the batch axes wherever the rank holds
     the leaf whole along them (FSDP's leaves arrive summed over ``data``
-    by their reduce-scatter): leaves with the same axes to sum over are
-    cut into flat float32 buckets of at most ``BUCKET_NUMEL`` elements,
-    each summed by one collective an axis. A new dict by name."""
+    by their reduce-scatter), and over ``model`` where a leaf is marked
+    ``seq_partial`` (sequence parallelism): leaves with the same axes to
+    sum over are cut into flat float32 buckets of at most
+    ``BUCKET_NUMEL`` elements, each summed by one collective an axis. A
+    new dict by name."""
     if ctx is None:
         return grads
     batch = tuple(a for a in ctx.batch_axes if ctx.size(a) > 1)
     groups = {}
     for name, p in params.items():
         axes = tuple(a for a in batch if a not in ctx.split_axes(p.axes))
+        if getattr(p, "seq_partial", False):
+            axes += ("model",)
         groups.setdefault(axes, []).append(name)
     out = dict(grads)
     for axes, names in groups.items():

@@ -122,9 +122,20 @@ def test_cpu_tensors_get_the_plain_version():
 
 
 def test_other_devices_raise():
+    """Off the CPU the plain version is never run: meta tensors reach the
+    ``repro_torch::decode_attention`` operator, whose shape-only
+    implementation launches nothing; a tensor that fits no kernel still
+    raises."""
     _, tx = _inputs(1, 16, 2, 1, 16, 8, "float32")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        decode_attention(*[t.to("meta") for t in tx])
+    before = decode_attention.launches
+    out, lse = decode_attention(*[t.to("meta") for t in tx],
+                                return_lse=True)
+    assert out.device.type == "meta" and out.shape == tx[0].shape
+    assert lse.shape == tx[0].shape[:2] and lse.dtype == torch.float32
+    assert decode_attention.launches == before      # nothing was launched
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention(*[t.to("meta") for t in tx[:3]],
+                         *[t.to("meta", torch.int64) for t in tx[3:]])
 
 
 def _args(B=2, T=16, Hq=4, Hkv=2, hd=16, dtype=torch.float32):

@@ -87,9 +87,18 @@ def test_cpu_tensors_get_the_plain_version():
 
 
 def test_other_devices_raise():
+    """Off the CPU the plain version is never run: meta tensors reach the
+    ``repro_torch::flash_attention`` operator, whose shape-only
+    implementation gives the output's shape and dtype and launches
+    nothing; a tensor that fits no kernel still raises."""
     _, (q, k, v) = _inputs(1, 16, 2, 1, 16, "float32")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    before = flash_attention.launches
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert out.dtype == q.dtype
+    assert flash_attention.launches == before      # nothing was launched
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(t[..., :12].to("meta") for t in (q, k, v)))
 
 
 def _t(shape, dtype=torch.float32):

@@ -231,16 +231,19 @@ def test_autograd_on_cpu_gives_the_plain_gradients(dt):
 
 
 def test_paths_that_need_the_card_raise_here():
-    """No CUDA here: a non-CPU device is refused, never run as the plain
-    version, checked on meta tensors. The recurrent scans under grad
-    reach the same device check (their backward kernels need the card),
-    and refuse an in-place state or a bfloat16 call that autograd would
-    record."""
+    """No CUDA here: off the CPU nothing runs the plain version. Meta
+    tensors reach the kernels' operators, whose shape-only
+    implementations give the outputs' shapes and launch nothing; the
+    recurrent scans under grad go through their ``autograd.Function``s
+    there as on the card, and refuse an in-place state or a bfloat16 call
+    that autograd would record."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
     q = torch.empty(1, 8, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        ops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1])
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        ops.flash_attention_bwd(q, q, q, q, q, q)
+    out, lse = ops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1])
+    assert out.shape == q.shape and lse.shape == (1, 2, 8)
+    dq, dk, dv = ops.flash_attention_bwd(q, q, q, q, lse, q)
+    assert dq.shape == dk.shape == dv.shape == q.shape
     a = torch.empty(2, 5, 8, device="meta", requires_grad=True)
     assert kernel_autograd.needs_backward(a)
     with torch.no_grad():
@@ -248,8 +251,8 @@ def test_paths_that_need_the_card_raise_here():
     assert not kernel_autograd.needs_backward(a.detach(), None)
     from repro_torch.kernels import rglru_scan, rwkv6_scan
     h0 = torch.empty(2, 8, device="meta")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        rglru_scan(a, a, h0)
+    hs, _ = rglru_scan(a, a, h0)
+    assert hs.grad_fn is not None and hs.shape == a.shape
     with pytest.raises(ValueError, match="h_out"):
         rglru_scan(a, a, h0, h_out=h0)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -257,12 +260,16 @@ def test_paths_that_need_the_card_raise_here():
     r = torch.empty(1, 3, 2, 4, device="meta", requires_grad=True)
     u, s0 = torch.empty(2, 4, device="meta"), torch.empty(1, 2, 4, 4,
                                                          device="meta")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        rwkv6_scan(r, r, r, r, u, s0)
+    o, _ = rwkv6_scan(r, r, r, r, u, s0)
+    assert o.grad_fn is not None and o.shape == r.shape
+    (ga,) = torch.autograd.grad(hs.sum() + o.sum(), [a])
+    assert ga.shape == a.shape
     with pytest.raises(ValueError, match="s_out"):
         rwkv6_scan(r, r, r, r, u, s0, s_out=s0)
     with pytest.raises(TypeError, match="bfloat16"):
         rwkv6_scan(*(r.bfloat16(),) * 4, u, s0)
-    # without grad the call reaches the device check as well
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA or the CPU"):
-        rglru_scan(a, a, h0)
+    # without grad the call reaches the operator as well
+    with torch.no_grad():
+        hs, h_last = rglru_scan(a, a, h0)
+    assert hs.grad_fn is None and h_last.shape == h0.shape
+    assert launch_counts() == before             # nothing was launched

@@ -162,6 +162,14 @@ def test_scan_covers_training():
             "repro_torch.launch.train"} <= set(_port_modules())
 
 
+def test_scan_covers_the_dry_run():
+    names = {str(p.relative_to(ROOT)) for p in SCANNED}
+    assert {"src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/kernels/library.py"} <= names
+    assert {"repro_torch.launch.dryrun",
+            "repro_torch.kernels.library"} <= set(_port_modules())
+
+
 @pytest.mark.parametrize("path", PORT_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_script_imports_with_jax_blocked(path):

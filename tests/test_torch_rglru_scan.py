@@ -98,9 +98,17 @@ def test_cpu_tensors_get_the_plain_version():
 
 
 def test_other_devices_raise():
+    """Off the CPU the plain version is never run: meta tensors reach the
+    ``repro_torch::rglru_scan`` operator, whose shape-only implementation
+    launches nothing; a tensor that fits no kernel still raises."""
     _, tx = _inputs(1, 4, 8, "float32")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        rglru_scan(*[t.to("meta") for t in tx])
+    before = rglru_scan.launches
+    hs, h = rglru_scan(*[t.to("meta") for t in tx])
+    assert hs.device.type == "meta" and hs.shape == tx[0].shape
+    assert h.shape == tx[2].shape and h.dtype == torch.float32
+    assert rglru_scan.launches == before            # nothing was launched
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(*[t.to("meta") for t in tx[:2]], tx[2].to("meta").double())
 
 
 def _args(B=2, S=5, R=8, dtype=torch.float32):

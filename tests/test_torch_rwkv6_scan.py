@@ -104,9 +104,17 @@ def test_cpu_tensors_get_the_plain_version():
 
 
 def test_other_devices_raise():
+    """Off the CPU the plain version is never run: meta tensors reach the
+    ``repro_torch::rwkv6_scan`` operator, whose shape-only implementation
+    launches nothing; a tensor that fits no kernel still raises."""
     _, tx = _inputs(1, 2, 1, 8, "float32")
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        rwkv6_scan(*[t.to("meta") for t in tx])
+    before = rwkv6_scan.launches
+    o, s = rwkv6_scan(*[t.to("meta") for t in tx])
+    assert o.device.type == "meta" and o.shape == tx[0].shape
+    assert s.shape == tx[5].shape and s.dtype == torch.float32
+    assert rwkv6_scan.launches == before            # nothing was launched
+    with pytest.raises(TypeError, match="float32"):
+        rwkv6_scan(*[t.to("meta") for t in tx[:5]], tx[5].to("meta").double())
 
 
 def _args(B=2, S=3, H=2, hd=16, dtype=torch.float32):

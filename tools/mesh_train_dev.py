@@ -1,8 +1,10 @@
-"""Phase 8 of ``chip_smoke.py`` (training on the mesh) without the rest of
-the script, on one NVIDIA GPU: builds the kernels the training paths
-run, holds them against their plain versions at phase 8's per-rank rows
-of phase 2 only (``MESH_FLASH_SHAPES`` and the scans' ``mesh_tp`` rows),
-then runs ``chip_smoke.mesh_train_phase``; prints a ``timings`` line.
+"""Phases 8 and 9 of ``chip_smoke.py`` (training on the mesh, the dry run)
+without the rest of the script, on one NVIDIA GPU: builds the kernels
+the training paths run, holds them against their plain versions at phase
+8's per-rank rows of phase 2 only (``MESH_FLASH_SHAPES`` and the scans'
+``mesh_tp`` rows), logs the host time the kernels' operators add to a
+launch (``op_overhead``), then runs ``chip_smoke.mesh_train_phase`` with
+phase 9's children beside it; prints a ``timings`` line.
 
     python3 tools/mesh_train_dev.py       # from the root of a checkout
 
@@ -11,6 +13,7 @@ change; the numbers it prints are the script's own functions'.
 """
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,8 +61,17 @@ def main() -> int:
     cs.rwkv6_phase(kernels)
     cs.rglru_bwd_phase(kernels)
     cs.rwkv6_bwd_phase(kernels)
+    cs.op_overhead(kernels)
     sec["2 mesh rows"] = time.perf_counter() - t
-    by_path = cs.mesh_train_phase(sec)
+    (cs.ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cs.ROOT / "build") as d9:
+        dry9 = cs.dryrun_start(d9)
+        try:
+            by_path = cs.mesh_train_phase(sec)
+        except BaseException:
+            cs.stop_processes(dry9)
+            raise
+        cs.dryrun_finish(dry9, d9, sec)
     cs.log("launches", json.dumps(by_path))
     cs.log("timings", json.dumps(dict(seconds=sec,
                                       total_s=time.perf_counter() - t0)))
