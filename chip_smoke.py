@@ -8,7 +8,7 @@
 such process for each group. ``--mesh-rank R W PORT DIR`` and
 ``--mesh-nccl PORT DIR`` are phase 7's rank processes, and
 ``--train-mesh-rank R W PORT DIR`` and ``--train-mesh-nccl PORT DIR``
-phase 8's, which it starts.)
+phase 8's, and ``--train-100m OUT.json`` phase 6d's, which it starts.)
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -16,8 +16,12 @@ Phases, each of which raises on failure (non-zero exit):
    and the build of every kernel from the sources in the checkout (one
    nvcc per source, all seven at once; seconds, and each instance's
    registers and spills, logged; the scans' float32 backward instances
-   must not spill); ``flash_attention``'s SASS must hold
-   tensor-core instructions (``cuobjdump``, where the toolkit has it);
+   must not spill; the flash kernels' instances, bf16 backward and
+   float32 forward and backward, must not spill, and the float32 ones'
+   registers, shared memory and blocks an SM are logged);
+   ``flash_attention``'s two libraries' SASS must hold tensor-core
+   instructions, TF32 ones among them (``cuobjdump``, where the toolkit
+   has it);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with error and CUDA-event times beside
    its bound and, where one PyTorch call computes the same function, that
@@ -32,20 +36,25 @@ Phases, each of which raises on failure (non-zero exit):
    ``flash_attention`` (bf16 at Qwen2-1.5B's,
    RecurrentGemma-2B's, Qwen1.5-MoE-A2.7B's (16/16, hd 128; also at its
    training batch, B 4 x S 512) and Kimi K2's (64/8, hd 112) heads, and
-   the reference's kernel cases; bf16 also against the plain emulation
-   of its tiles), its backward ``flash_attention_bwd`` (dq, dk and dv at
-   Qwen2-1.5B's training microbatch in bf16 and float32, a ragged S,
-   RecurrentGemma-2B's local layer over its 2048 window at S 4096,
-   Qwen1.5-MoE-A2.7B's heads at B 2 and at its training batch B 4 x S
-   512, Kimi K2's heads, and the reference's kernel cases; against the
-   float32
-   plain backward on the same inputs and the plain emulation of its own
-   arithmetic (bf16: the tensor-core kernels, P and dS rounded to bf16)
-   within ``BWD_TOL`` of each tensor's largest magnitude, the forward's
-   log-sum-exp within ``LSE_ATOL``, twice bit for bit, timed warm and
-   cold beside SDPA's backward and the CUDA-core kernels' earlier time,
-   with the registers and spills of the kernels each row runs; its
-   tensor-core instances must build without spills), ``decode_attention``
+   the reference's kernel cases; float32 at phase 8's per-rank shapes,
+   ``train_100m_torch.py --preset 100m``'s and the reference's float32
+   cases; each also against the plain emulation of its own arithmetic:
+   bf16 its tiles, P rounded to bf16, float32 its tiles and 3xTF32
+   products within ``EMU_F32_ATOL``/``EMU_F32_RTOL``), its backward
+   ``flash_attention_bwd`` (dq, dk and dv at Qwen2-1.5B's training
+   microbatch in bf16 and float32, a ragged S, RecurrentGemma-2B's local
+   layer over its 2048 window at S 4096, Qwen1.5-MoE-A2.7B's heads at B 2
+   and at its training batch B 4 x S 512, Kimi K2's heads, the 100m
+   preset's shape, phase 8's per-rank shapes and the reference's kernel
+   cases; against the float32 plain backward on the same inputs within
+   ``BWD_TOL`` of each tensor's largest magnitude, and against the plain
+   emulation of its own arithmetic (bf16: P and dS rounded to bf16,
+   within ``BWD_TOL``; float32: 3xTF32 products, within
+   ``EMU_F32_BWD_TOL``), the forward's log-sum-exp within ``LSE_ATOL``,
+   twice bit for bit, timed warm and cold beside SDPA's backward, with
+   the registers and spills of the kernel each row runs), both bounds of
+   a float32 row beside each other (three TF32 products a product on the
+   tensor cores, and the f32 CUDA cores'), ``decode_attention``
    (also against the plain emulation of its splits, a row with no allowed
    slot among the shapes, and twice, bit for bit), both timed cold as
    well as warm,
@@ -231,7 +240,13 @@ Phases, each of which raises on failure (non-zero exit):
    float32 on 2 MoE layers at full width, B 2 x S 512, the plain route's
    experts pinned to the kernel route's after the flipped (token,
    expert) pairs are counted; (c) as 6c with Adafactor and no
-   compression, every parameter and factored moment bit for bit.
+   compression, every parameter and factored moment bit for bit; (d)
+   beside phases 4b-4f, the README's training example
+   (``examples/train_100m_torch.py --preset 100m``, float32, B 8 x S 64,
+   ``TRAIN100M_STEPS`` steps, a checkpoint directory under a temporary
+   one) in a process of its own: the loss falls, and its attention runs
+   the float32 flash kernels, forward and backward (a ``train100m``
+   line with its losses, seconds and launches).
 7. the mesh, ranks as processes sharing the one card (no multi-GPU
    figure): ``MESH_RANKS`` gloo ranks and one NCCL process of world size
    1, started together, each printing ``mesh`` lines (backend, ranks,
@@ -353,6 +368,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # throughput), so 1/16 of the f32 operation peak
 PEAK_SFU_PER_S = PEAK_F32_FLOPS / 16
 PEAK_BF16_FLOPS = 989e12            # dense tensor-core bf16
+PEAK_TF32_FLOPS = 495e12            # dense tensor-core TF32
+# the float32 flash kernels form each product from three TF32 products
+# on the tensor cores (3xTF32: lo hi + hi lo + hi hi)
+TF32_PRODUCTS = 3
 ATTN_RTOL = 1e-2                    # the reference's kernel tolerances
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 QWEN = dict(Hq=12, Hkv=2, hd=128)   # Qwen2-1.5B's attention heads
@@ -365,6 +384,7 @@ KIMI = dict(Hq=64, Hkv=8, hd=112)   # Kimi K2's (the pool's one hd 112)
 # heads the rules replicate, and Qwen1.5-MoE-A2.7B's 8/8 heads a rank on
 # (1, 2) and its 16/16 on (2, 1), one sequence a rank. (FSDP's (2, 1)
 # ranks run Qwen2-1.5B's B 2 x S 512 at 12/2 heads: the training rows.)
+TRAIN100M_FLASH = ("train100m_f32", 8, 64, 0, torch.float32, 10, 2, 64)
 MESH_FLASH_SHAPES = [
     ("mesh_tp", 4, 512, 0, torch.bfloat16, 6, 1, 128),
     ("mesh_tp_f32", 4, 512, 0, torch.float32, 6, 1, 128),
@@ -385,6 +405,9 @@ FLASH_SHAPES = [
     ("hd120", 1, 256, 0, torch.bfloat16, 8, 2, 120),
     ("hd256_window", 1, 512, 128, torch.bfloat16, 10, 1, 256),
     ("hd256_f32", 1, 128, 0, torch.float32, 4, 1, 256),
+    # examples/train_100m_torch.py --preset 100m: B 8 x S 64, 10/2 heads
+    # of 64, float32
+    TRAIN100M_FLASH,
     # RecurrentGemma-2B's local layers in prefill
     ("recurrentgemma_prefill", 2, 512, 2048, torch.bfloat16, 10, 1, 256),
     # Qwen1.5-MoE-A2.7B's prefill, split-serving forward (G = 1) and
@@ -418,6 +441,7 @@ FLASH_BWD_SHAPES = [
     ("moe_heads", 2, 512, 0, torch.bfloat16, *MOE.values()),
     ("moe_train", 4, 512, 0, torch.bfloat16, *MOE.values()),
     ("kimi_train", 1, 512, 0, torch.bfloat16, *KIMI.values()),
+    TRAIN100M_FLASH,
     *(row for row in MESH_FLASH_SHAPES if row[0] != "mesh_dp_f32"),
     *(row for row in FLASH_SHAPES if row[0].startswith("case")),
 ]
@@ -428,11 +452,19 @@ FLASH_BWD_MAIN = "train"
 # relative each), the outputs round to bf16 (2^-9) and D uses the bf16
 # output: 3.0-6.6e-3 in the plain emulation of that arithmetic
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# the backward's cold ms before its tensor-core redesign (final run of the
-# CUDA-core kernels on an H100 80GB HBM3 at 700 W, PERF.md)
-BWD_EARLIER_COLD_MS = dict(train=0.6948, train_f32=0.7017, ragged=0.6765,
-                           recurrentgemma_local=19.13, moe_heads=0.8990,
-                           kimi_train=1.423)
+# float32 kernels against the plain emulation of their own arithmetic
+# (ref.py, products="3xtf32"): the emulation splits each operand as the
+# kernels do and forms the same TF32 products, each exact in float32 (11
+# significant bits times 11), so the two differ only in the order of
+# their float32 sums: within the tensor cores' accumulation, across k
+# steps, and lo hi + hi lo + hi hi summed per step in the kernels and
+# per tile in the emulation. That is the cause the float32 bars against
+# the plain version already cover (its products are float32 ones, a
+# further 2^-22 of each apart), so the same bars, derived before any
+# run: ATTN_ATOL/ATTN_RTOL for the forward, BWD_TOL for the backward.
+# Single TF32 products leave them (tests/test_torch_flash_f32_tc.py).
+EMU_F32_ATOL, EMU_F32_RTOL = ATTN_ATOL[torch.float32], ATTN_RTOL
+EMU_F32_BWD_TOL = BWD_TOL[torch.float32]
 LSE_ATOL = 1e-4      # base-2 log-sum-exp, float32 sums in another order
 # decode attention: (name, B, T, last, q_pos, window, dtype, Hq, Hkv,
 # hd); slot p % T holds position p for p <= last, the rest are empty
@@ -651,15 +683,18 @@ def ptxas_summary(build_log: str) -> list:
 
 
 def sass_counts(library: Path) -> dict | None:
-    """Tensor-core (HMMA, HGMMA) and ldmatrix (LDSM) instructions in a
-    built library, from ``cuobjdump -sass``; None where it is missing."""
+    """Tensor-core (HMMA, HGMMA; HMMA_TF32 the TF32 products of the
+    float32 kernels) and ldmatrix (LDSM) instructions in a built library,
+    from ``cuobjdump -sass``; None where it is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
     out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                          text=True, check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", out))
-            for op in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
+    counts = {op: len(re.findall(rf"\b{op}\b", out))
+              for op in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
+    counts["HMMA_TF32"] = len(re.findall(r"\bHMMA\.\w+\.F32\.TF32\b", out))
+    return counts
 
 
 def check_rwkv6_build(instances: list) -> None:
@@ -2355,17 +2390,28 @@ def median_ms(fns, args, samples=5, inner=10):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def attn_bound(nbytes, pairs, hd, Hq, dtype, per_pair=4):
+def attn_bound(nbytes, pairs, hd, Hq, dtype, per_pair=4, split_tf32=False):
     """Least time on an H100: the larger of the bytes at the HBM rate and
     the ``per_pair`` hd operations per allowed (q, k) pair per q head (4
     in the forward, 10 in the backward) at the peak for the inputs' type
-    (bf16 tensor cores, or f32)."""
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    (bf16 tensor cores, or f32 CUDA cores). ``split_tf32``: float32 as
+    the flash kernels run it, TF32_PRODUCTS TF32 products a product at
+    the TF32 tensor-core rate; the f32 CUDA-core bound is kept beside it
+    in the terms (``cuda_cores_ms``)."""
+    ops = per_pair * hd * Hq * pairs
+    t_f32 = ops / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = per_pair * hd * Hq * pairs / peak
+    if dtype == torch.bfloat16:
+        t_ops = ops / PEAK_BF16_FLOPS
+    elif split_tf32:
+        t_ops = TF32_PRODUCTS * ops / PEAK_TF32_FLOPS
+    else:
+        t_ops = t_f32
+    terms = dict(bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops)
+    if split_tf32 and dtype == torch.float32:
+        terms["cuda_cores_ms"] = 1e3 * max(t_bytes, t_f32)
     return (1e3 * max(t_bytes, t_ops),
-            "operations" if t_ops >= t_bytes else "bytes",
-            dict(bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops))
+            "operations" if t_ops >= t_bytes else "bytes", terms)
 
 
 def allowed_pairs(Sq, Skv, window, causal=True):
@@ -2389,10 +2435,11 @@ def check_close(name, shape, got, ref, dtype):
 
 
 def flash_phase(kernels):
-    """Each FLASH_SHAPES row against the plain version (bf16 also
-    against the plain emulation of its tiles), with SDPA's time beside
-    it; timed warm (back-to-back calls on one set of inputs) and cold
-    (``cold_ms``)."""
+    """Each FLASH_SHAPES row against the plain version and the plain
+    emulation of its kernel's arithmetic (bf16: its tiles, P rounded to
+    bf16; float32: its tiles and 3xTF32 products, within EMU_F32_ATOL /
+    EMU_F32_RTOL), with SDPA's time beside it; timed warm (back-to-back
+    calls on one set of inputs) and cold (``cold_ms``)."""
     from repro_torch.kernels.flash_attention.ref import attention_tiled_ref
 
     F = torch.nn.functional
@@ -2404,11 +2451,19 @@ def flash_phase(kernels):
                    for s in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
         got = kernels.flash_attention(q, k, v, causal=True, window=window)
         ref = kernels.attention_ref(q, k, v, causal=True, window=window)
-        emu = (attention_tiled_ref(q, k, v, window=window)
-               if dtype == torch.bfloat16 else ref)
+        f32 = dtype == torch.float32
+        emu = (attention_tiled_ref(q, k, v, window=window,
+                                   p_dtype=torch.float32, products="3xtf32")
+               if f32 else attention_tiled_ref(q, k, v, window=window))
         torch.cuda.synchronize()
         err = check_close("flash_attention", name, got, ref, dtype)
         emu_err = float((got.float() - emu.float()).abs().max())
+        if f32 and not torch.allclose(got, emu, rtol=EMU_F32_RTOL,
+                                      atol=EMU_F32_ATOL):
+            raise AssertionError(
+                f"flash_attention at {name} disagrees with the 3xTF32 "
+                f"emulation: max abs err {emu_err}, rtol/atol "
+                f"{EMU_F32_RTOL}/{EMU_F32_ATOL}")
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if window:
             i = torch.arange(S, device=DEVICE)
@@ -2428,10 +2483,13 @@ def flash_phase(kernels):
         esize = q.element_size()
         nbytes = esize * (2 * q.numel() + k.numel() + v.numel())
         pairs = B * allowed_pairs(S, S, window)
-        bound_ms, bound_by, terms = attn_bound(nbytes, pairs, hd, Hq, dtype)
+        bound_ms, bound_by, terms = attn_bound(nbytes, pairs, hd, Hq, dtype,
+                                               split_tf32=True)
         row = dict(name=name, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window,
                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
                    emulation_max_abs_err=emu_err,
+                   emulation_tol=([EMU_F32_RTOL, EMU_F32_ATOL] if f32
+                                  else None),
                    blocks=-(-S // 64) * Hq * B, ms=ms["kernel"],
                    ms_cold=ms_cold,
                    plain_ms=ms["plain"], library_ms=ms["library"],
@@ -2453,30 +2511,51 @@ def check_rel(name, shape, what, got, want, tol):
 
 
 def bwd_build(instances, hd, dtype):
-    """Registers and spills of the kernels a row runs that hold its
-    products: bf16 the tensor-core dq + dk/dv kernel, float32 the
-    CUDA-core dq and dk/dv kernels, of width 64, 128 or 256, from the
-    build log's ``-Xptxas -v``; None where this process did not build the
-    library. Raises where the instance is missing, or where a tensor-core
-    instance spills: its design keeps the accumulators in registers."""
+    """Registers and spills of the dq + dk/dv kernel a row runs (bf16 or
+    float32, of width 64, 128 or 256), from the build log's ``-Xptxas
+    -v``; None where this process did not build the library. Raises
+    where the instance is missing or spills: its design keeps the
+    accumulators in registers."""
     if not instances:
         return None
     width = 64 if hd <= 64 else 128 if hd <= 128 else 256
-    kinds = ((f"dqkv_kernel_tcILi{width}E",) if dtype == torch.bfloat16
-             else (f"dq_kernelILi{width}E", f"dkv_kernelILi{width}E"))
+    kind = ("tc" if dtype == torch.bfloat16 else "f32")
+    r = next((r for r in instances
+              if f"flash_bwd_dqkv_kernel_{kind}ILi{width}E" in r["entry"]),
+             None)
+    if r is None:
+        raise AssertionError(f"flash_attention_bwd: no {kind} instance of "
+                             f"width {width} in the build log")
+    if r.get("spill_stores") or r.get("spill_loads"):
+        raise AssertionError(f"flash_attention_bwd instance {r['entry']} "
+                             f"spills: {r}")
+    return {"dqkv": {k: r.get(k)
+                     for k in ("registers", "spill_stores", "spill_loads")}}
+
+
+def flash_f32_build(kernel, fwd_instances, bwd_instances) -> dict | None:
+    """The float32 flash kernels' instances (the forward's and the
+    backward's dq + dk/dv kernel, widths 64, 128, 256): registers and
+    spills from the build logs, dynamic shared memory and blocks an SM
+    from the occupancy calculator (``kernel.occupancy``); None where this
+    process built neither library. Raises where an instance is missing
+    or spills: each keeps its accumulators in registers."""
+    if not (fwd_instances and bwd_instances):
+        return None
     out = {}
-    for kind in kinds:
-        r = next((r for r in instances
-                  if f"flash_bwd_{kind}" in r["entry"]), None)
-        if r is None:
-            raise AssertionError(f"flash_attention_bwd: no instance {kind} "
-                                 "in the build log")
-        if dtype == torch.bfloat16 and (r.get("spill_stores")
-                                        or r.get("spill_loads")):
-            raise AssertionError(f"flash_attention_bwd instance "
-                                 f"{r['entry']} spills: {r}")
-        out[kind.split("_kernel")[0]] = {
-            k: r.get(k) for k in ("registers", "spill_stores", "spill_loads")}
+    for what, instances, entry in (
+            ("fwd", fwd_instances, "flash_attention_kernel_f32"),
+            ("bwd", bwd_instances, "flash_bwd_dqkv_kernel_f32")):
+        for width in (64, 128, 256):
+            r = next((r for r in instances
+                      if f"{entry}ILi{width}E" in r["entry"]), None)
+            if r is None or r.get("spill_stores") or r.get("spill_loads"):
+                raise AssertionError(f"{entry} of width {width}: {r} (must "
+                                     "be built and spill nothing)")
+            out[f"{what}{width}"] = dict(
+                registers=r.get("registers"),
+                **kernel.occupancy(width, torch.float32,
+                                   backward=what == "bwd"))
     return out
 
 
@@ -2485,12 +2564,13 @@ def flash_bwd_phase(kernels, instances=()):
     ``attention_lse_ref``; the backward kernel's dq, dk and dv against
     the plain backward (``attention_bwd_ref``, autograd through the
     plain forward, in float32 on the same inputs) and against the plain
-    emulation of its own arithmetic (``attention_bwd_tiled_ref``, P and
-    dS rounded to bf16 on bf16 rows), each within BWD_TOL of the tensor's
-    largest magnitude; run twice, bit for bit; timed warm and cold beside
-    its bound, SDPA's backward and the CUDA-core kernels' earlier cold
-    time, with the registers and spills of the kernels it runs
-    (``instances``: the build log's ``ptxas_summary``)."""
+    emulation of its own arithmetic (``attention_bwd_tiled_ref``: P and
+    dS rounded to bf16 on bf16 rows, 3xTF32 products on float32 rows),
+    each within BWD_TOL (float32's emulation: EMU_F32_BWD_TOL) of the
+    tensor's largest magnitude; run twice, bit for bit; timed warm and
+    cold beside its bound and SDPA's backward, with the registers and
+    spills of the kernel it runs (``instances``: the build log's
+    ``ptxas_summary``)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_tiled_ref, attention_lse_ref)
@@ -2513,8 +2593,9 @@ def flash_bwd_phase(kernels, instances=()):
                                          window=window)
         torch.cuda.synchronize()
         t_emu = time.perf_counter()
-        emu = attention_bwd_tiled_ref(q, k, v, out, lse, do, True, window,
-                                      p_dtype=dtype)
+        emu = attention_bwd_tiled_ref(
+            q, k, v, out, lse, do, True, window, p_dtype=dtype,
+            products="3xtf32" if dtype == torch.float32 else "float32")
         lse_want = attention_lse_ref(q, k, True, window)
         torch.cuda.synchronize()
         t_emu = time.perf_counter() - t_emu
@@ -2522,13 +2603,14 @@ def flash_bwd_phase(kernels, instances=()):
             raise AssertionError(f"flash_attention_bwd at {name}: two calls "
                                  "on the same inputs differ")
         tol = BWD_TOL[dtype]
+        emu_tol = EMU_F32_BWD_TOL if dtype == torch.float32 else tol
         errs, rel, emu_rel = {}, {}, {}
         for label, g, w, e in zip(("dq", "dk", "dv"), grads, want, emu):
             errs[label], rel[label] = check_rel(
                 "flash_attention_bwd", name, label, g, w, tol)
             emu_rel[label] = check_rel(
                 "flash_attention_bwd", name, f"{label} (emulation)", g, e,
-                tol)[1]
+                emu_tol)[1]
         lse_err = float((lse - lse_want).abs().max())
         if lse_err > LSE_ATOL:
             raise AssertionError(f"flash_attention lse at {name}: max abs "
@@ -2562,17 +2644,17 @@ def flash_bwd_phase(kernels, instances=()):
                   + lse.element_size() * lse.numel())
         pairs = B * allowed_pairs(S, S, window)
         bound_ms, bound_by, terms = attn_bound(nbytes, pairs, hd, Hq, dtype,
-                                               per_pair=10)
+                                               per_pair=10, split_tf32=True)
         row = dict(name=name, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd, window=window,
                    dtype=str(dtype).split(".")[-1],
                    max_abs_err=max(errs.values()), rel_err=rel,
                    emulation_rel_err=emu_rel, lse_max_abs_err=lse_err,
-                   tol=tol, repeat_bitwise=True, ms=ms["kernel"],
+                   tol=tol, emulation_tol=emu_tol, repeat_bitwise=True,
+                   ms=ms["kernel"],
                    ms_cold=ms_cold, plain_ms=ms["plain"],
                    library_ms=ms["library"], bound_ms=bound_ms,
                    bound_by=bound_by, bound_terms=terms, bytes=nbytes,
                    pairs_per_head=pairs,
-                   earlier_ms_cold=BWD_EARLIER_COLD_MS.get(name),
                    build=bwd_build(instances, hd, dtype),
                    emulation_s=t_emu, seconds=time.perf_counter() - t_row)
         log("flash_attention_bwd", json.dumps(row))
@@ -3441,11 +3523,10 @@ def kernel_class(name: str) -> str:
 
 
 # CUDA kernels one launch of a wrapper runs: a decode_attention call is
-# its splits and their merge (both names match kernel_class), a bf16
-# flash_attention_bwd call its D, dq + dk/dv and group-sum kernels at
-# every shape (float32 runs dq and dk/dv apart, four; every profiled path
-# is bf16), an rwkv6_scan_bwd call its dv and ds0 (the forward's body in
-# reverse time), row and du kernels
+# its splits and their merge (both names match kernel_class), a
+# flash_attention_bwd call its D, dq + dk/dv and group-sum kernels in
+# either dtype at every shape, an rwkv6_scan_bwd call its dv and ds0 (the
+# forward's body in reverse time), row and du kernels
 CUDA_KERNELS_PER_LAUNCH = dict(decode_attention=2, flash_attention_bwd=3,
                                rwkv6_scan_bwd=3)
 PROFILE_RETRIES = 2
@@ -5921,6 +6002,75 @@ def mesh_train_finish(started, d, seconds: dict) -> dict:
     return by_path
 
 
+# phase 6d: the README's training example, examples/train_100m_torch.py
+# --preset 100m, as a user runs it: float32, so its attention runs the
+# float32 flash kernels, B 8 x S 64, lr 1e-3 after a 20-step warm-up, a
+# checkpoint directory under a temporary one; in a process of its own
+# beside phases 4b-4f, which wait on the host. Its loss first rises
+# (Adam's first steps move every weight by about the rate over the 32k
+# vocabulary) and falls below the first step's for good only from step
+# 222 on: at step 20 it is 10.4567 against 10.3002, at step 200 (the
+# example's default) 10.2977, at step 300 10.0496 (a 300-step run on an
+# H100 80GB HBM3, 700 W, 0.1 s a step); so 300 steps, and the example's
+# own check (the last step's loss below the first's) with the mean of
+# the last ten below the first ten's
+TRAIN100M_STEPS = 300
+TRAIN100M_TIMEOUT_S = 600
+
+
+def train100m_start(d):
+    """Start phase 6d's process, writing into ``d``."""
+    return start_processes(
+        {"train100m": ["--train-100m", str(Path(d) / "train100m.json")]}, d)
+
+
+def train100m_child(out: str) -> int:
+    """Phase 6d's process: the example's ``main`` at its preset's batch,
+    sequence and rate; its losses, seconds, dtype and the kernels'
+    launches into ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_100m_torch as example
+
+    import repro_torch.kernels as kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = example.main(["--preset", "100m",
+                           "--steps", str(TRAIN100M_STEPS),
+                           "--ckpt", str(Path(out).with_suffix(".ckpt"))])
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps(dict(
+        losses=[float(x) for x in losses],
+        seconds=time.perf_counter() - t0,
+        dtype=example.preset_cfg("100m").dtype,
+        launches=kernels.launch_counts())))
+    return 0
+
+
+def train100m_finish(started, d, seconds: dict) -> dict:
+    """Phase 6d's end: a ``train100m`` line; the loss must fall and the
+    float32 run must have launched the flash kernels, forward and
+    backward. Returns its launches."""
+    finish_processes(started, TRAIN100M_TIMEOUT_S)
+    seconds["6d"] = time.perf_counter() - started[2]
+    res = json.loads((Path(d) / "train100m.json").read_text())
+    losses, launches = res["losses"], res["launches"]
+    log("train100m", json.dumps(dict(
+        steps=len(losses), first_loss=losses[0], last_loss=losses[-1],
+        losses=losses, run_s=res["seconds"], dtype=res["dtype"],
+        launches=launches)))
+    if not (losses[-1] < losses[0] and statistics.mean(losses[-10:])
+            < statistics.mean(losses[:10])):
+        raise AssertionError(f"6d: the loss did not fall: {losses}")
+    if res["dtype"] != "float32" or not (launches["flash_attention"]
+                                         and launches["flash_attention_bwd"]):
+        raise AssertionError(f"6d: a {res['dtype']} run launched {launches}")
+    return res
+
+
 # phase 9: the dry run's cells, (arch, shape, sequence parallelism), on
 # the production pod mesh
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
@@ -6040,6 +6190,18 @@ def matern_entry(rows, post_rows, by_path, main):
                     for s in (MAIN_SHAPE, CEILING_SHAPE)})
 
 
+def float32_entry(rows, main) -> dict:
+    """The float32 instance's numbers at its main row, for a kernel's
+    item of the ``kernels`` line (its launches count under the
+    wrapper's: phases 6b, 6d and 8 run it)."""
+    row = next(r for r in rows if r["name"] == main)
+    return dict(shape=main, ms=row["ms_cold"], ms_warm=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"],
+                cuda_cores_bound_ms=row["bound_terms"]["cuda_cores_ms"],
+                library_ms=row["library_ms"], max_abs_err=row["max_abs_err"])
+
+
 def kernel_entry(name, replaces, rows, main, by_path, source=None,
                  **extra):
     """A kernel's item of the ``kernels`` line; ``ms`` is the cold time
@@ -6104,16 +6266,23 @@ def main() -> int:
     check_matern_build(ptxas_summary(ms_kernel.LIB.build_log))
     check_scan_bwd_build(libs)
     bwd_instances = ptxas_summary(fa_kernel.BWD_LIB.build_log)
-    if bwd_instances:  # each tensor-core width is built and spills nothing
+    if bwd_instances:  # each width of each dtype is built, spills nothing
         for width in (64, 128, 256):
-            bwd_build(bwd_instances, width, torch.bfloat16)
+            for dtype in (torch.bfloat16, torch.float32):
+                bwd_build(bwd_instances, width, dtype)
     else:
         log("build flash_attention_bwd: already built, spills not checked")
-    sass = sass_counts(fa_kernel.LIB.library_path())
-    log("sass flash_attention", json.dumps(sass))
-    if sass is not None and sass["HMMA"] + sass["HGMMA"] == 0:
-        raise AssertionError("flash_attention has no tensor-core "
-                             "instruction in its SASS")
+    f32_build = flash_f32_build(
+        fa_kernel, ptxas_summary(fa_kernel.LIB.build_log), bwd_instances)
+    log("build flash_attention f32", json.dumps(f32_build))
+    for lib in ("LIB", "BWD_LIB"):
+        sass = sass_counts(getattr(fa_kernel, lib).library_path())
+        log(f"sass flash_attention {lib}", json.dumps(sass))
+        if sass is not None and (sass["HMMA"] + sass["HGMMA"] == 0
+                                 or sass["HMMA_TF32"] == 0):
+            raise AssertionError(f"flash_attention {lib} has no "
+                                 "tensor-core (or no TF32 tensor-core) "
+                                 "instruction in its SASS")
 
     # phase 2: kernels against plain (launches here are not counted)
     seconds, lap = {}, [time.perf_counter()]
@@ -6156,13 +6325,16 @@ def main() -> int:
     # host, not the card
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d8:
-        train8 = mesh_train_start(d8)
+        started = [mesh_train_start(d8)]
         try:
+            started.append(train100m_start(d8))     # phase 6d beside them
             bo_counts = bo_phases(seconds)
+            run100m = train100m_finish(started.pop(), d8, seconds)
         except BaseException:
-            stop_processes(train8)
+            for procs in started:
+                stop_processes(procs)
             raise
-        mesh8_counts = mesh_train_finish(train8, d8, seconds)
+        mesh8_counts = mesh_train_finish(started[0], d8, seconds)
     lap[0] = time.perf_counter()
     vgg_counts = timed("4g", vgg_phase, core, kernels, seq_counts, seq_res)
 
@@ -6222,6 +6394,9 @@ def main() -> int:
         for name, n in counts.items():
             if n:
                 by_path[name][path] = n
+    for name, n in run100m["launches"].items():    # phase 6d's, above
+        if n:
+            by_path[name]["train100m"] = n
     lse_launches = {p: n for p, n in by_path["decode_attention"].items()
                     if p.startswith("mesh_generate:recurrentgemma-2b")}
     for name, paths in by_path.items():
@@ -6240,7 +6415,8 @@ def main() -> int:
                      main_shapes),
         kernel_entry("flash_attention",
                      "src/repro/kernels/flash_attention/kernel.py:84",
-                     flash_rows, FLASH_MAIN, by_path["flash_attention"]),
+                     flash_rows, FLASH_MAIN, by_path["flash_attention"],
+                     float32=float32_entry(flash_rows, "mesh_tp_f32")),
         kernel_entry(
             "flash_attention_bwd",
             "src/repro/kernels/flash_attention/kernel.py:84 (the forward; "
@@ -6249,9 +6425,10 @@ def main() -> int:
             flash_bwd_rows, FLASH_BWD_MAIN, by_path["flash_attention_bwd"],
             source="src/repro_torch/kernels/flash_attention/"
                    "flash_attention_bwd.cu",
-            design="bf16 redesigned for the tensor cores: deterministic "
-                   "dK/dV and dQ kernels on mma.sync (bf16 in, f32 "
-                   "accumulate), no atomics; float32 on the CUDA cores"),
+            design="deterministic dK/dV and dQ kernels on the tensor "
+                   "cores (mma.sync, f32 accumulate), no atomics: bf16 in "
+                   "bf16, float32 in 3xTF32 split products",
+            float32=float32_entry(flash_bwd_rows, "train_f32")),
         kernel_entry("decode_attention",
                      "src/repro/kernels/decode_attention/kernel.py:63",
                      decode_rows, DECODE_MAIN, by_path["decode_attention"]),
@@ -6317,4 +6494,6 @@ if __name__ == "__main__":
         sys.exit(train_mesh_rank(int(r), int(w), int(port), d))
     if sys.argv[1:2] == ["--train-mesh-nccl"]:
         sys.exit(train_mesh_nccl(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--train-100m"]:
+        sys.exit(train100m_child(sys.argv[2]))
     sys.exit(main())

@@ -5,11 +5,11 @@ For tensors on the CPU they return the plain PyTorch versions
 (``ref.py``), and autograd runs through them. For CUDA tensors they
 launch the hand-written kernels (``kernel.py``) or raise: there is no
 fallback. Unlike the TPU wrapper they pad nothing; the kernels mask
-ragged Sq and Skv themselves. bfloat16 runs the forward and the backward
-on the tensor cores with 16-byte copies, so its tensors (q, k, v, and
-the backward's ``out`` and ``dout``) must be 16-byte aligned with
-strides in 16-byte steps; a tensor that is not raises, it never takes a
-slower path.
+ragged Sq and Skv themselves. Both dtypes run the forward and the
+backward on the tensor cores (float32 as 3xTF32 split products) with
+16-byte copies, so their tensors (q, k, v, and the backward's ``out``
+and ``dout``) must be 16-byte aligned with strides in 16-byte steps; a
+tensor that is not raises, it never takes a slower path.
 
 ``flash_attention`` is the model's entry. On CUDA tensors, when autograd
 records (grad enabled and an input requires grad), it goes through
@@ -19,7 +19,7 @@ writes each row's log-sum-exp and whose backward is the backward kernel
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the two kernels
 as plain calls. ``flash_attention.launches`` counts the forward's
 launches, ``flash_attention_bwd.launches`` the backward's (one call is
-one launch: three CUDA kernels in bfloat16, four in float32).
+one launch: three CUDA kernels).
 
 Each launch is an operator of the ``repro_torch`` library
 (``kernels/library.py``): ``flash_attention`` and
@@ -74,13 +74,17 @@ def _check(q, k, v, window):
 
 
 def _check_aligned(what, **tensors):
-    """bfloat16 tensors 16-byte aligned with strides in 16-byte steps
-    (a tensor with no storage, meta or fake, has no pointer to check)."""
+    """Tensors 16-byte aligned with batch, sequence and head strides in
+    16-byte steps, 8 bfloat16 or 4 float32 elements, as the kernels take
+    them (``kernel.strides``: a dim of size 1 has none); a tensor with no
+    storage, meta or fake, has no pointer to check."""
     for name, t in tensors.items():
-        if t.dtype == torch.bfloat16 and has_storage(t) and (
-                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"{what}: bfloat16 {name} must be 16-byte "
-                             "aligned with strides in 16-byte steps")
+        step = 16 // t.element_size()
+        if has_storage(t) and (t.data_ptr() % 16 or any(
+                s % step for s in kernel.strides(t))):
+            raise ValueError(f"{what}: {str(t.dtype).split('.')[-1]} "
+                             f"{name} must be 16-byte aligned with "
+                             "strides in 16-byte steps")
 
 
 def _device(q, what):

@@ -10,7 +10,9 @@ row at index i has position i. Output in q's dtype.
 log-sum-exp in base 2, and ``attention_bwd_ref`` the backward: autograd
 through ``attention_ref``. ``attention_tiled_ref`` and
 ``attention_bwd_tiled_ref`` repeat the kernels' own arithmetic step by
-step, for the tests and the card check only.
+step, for the tests and the card check only; with ``products="3xtf32"``
+they form each product as the float32 kernels do on the tensor cores,
+from the TF32 parts of ``split_tf32``.
 """
 from __future__ import annotations
 
@@ -51,21 +53,72 @@ def attention_ref(q, k, v, causal: bool = True, window: int = 0):
 
 
 LOG2E = 1.4426950408889634
+PRODUCTS = ("float32", "3xtf32", "tf32")
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to 10
+    mantissa bits, to nearest with ties away from zero, on the bits (so
+    subnormals round at the same place, and a value within half a TF32
+    step of the largest float32 rounds to inf); inf and nan are kept.
+    The result is float32, its low 13 mantissa bits zero."""
+    bits = x.contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    sign = bits & -0x80000000
+    rounded = (((mag + 0x1000) & -0x2000) | sign).view(torch.float32)
+    return torch.where(mag >= 0x7F800000, x, rounded)
+
+
+def split_tf32(x):
+    """(hi, lo), both TF32: hi = tf32(x), lo = tf32(x - hi). hi + lo is x
+    within 2^-22 of |x| (the float32 kernels' operands, 3xTF32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _product(eq, a, b, products="float32"):
+    """``einsum(eq, a, b)`` in float32, its products formed as the
+    kernels form them: "float32" as they are; "3xtf32" as the float32
+    kernels do on the tensor cores, from the TF32 parts of each operand,
+    lo hi + hi lo (the two small terms first) + hi hi, lo lo dropped;
+    "tf32" hi hi alone (one TF32 product, no split). The order of the
+    float32 sums within a term is the library's, not the tensor
+    cores'."""
+    if products == "float32":
+        return torch.einsum(eq, a, b)
+    if products not in PRODUCTS:
+        raise ValueError(f"products must be one of {PRODUCTS}")
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    if products == "tf32":
+        return torch.einsum(eq, ah, bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def fwd_tiles(hd: int, dtype) -> tuple:
+    """The forward kernel's (q rows, keys) a tile: ``Cfg`` of
+    flash_attention.cu, the same for bfloat16 (``tc::``) and float32
+    (``f32::``, whose warps split each key tile in two up to hd 128)."""
+    return 64, (32 if hd > 128 else 64)
 
 
 def attention_tiled_ref(q, k, v, causal: bool = True, window: int = 0,
-                        p_dtype=torch.bfloat16):
-    """The bfloat16 kernel's arithmetic, step by step, in plain PyTorch:
-    64-row q tiles; key tiles of 64 rows (32 above hd 128) from the first
-    that some row of the q tile may attend to, tiles wholly masked never
-    seen; scores scaled in float32 with log2(e) folded in, masked with
-    -1e30; an online softmax in exp2; and P rounded to ``p_dtype`` before
-    P V, the one rounding the plain version does not have. Used by the
-    tests and the card check, never by the model. Output in q's dtype."""
+                        p_dtype=torch.bfloat16, products: str = "float32"):
+    """The forward kernel's arithmetic, step by step, in plain PyTorch:
+    64-row q tiles; key tiles of ``fwd_tiles`` from the first that some
+    row of the q tile may attend to, tiles wholly masked never seen;
+    scores scaled in float32 with log2(e) folded in, masked with -1e30;
+    an online softmax in exp2; and P rounded to ``p_dtype`` before P V.
+    The default is the bfloat16 kernel (P rounded to bf16, the one
+    rounding the plain version does not have; bf16 products are exact in
+    float32); ``p_dtype=torch.float32, products="3xtf32"`` is the float32
+    kernel (``_product``). Used by the tests and the card check, never by
+    the model. Output in q's dtype."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    bq, bk = 64, (32 if hd > 128 else 64)
+    bq, bk = fwd_tiles(hd, q.dtype)
     scale = torch.tensor(LOG2E / math.sqrt(hd), dtype=torch.float32)
     qf = q.reshape(B, Sq, Hkv, G, hd).float()
     kf, vf = k.float(), v.float()
@@ -80,8 +133,8 @@ def attention_tiled_ref(q, k, v, causal: bool = True, window: int = 0,
         acc = torch.zeros(B, Hkv, G, q1 - q0, hd, device=q.device)
         for k0 in range(kv_begin // bk * bk, kv_end, bk):
             k1 = min(k0 + bk, Skv)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, q0:q1],
-                             kf[:, k0:k1]) * scale
+            s = _product("bqhgd,bkhd->bhgqk", qf[:, q0:q1], kf[:, k0:k1],
+                         products) * scale
             cols = torch.arange(k0, k1, device=q.device)[None, :]
             mask = (cols <= rows if causal
                     else torch.ones_like(cols <= rows))
@@ -92,8 +145,9 @@ def attention_tiled_ref(q, k, v, causal: bool = True, window: int = 0,
             corr = torch.exp2(m - m_new)
             p = torch.exp2(s - m_new[..., None])
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), vf[:, k0:k1])
+            acc = acc * corr[..., None] + _product(
+                "bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), vf[:, k0:k1],
+                products)
             m = m_new
         den = torch.where(l == 0, torch.ones_like(l), l)
         out[:, q0:q1] = (acc / den[..., None]).permute(0, 3, 1, 2, 4)
@@ -118,20 +172,18 @@ def attention_bwd_ref(q, k, v, dout, causal: bool = True, window: int = 0):
         return torch.autograd.grad(out, leaves, dout)
 
 
-BWD_TILE = 32       # the float32 kernels' shared-memory tiles, rows or keys
-
-
 def bwd_tiles(hd: int, dtype) -> dict:
     """The backward kernels' tiles: ``dkv`` (keys a block, q rows a step)
-    and ``dq`` (q rows a block, keys a step). bfloat16 runs the
-    tensor-core kernels (``tc::Cfg`` of flash_attention_bwd.cu: 64 keys
-    or rows a block; q steps of 32 and key steps of 64 up to hd 64, both
-    32 up to hd 128 and 16 above), float32 the CUDA-core kernels (steps
-    of ``BWD_TILE``)."""
+    and ``dq`` (q rows a block, keys a step), 64 keys or rows a block.
+    bfloat16 (``tc::Cfg`` of flash_attention_bwd.cu): q steps of 32 and
+    key steps of 64 up to hd 64, both 32 up to hd 128 and 16 above;
+    float32 (``f32::Cfg``): both 32 up to hd 128 (each split between two
+    warps) and 16 above."""
     if dtype == torch.bfloat16:
         step = 64 if hd <= 64 else 32 if hd <= 128 else 16
         return dict(dkv=(64, min(step, 32)), dq=(64, step))
-    return dict(dkv=(BWD_TILE, BWD_TILE), dq=(BWD_TILE, BWD_TILE))
+    step = 32 if hd <= 128 else 16
+    return dict(dkv=(64, step), dq=(64, step))
 
 
 def _visits(n_out, b_out, b_in, lo, hi):
@@ -148,7 +200,8 @@ def _visits(n_out, b_out, b_in, lo, hi):
 
 
 def attention_bwd_tiled_ref(q, k, v, out, lse, dout, causal: bool = True,
-                            window: int = 0, p_dtype=torch.float32):
+                            window: int = 0, p_dtype=torch.float32,
+                            products: str = "float32"):
     """The backward kernels' arithmetic, step by step, in plain PyTorch:
     D = rowsum(dO * O) from the forward's rounded output; P recomputed
     from the forward's base-2 ``lse`` as exp2(q.k log2(e)/sqrt(hd) -
@@ -157,12 +210,13 @@ def attention_bwd_tiled_ref(q, k, v, out, lse, dout, causal: bool = True,
     head over q tiles from the first that attends to the key tile, in
     float32, then summed over the group's heads in order. P (before dv)
     and dS (before dq and dk) are rounded to ``p_dtype``: bfloat16 is the
-    tensor-core kernels' arithmetic on bfloat16 inputs, float32 (no
-    rounding) the CUDA-core kernels'. Every output tile takes its steps
-    in the kernels' order; the tiles of one step run side by side (a
-    tile past its last step adds exact zeros). Used by the tests and the
-    card check, never by the model. Returns (dq, dk, dv) in the inputs'
-    dtypes."""
+    bf16 kernels' arithmetic; float32 (no rounding) with
+    ``products="3xtf32"`` the float32 kernels', each product formed from
+    the operands' TF32 parts (``_product``). Every output tile takes its
+    steps in the kernels' order; the tiles of one step run side by side
+    (a tile past its last step adds exact zeros). Used by the tests and
+    the card check, never by the model. Returns (dq, dk, dv) in the
+    inputs' dtypes."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -217,11 +271,11 @@ def attention_bwd_tiled_ref(q, k, v, out, lse, dout, causal: bool = True,
         keys, live = step_of(first, count, s, Rk // bk, bk)
         kg, vg = take(kf, keys), take(vf, keys)     # (B, nq, bk, Hkv, hd)
         ok = allowed[rows[:, :, None], keys[:, None, :]] & live[:, None, None]
-        sc = torch.einsum("btqhgd,btkhd->bhgtqk", qt, kg)
+        sc = _product("btqhgd,btkhd->bhgtqk", qt, kg, products)
         p = torch.exp2(sc * scale_log2 - Lt[..., None]).masked_fill(~ok, 0.0)
-        dp = torch.einsum("btqhgd,btkhd->bhgtqk", dot, vg)
+        dp = _product("btqhgd,btkhd->bhgtqk", dot, vg, products)
         ds = p * (dp - Dt[..., None])
-        dq += torch.einsum("bhgtqk,btkhd->bhgtqd", rounded(ds), kg)
+        dq += _product("bhgtqk,btkhd->bhgtqd", rounded(ds), kg, products)
 
     # dk, dv per q head: key tiles of bkv, q tiles of bqs
     nk = Rk // bkv
@@ -240,12 +294,12 @@ def attention_bwd_tiled_ref(q, k, v, out, lse, dout, causal: bool = True,
         qg, dg = take(qf, qrows), take(dof, qrows)  # (B, nk, bqs, Hkv, G, hd)
         lg, dsg = L[..., qrows], D[..., qrows]      # (B, Hkv, G, nk, bqs)
         ok = allowed[qrows[:, :, None], cols[:, None, :]] & live[:, None, None]
-        sc = torch.einsum("btqhgd,btkhd->bhgtqk", qg, kt)
+        sc = _product("btqhgd,btkhd->bhgtqk", qg, kt, products)
         p = torch.exp2(sc * scale_log2 - lg[..., None]).masked_fill(~ok, 0.0)
-        dp = torch.einsum("btqhgd,btkhd->bhgtqk", dg, vt)
+        dp = _product("btqhgd,btkhd->bhgtqk", dg, vt, products)
         ds = p * (dp - dsg[..., None])
-        dvp += torch.einsum("bhgtqk,btqhgd->bhgtkd", rounded(p), dg)
-        dkp += torch.einsum("bhgtqk,btqhgd->bhgtkd", rounded(ds), qg)
+        dvp += _product("bhgtqk,btqhgd->bhgtkd", rounded(p), dg, products)
+        dkp += _product("bhgtqk,btqhgd->bhgtkd", rounded(ds), qg, products)
 
     dkp = dkp.reshape(B, Hkv, G, Rk, hd)[:, :, :, :Skv]
     dvp = dvp.reshape(B, Hkv, G, Rk, hd)[:, :, :, :Skv]

@@ -255,13 +255,19 @@ def test_flash_rejects_bf16_that_is_not_16_byte_aligned(bad):
 
 def test_flash_takes_aligned_bf16_views_and_unaligned_float32():
     """Head-first bf16 views with 16-byte strides pass, as the model's
-    tensors do; float32 runs the CUDA-core kernel, which needs none."""
+    tensors do. float32 runs on the tensor cores with the same 16-byte
+    copies: a stride of 4 floats is a 16-byte step, which bf16's rule of
+    8 elements would not take, and passes; a base that is not 16-byte
+    aligned raises."""
     q = _bf16((2, 4, 8, 16)).transpose(1, 2)
     k = _bf16((2, 2, 8, 16)).transpose(1, 2)
     flash_ops._check(q, k, k, 0)
-    f = _offset((1, 8, 4, 16), torch.float32)
     kf = torch.zeros(1, 8, 2, 16)
+    f = torch.zeros(1, 8, 4, 20)[..., :16]
+    assert f.stride(2) % 8 and not f.stride(2) % 4
     flash_ops._check(f, kf, kf, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops._check(_offset((1, 8, 4, 16), torch.float32), kf, kf, 0)
 
 
 def _decode_args(T=32, Hq=4, Hkv=2, hd=16, dtype=torch.bfloat16):

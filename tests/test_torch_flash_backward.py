@@ -156,18 +156,22 @@ def test_rounded_emulation_matches_reference_vjp(case):
 ])
 def test_bwd_tiles_follow_the_instances(hd, tiles):
     """The emulation's tiles are the tensor-core instance's (hd 64, 128,
-    256: hd 112 runs in the 128-wide one) for bfloat16, the CUDA-core
-    kernels' 32 for float32."""
+    256: hd 112 runs in the 128-wide one) for bfloat16, and the float32
+    instance's (64 keys or rows a block, steps of 32 up to hd 128 and 16
+    above) for float32."""
     assert ref.bwd_tiles(hd, torch.bfloat16) == tiles
-    assert ref.bwd_tiles(hd, torch.float32) == dict(dkv=(32, 32),
-                                                    dq=(32, 32))
+    step = 32 if hd <= 128 else 16
+    assert ref.bwd_tiles(hd, torch.float32) == dict(dkv=(64, step),
+                                                    dq=(64, step))
 
 
 @pytest.mark.parametrize("name", ["out", "dout"])
 def test_check_bwd_refuses_misaligned_bf16(name):
     """bfloat16 ``out`` and ``dout`` feed the tensor-core kernels' 16-byte
     copies: a base that is not 16-byte aligned or a stride that is not a
-    multiple of 8 elements raises, as for q, k and v; float32 passes."""
+    multiple of 8 elements raises, as for q, k and v. float32 runs on the
+    tensor cores with the same copies: a base that is not 16-byte aligned
+    raises, a stride of 4 floats (16 bytes) passes."""
     B, S, Hq, hd = 1, 8, 2, 16
     q = torch.zeros(B, S, Hq, hd, dtype=torch.bfloat16)
     lse = torch.zeros(B, Hq, S)
@@ -182,7 +186,12 @@ def test_check_bwd_refuses_misaligned_bf16(name):
     with pytest.raises(ValueError, match=f"bfloat16 {name}"):
         ops._check_bwd(q, q, **{**good, name: wide}, lse=lse)
     q32, o32 = q.float(), torch.zeros(q.numel() + 1)[1:].view(q.shape)
-    ops._check_bwd(q32, q32, o32, lse, o32)
+    good32 = dict(out=q32, dout=q32)
+    with pytest.raises(ValueError, match=f"float32 {name}"):
+        ops._check_bwd(q32, q32, **{**good32, name: o32}, lse=lse)
+    wide32 = torch.zeros(B, S, Hq, hd + 4)[..., :hd]
+    assert wide32.stride(2) % 8 and not wide32.stride(2) % 4
+    ops._check_bwd(q32, q32, **{**good32, name: wide32}, lse=lse)
 
 
 @pytest.mark.parametrize("causal", [True, False])
