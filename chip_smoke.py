@@ -35,8 +35,11 @@ Phases, each of which raises on failure (non-zero exit):
    SM for one wave; its build must not spill),
    ``flash_attention`` (bf16 at Qwen2-1.5B's,
    RecurrentGemma-2B's, Qwen1.5-MoE-A2.7B's (16/16, hd 128; also at its
-   training batch, B 4 x S 512) and Kimi K2's (64/8, hd 112) heads, and
-   the reference's kernel cases; float32 at phase 8's per-rank shapes,
+   training batch, B 4 x S 512) and Kimi K2's (64/8, hd 112) heads, at
+   phase 5's prefill of DeepSeek-7B (32/32), H2O-Danube3-4B (32/8, hd
+   120, window 4096; also its ring check's forward over 4640 tokens),
+   StarCoder2-15B (48/4), MusicGen-large (32/32, hd 64) and InternVL2-26B
+   (48/8), and the reference's kernel cases; float32 at phase 8's per-rank shapes,
    ``train_100m_torch.py --preset 100m``'s and the reference's float32
    cases; each also against the plain emulation of its own arithmetic:
    bf16 its tiles, P rounded to bf16, float32 its tiles and 3xTF32
@@ -55,9 +58,10 @@ Phases, each of which raises on failure (non-zero exit):
    the registers and spills of the kernel each row runs), both bounds of
    a float32 row beside each other (three TF32 products a product on the
    tensor cores, and the f32 CUDA cores'), ``decode_attention``
-   (also against the plain emulation of its splits, a row with no allowed
-   slot among the shapes, and twice, bit for bit), both timed cold as
-   well as warm,
+   (at the same models' decode steps, and H2O-Danube3-4B's wrapped
+   4096-slot ring; also against the plain emulation of its splits, a row
+   with no allowed slot among the shapes, and twice, bit for bit), both
+   timed cold as well as warm,
    ``rglru_scan`` (RecurrentGemma-2B's prefill, split-serving and decode
    shapes, its 2048-step window, and the reference's cases; also against
    the plain emulation of its chunks, in place, twice bit for bit, with
@@ -168,14 +172,23 @@ Phases, each of which raises on failure (non-zero exit):
    executor seconds, per split the device half, hop and server half ms
    and the boundary bytes) and a ``profile`` line of one forward at
    l = 7 beside its bound;
-5. for each of Qwen2-1.5B, RecurrentGemma-2B, RWKV6-3B and
-   Qwen1.5-MoE-A2.7B at full width (bf16, weights from
-   ``torch.Generator`` seed 0), one model at a time:
+5. for each of ``MODEL_RUNS`` at full width (bf16, weights from
+   ``torch.Generator`` seed 0), one model at a time: Qwen2-1.5B,
+   RecurrentGemma-2B, RWKV6-3B, Qwen1.5-MoE-A2.7B, DeepSeek-7B,
+   H2O-Danube3-4B, StarCoder2-15B, MusicGen-large and InternVL2-26B at
+   full depth, and Kimi K2 (1.03 T parameters) at two layers, its dense
+   first layer and one MoE layer (19.6 B):
    split serving, where ``launch.serve.main`` (budget 15, with its own
-   model, built and freed before the phase's) must
+   model, built and freed before the phase's; Kimi K2 through
+   ``--reduced`` with ``reduced`` cutting only the depth, so the BO
+   prices the whole arch's profile) must
    pick the split and power the CPU run picks and ``SplitRunner`` at four
-   splits must equal the unsplit forward bit for bit; greedy decoding (a
-   B 2 x 512 prompt, 32 new tokens, ``max_seq`` 1024); where the time
+   splits must equal the unsplit forward bit for bit (MusicGen-large and
+   InternVL2-26B also from ``fake_embeds`` embeddings, B 2 x 512, through
+   ``device_half(embeds=...)`` and ``server_half``); greedy decoding (a
+   B 2 x 512 prompt, 32 new tokens, ``max_seq`` 1024; an audio or vision
+   arch's decode steps take embeddings, so theirs are fed the next
+   positions' embeddings); where the time
    goes (``torch.profiler``: device time by kernel class and the idle
    share) in one split-serving forward, one prefill and one decode step,
    each line holding exactly the port's CUDA kernels ``MODEL_RUNS`` says
@@ -186,11 +199,17 @@ Phases, each of which raises on failure (non-zero exit):
    worst layer, the largest expert load, the summed aux loss, and the MoE
    layers' device ms: expert products, shared experts, the rest);
    and prefill + one decode step against the full forward, in bf16 and
-   on a float32 copy of the model (drawn anew from the same seed once the
-   bf16 model is freed, each leaf rounded through bf16: the same weights,
-   and both do not fit the card at 14.3 B parameters); where an MoE
+   on a float32 copy of the model (the bf16 model turned into float32
+   leaf by leaf: the same weights, and both do not fit the card whole),
+   from tokens, from embeddings (MusicGen-large, InternVL2-26B), and for
+   H2O-Danube3-4B over its ring wrapped (B 1, a 4608-token prompt rolls
+   the 4096-slot ring, then 32 decode steps against one forward over all
+   4640 tokens); InternVL2-26B's checks run on a model of 24 of its 48
+   layers (79.4 GB in float32 at full depth), each depth logged on the
+   ``model_phase`` line; where an MoE
    route drops an assignment, the check runs again on the same weights
-   at a capacity factor under which nothing drops, and says so; a
+   at a capacity factor under which nothing drops (``drop_free_factor``),
+   and says so; a
    ``moe_route_flips`` line counts the routed (token, expert) pairs that
    differ between the bf16 and the float32 checks, and within each
    between the prefill or decode step and the full forward; the greedy
@@ -377,6 +396,18 @@ ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 QWEN = dict(Hq=12, Hkv=2, hd=128)   # Qwen2-1.5B's attention heads
 MOE = dict(Hq=16, Hkv=16, hd=128)   # Qwen1.5-MoE-A2.7B's
 KIMI = dict(Hq=64, Hkv=8, hd=112)   # Kimi K2's (the pool's one hd 112)
+# the pool's other LMs' heads: MHA at hd 128 and 64, hd 120 (the 128-wide
+# instances with masked columns), and a group of 12 query heads a KV head
+DEEPSEEK = dict(Hq=32, Hkv=32, hd=128)      # DeepSeek-7B
+DANUBE = dict(Hq=32, Hkv=8, hd=120)         # H2O-Danube3-4B (window 4096)
+STARCODER2 = dict(Hq=48, Hkv=4, hd=128)     # StarCoder2-15B
+MUSICGEN = dict(Hq=32, Hkv=32, hd=64)       # MusicGen-large
+INTERNVL2 = dict(Hq=48, Hkv=8, hd=128)      # InternVL2-26B
+DANUBE_WINDOW = 4096
+# H2O-Danube3-4B's wrapped ring (phase 5, ``ring_decode``): at B 1 a
+# prompt past the window rolls the 4096-slot ring in the prefill, and each
+# of RING_NEW decode steps attends over the wrapped ring
+RING_PROMPT, RING_NEW = DANUBE_WINDOW + 512, 32
 # phase 8's shapes, one rank's (forward and backward): Qwen2-1.5B's B 4 x
 # S 512 on (data 1, model 2), 6/1 heads a rank, in float32 (8a) and bf16
 # (8b, 8d); its whole batch over a world-1 NCCL mesh (8e); and 8c's
@@ -411,12 +442,23 @@ FLASH_SHAPES = [
     # RecurrentGemma-2B's local layers in prefill
     ("recurrentgemma_prefill", 2, 512, 2048, torch.bfloat16, 10, 1, 256),
     # Qwen1.5-MoE-A2.7B's prefill, split-serving forward (G = 1) and
-    # training batch (B 4 x S 512 in one microbatch), and Kimi K2's heads,
-    # which no model of the card runs (1.03 T parameters)
+    # training batch (B 4 x S 512 in one microbatch), and Kimi K2's heads
+    # (phase 5 runs them at two layers, and 6's training checks)
     ("moe_prefill", 2, 512, 0, torch.bfloat16, *MOE.values()),
     ("moe_split_serving", 2, 32, 0, torch.bfloat16, *MOE.values()),
     ("moe_train", 4, 512, 0, torch.bfloat16, *MOE.values()),
     ("kimi_prefill", 1, 512, 0, torch.bfloat16, *KIMI.values()),
+    # phase 5's prefill of the pool's other LMs (B 2 x S 512), and
+    # H2O-Danube3-4B's ring check: one forward over RING_PROMPT + RING_NEW
+    # tokens, the only row where its window masks
+    ("deepseek_prefill", 2, 512, 0, torch.bfloat16, *DEEPSEEK.values()),
+    ("danube_prefill", 2, 512, DANUBE_WINDOW, torch.bfloat16,
+     *DANUBE.values()),
+    ("starcoder2_prefill", 2, 512, 0, torch.bfloat16, *STARCODER2.values()),
+    ("musicgen_prefill", 2, 512, 0, torch.bfloat16, *MUSICGEN.values()),
+    ("internvl2_prefill", 2, 512, 0, torch.bfloat16, *INTERNVL2.values()),
+    ("danube_ring_forward", 1, RING_PROMPT + RING_NEW, DANUBE_WINDOW,
+     torch.bfloat16, *DANUBE.values()),
     *MESH_FLASH_SHAPES,
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 0, torch.float32, 4, 2, 32),
@@ -483,6 +525,21 @@ DECODE_SHAPES = [
     # Qwen1.5-MoE-A2.7B's decoding, and Kimi K2's heads
     ("moe_decode", 2, 1024, 543, 543, 0, torch.bfloat16, *MOE.values()),
     ("kimi_decode", 1, 1024, 543, 543, 0, torch.bfloat16, *KIMI.values()),
+    # phase 5's decoding of the pool's other LMs, and H2O-Danube3-4B's
+    # ring check's last step: 4096 slots wrapped, positions 544-4639
+    ("deepseek_decode", 2, 1024, 543, 543, 0, torch.bfloat16,
+     *DEEPSEEK.values()),
+    ("danube_decode", 2, 1024, 543, 543, DANUBE_WINDOW, torch.bfloat16,
+     *DANUBE.values()),
+    ("starcoder2_decode", 2, 1024, 543, 543, 0, torch.bfloat16,
+     *STARCODER2.values()),
+    ("musicgen_decode", 2, 1024, 543, 543, 0, torch.bfloat16,
+     *MUSICGEN.values()),
+    ("internvl2_decode", 2, 1024, 543, 543, 0, torch.bfloat16,
+     *INTERNVL2.values()),
+    ("danube_ring", 1, DANUBE_WINDOW, RING_PROMPT + RING_NEW - 1,
+     RING_PROMPT + RING_NEW - 1, DANUBE_WINDOW, torch.bfloat16,
+     *DANUBE.values()),
     # the reference's kernel cases (tests/test_kernels.py)
     ("case0", 2, 128, 99, 100, 0, torch.float32, 4, 2, 32),
     ("case1", 1, 256, 255, 256, 0, torch.float32, 8, 1, 64),
@@ -591,6 +648,14 @@ class ModelRun:
     # bf16 prefill + decode held to the float32 forward (within the bf16
     # forward's own error) instead of to the bf16 forward (``decode_check``)
     bf16_vs_float32: bool = False
+    # how many times the bf16 forward's own error the bf16 decode route's
+    # may be (``decode_check``)
+    bf16_err_factor: float = 1.0
+    # depth on the card where the whole model does not fit it (None: the
+    # config's), and the depth of the bf16 and float32 decode checks where
+    # the float32 copy of the model run does not fit (None: the run's)
+    layers: int = None
+    check_layers: int = None
 
 
 MODEL_RUNS = [
@@ -609,6 +674,42 @@ MODEL_RUNS = [
     ModelRun("qwen2-moe-a2.7b", (0, 1, 12, 24), (1, 0.059, 15),
              dict(flash_attention=24), dict(decode_attention=24),
              bf16_tol=(5e-2, 2e-2), bf16_vs_float32=True),
+    # the pool's other dense LMs, an attention layer each a layer. Their
+    # bf16 routes round apart as Qwen1.5-MoE's do: in the first card run
+    # (tools/pool_serving_dev.py, H100) the decode route's error against
+    # the float32 forward was 0.70-1.09 times the bf16 forward's own,
+    # over the token, embeds and ring routes (0.085 against 0.078 at the
+    # worst, Danube's ring, |h| <= 4.3: a bf16 unit in the last place is
+    # 0.0156 at |h| = 4). Two maxima of such errors over 2 x D or 32 x D
+    # values are not ordered, so the decode route is held to the float32
+    # forward within 1.5 times the bf16 forward's error; a wrong slot or
+    # mask errs by |h| itself, and the float32 routes stay at HIDDEN_TOL.
+    # MHA 32/32
+    ModelRun("deepseek-7b", (0, 1, 15, 30), (1, 0.046, 15),
+             dict(flash_attention=30), dict(decode_attention=30),
+             bf16_vs_float32=True, bf16_err_factor=1.5),
+    # sliding window 4096 at hd 120; also the wrapped ring (``ring_decode``)
+    ModelRun("h2o-danube-3-4b", (0, 1, 12, 24), (1, 0.035, 15),
+             dict(flash_attention=24), dict(decode_attention=24),
+             bf16_vs_float32=True, bf16_err_factor=1.5),
+    # LayerNorm, tanh-GELU MLP, qkv bias, GQA 48/4
+    ModelRun("starcoder2-15b", (0, 1, 20, 40), (1, 0.016, 15),
+             dict(flash_attention=40), dict(decode_attention=40),
+             bf16_vs_float32=True, bf16_err_factor=1.5),
+    # LayerNorm, GELU, MHA 32/32 at hd 64; embeds (``embeds_phase``)
+    ModelRun("musicgen-large", (0, 1, 24, 48), (1, 0.063, 15),
+             dict(flash_attention=48), dict(decode_attention=48),
+             bf16_vs_float32=True, bf16_err_factor=1.5),
+    # 19.9 B parameters: 79.4 GB in float32, so the decode checks run on a
+    # model of 24 of its 48 layers; embeds
+    ModelRun("internvl2-26b", (0, 1, 24, 48), (1, 0.016, 15),
+             dict(flash_attention=48), dict(decode_attention=48),
+             bf16_vs_float32=True, bf16_err_factor=1.5, check_layers=24),
+    # 1.03 T parameters: full width at two layers, the dense first layer
+    # and one MoE layer (384 experts, top 8, a shared expert), 19.6 B
+    ModelRun("kimi-k2-1t-a32b", (0, 1, 2), (1, 0.016, 15),
+             dict(flash_attention=2), dict(decode_attention=2),
+             bf16_tol=(5e-2, 2e-2), bf16_vs_float32=True, layers=2),
 ]
 SPLIT_BATCH, SPLIT_SEQ = 2, 32
 SERVE_BUDGET = 15
@@ -635,7 +736,9 @@ MAIN_ROWS = [(16, MAIN_N, 16, 2), (6, MAIN_N, 32, 2), (1, MAIN_N, 16, 2),
              (16, MAIN_N, 32, 2), (16, MIX_N, 16, 2), (16, MIX_N, 32, 2)]
 CEILING_ROWS = [(16, MAIN_N, 48, 2), (16, MAIN_N, 64, 2),
                 (256, MAIN_N, 64, 2)]
-SERVE_ARCHS = ("qwen2-1.5b", "qwen2-moe-a2.7b")
+SERVE_ARCHS = ("qwen2-1.5b", "qwen2-moe-a2.7b", "deepseek-7b",
+               "h2o-danube-3-4b", "starcoder2-15b", "musicgen-large",
+               "internvl2-26b", "kimi-k2-1t-a32b")
 MAIN_SHAPE = (16, MAIN_N, 16, 2)
 CEILING_SHAPE = (16, MAIN_N, 64, 2)
 # (S, N, n) -> posterior launches, over every block scoring watched
@@ -755,16 +858,16 @@ def card_line() -> str:
 
 
 def main_rows():
-    """MAIN_ROWS with the serving row of each of SERVE_ARCHS: N is the
-    64 x 64 grid, one boundary slot a layer of the problem
+    """MAIN_ROWS with the serving row of each of SERVE_ARCHS, once each:
+    N is the 64 x 64 grid, one boundary slot a layer of the problem
     ``launch/serve.py`` builds for it, and the local slots."""
     from repro_torch.configs import get_config
     from repro_torch.core.acquisition import N_LOCAL
     from repro_torch.launch import serve
 
-    return MAIN_ROWS + [
+    return list(dict.fromkeys(MAIN_ROWS + [
         (1, 64 * 64 + serve.build_problem(get_config(a), SPLIT_SEQ).L
-         + N_LOCAL, 16, 2) for a in SERVE_ARCHS]
+         + N_LOCAL, 16, 2) for a in SERVE_ARCHS]))
 
 
 def score_inputs(S, N, n, d, seed=0):
@@ -3340,7 +3443,11 @@ def split_phase(kernels, run, cfg, model):
 
 
 def serve_phase(kernels, run, cfg):
-    """The port's serving entry point, with counts zeroed before."""
+    """The port's serving entry point, with counts zeroed before. A run at
+    a cut depth (``run.layers``) goes through ``--reduced`` with the
+    entry point's ``reduced`` cutting only the depth: the BO prices the
+    whole arch's profile and each evaluation runs the cut model's split
+    at min(l, its layers), as ``--reduced`` runs a small model."""
     from repro_torch.launch import serve
     from repro_torch.runtime.splitpoint import SplitRunner
 
@@ -3355,12 +3462,18 @@ def serve_phase(kernels, run, cfg):
         forward_s.append(time.perf_counter() - t1)
         return out
 
+    argv = ["--arch", run.arch, "--budget", str(SERVE_BUDGET), "--device",
+            DEVICE]
+    depth = contextlib.nullcontext()
+    if run.layers:
+        argv.append("--reduced")
+        depth = mock.patch.object(serve, "reduced", lambda c: (
+            dataclasses.replace(c, n_layers=run.layers)))
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     with plain_calls_counted() as plain, block_scoring_watched() as seen, \
-            mock.patch.object(SplitRunner, "run", timed_run):
-        res = serve.main(["--arch", run.arch, "--budget", str(SERVE_BUDGET),
-                          "--device", DEVICE])
+            mock.patch.object(SplitRunner, "run", timed_run), depth:
+        res = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -3369,7 +3482,8 @@ def serve_phase(kernels, run, cfg):
     e, tau = pb.constraint_values(res.best_a)
     n_fwd = len(forward_s)          # every evaluation + the served batch
     log("serve", json.dumps(dict(
-        arch=run.arch, split=l, power_w=p, energy_j=e, delay_s=tau,
+        arch=run.arch, layers_run=run.layers or cfg.n_layers, split=l,
+        power_w=p, energy_j=e, delay_s=tau,
         n_evals=res.n_evals, wall_s=wall, forwards=n_fwd,
         forward_s=sum(forward_s),
         forward_ms_median=1e3 * statistics.median(forward_s),
@@ -3448,43 +3562,76 @@ def forced_logits(model, cfg, tokens, ctx=None):
     return torch.stack(rec, 1)
 
 
+def gen_inputs(cfg):
+    """Phase 5's generation input through the serving steps: the prompt's
+    batch for the prefill, and what decode step t is fed given the last
+    token. Token archs: ``gen_prompt`` and the token itself (greedy). An
+    audio or vision arch's decode step takes embeddings, not tokens (its
+    stub frontend's frames or patches, in both packages), so its prompt
+    is ``gen_embeds`` over GEN_PROMPT + GEN_NEW - 1 positions: the first
+    GEN_PROMPT prefill, and step t is fed position t's."""
+    from repro_torch.models import frontends
+
+    if not frontends.uses_embeds(cfg):
+        return dict(tokens=gen_prompt(cfg)), lambda tok, t: tok
+    stream = gen_embeds(cfg, GEN_PROMPT + GEN_NEW - 1)
+    return (dict(embeds=stream[:, :GEN_PROMPT]),
+            lambda tok, t: stream[:, t:t + 1])
+
+
 def generate_phase(kernels, run, cfg, model):
-    """Greedy decoding through ``greedy_generate``, counts zeroed before;
-    then prefill and per-token decode times."""
+    """Greedy decoding through ``greedy_generate`` (an audio or vision
+    arch: its prefill and decode steps fed ``gen_inputs``' embeddings),
+    counts zeroed before; then prefill and per-token decode times."""
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import serve as rserve
 
-    prompt = gen_prompt(cfg)
+    batch, feed = gen_inputs(cfg)
+    prefill = rserve.make_prefill_step(cfg)
+    decode = rserve.make_decode_step(cfg)
+    steps = GEN_NEW - 1
+
+    def stepped(cache):
+        tok, cache = prefill(model, batch, cache)
+        out = [tok]
+        for t in range(GEN_PROMPT, GEN_PROMPT + steps):
+            tok, cache = decode(model, feed(tok, t), cache, t)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with plain_calls_counted() as plain, logits_recorded() as rec:
-        out = rserve.greedy_generate(model, cfg, prompt, GEN_NEW, GEN_MAX_SEQ)
+        if "tokens" in batch:
+            out = rserve.greedy_generate(model, cfg, batch["tokens"],
+                                         GEN_NEW, GEN_MAX_SEQ)
+        else:
+            out = stepped(tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ,
+                                         dtype=cfg.dtype, device=DEVICE))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     GENERATED[run.arch] = dict(tokens=out.cpu(),
                                logits=torch.stack(rec, 1).cpu())
-    steps = GEN_NEW - 1
     # the same run, timed by part: prefill, then each decode step
-    prefill = rserve.make_prefill_step(cfg)
-    decode = rserve.make_decode_step(cfg)
     times = dict(prefill=[], decode=[])
     for _ in range(3):
         cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
                                device=DEVICE)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        tok, cache = prefill(model, dict(tokens=prompt), cache)
+        tok, cache = prefill(model, batch, cache)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         for t in range(GEN_PROMPT, GEN_PROMPT + steps):
-            tok, cache = decode(model, tok, cache, t)
+            tok, cache = decode(model, feed(tok, t), cache, t)
         torch.cuda.synchronize()
         times["prefill"].append(1e3 * (t2 - t1))
         times["decode"].append(1e3 * (time.perf_counter() - t2) / steps)
     log("generate", json.dumps(dict(
-        arch=run.arch, tokens_shape=list(out.shape),
+        arch=run.arch, input=next(iter(batch)),
+        tokens_shape=list(out.shape),
         first_tokens=out[0, :8].tolist(), wall_s=wall, launches=counts,
         plain_calls=plain, prefill_ms=statistics.median(times["prefill"]),
         decode_ms_per_token=statistics.median(times["decode"]))))
@@ -3619,7 +3766,9 @@ def profile_calls(arch, path, fn, n, launches, extra=None, profiled_n=None):
 
 def profile_phase(run, cfg, model):
     """Where the time goes: one split-serving forward (an evaluation of
-    the BO), one prefill, one decode step."""
+    the BO), one prefill, one decode step (an audio or vision arch's from
+    embeddings)."""
+    from repro_torch.models import frontends
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import serve as rserve
     from repro_torch.runtime.splitpoint import SplitRunner
@@ -3630,43 +3779,155 @@ def profile_phase(run, cfg, model):
                   lambda: runner.run(l), 10, per(run, forwards=1),
                   profiled_n=PROFILED_CALLS)
     rng = np.random.default_rng(3)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                          (GEN_BATCH, GEN_PROMPT)),
-                             dtype=torch.int32, device=DEVICE)
+    batch = (dict(embeds=gen_embeds(cfg)) if frontends.uses_embeds(cfg)
+             else dict(tokens=torch.as_tensor(
+                 rng.integers(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)),
+                 dtype=torch.int32, device=DEVICE)))
     prefill = rserve.make_prefill_step(cfg)
     decode = rserve.make_decode_step(cfg)
     cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=cfg.dtype,
                            device=DEVICE)
     profile_calls(run.arch, "prefill_512",
-                  lambda: prefill(model, dict(tokens=prompt), cache), 3,
+                  lambda: prefill(model, batch, cache), 3,
                   per(run, forwards=1), profiled_n=PROFILED_CALLS)
-    tok = prompt[:, -1:]
+    tok = next(iter(batch.values()))[:, -1:]
     profile_calls(run.arch, "decode_step",
                   lambda: decode(model, tok, cache, GEN_PROMPT), 16,
                   per(run, steps=1), profiled_n=PROFILED_CALLS)
 
 
-def prefill_decode(cfg, model, dtype):
-    """Prefill on S - 1 tokens then one decode step, and the full
-    forward: the last position's hidden state of each, in float32."""
+def prefill_decode(cfg, model, dtype, embeds=None):
+    """Prefill on S - 1 positions then one decode step, and the full
+    forward: the last position's hidden state of each, in float32. From
+    tokens, or from ``embeds`` (GEN_BATCH, S, D) where given."""
     from repro_torch.models import transformer as tfm
 
     rng = np.random.default_rng(2)
     S = GEN_PROMPT
-    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (GEN_BATCH, S)),
-                          dtype=torch.int32, device=DEVICE)
+    if embeds is None:
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (GEN_BATCH, S)),
+                              dtype=torch.int32, device=DEVICE)
+        inp = lambda a, b: dict(tokens=tok[:, a:b])  # noqa: E731
+    else:
+        inp = lambda a, b: dict(embeds=embeds[:, a:b])  # noqa: E731
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE
                        ).expand(GEN_BATCH, S)
     with torch.inference_mode():
-        full, _, _ = tfm.forward(model, tokens=tok, positions=pos)
+        full, _, _ = tfm.forward(model, positions=pos, **inp(0, S))
         cache = tfm.init_cache(cfg, GEN_BATCH, GEN_MAX_SEQ, dtype=dtype,
                                device=DEVICE)
-        tfm.forward(model, tokens=tok[:, :-1], positions=pos[:, :-1],
-                    cache=cache, t=0, mode="prefill")
-        dec, _, _ = tfm.forward(model, tokens=tok[:, -1:],
-                                positions=pos[:, -1:], cache=cache, t=S - 1,
-                                mode="decode")
+        tfm.forward(model, positions=pos[:, :-1], cache=cache, t=0,
+                    mode="prefill", **inp(0, S - 1))
+        dec, _, _ = tfm.forward(model, positions=pos[:, -1:], cache=cache,
+                                t=S - 1, mode="decode", **inp(S - 1, S))
     return dec[:, 0].float(), full[:, -1].float()
+
+
+def gen_embeds(cfg, seq=GEN_PROMPT):
+    """An audio or vision arch's input in phase 5: ``fake_embeds`` at
+    (GEN_BATCH, seq, D) in bf16 from seed 4."""
+    from repro_torch.models import frontends
+
+    return frontends.fake_embeds(torch.Generator(DEVICE).manual_seed(4), cfg,
+                                 GEN_BATCH, seq, torch.bfloat16)
+
+
+def embeds_phase(kernels, run, cfg, model):
+    """The ``embeds`` route of an audio or vision arch, counts zeroed
+    before: ``device_half`` from ``gen_embeds``, the boundary through the
+    host, ``server_half``, at each of the run's splits equal bit for bit
+    to the full forward from the same embeddings."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.splitpoint import device_half, server_half
+
+    embeds = gen_embeds(cfg)
+    pos = torch.arange(GEN_PROMPT, dtype=torch.int32, device=DEVICE
+                       ).expand(GEN_BATCH, GEN_PROMPT)
+    want_bytes = embeds.numel() * embeds.element_size()
+    kernels.reset_launch_counts()
+    with plain_calls_counted() as plain, torch.inference_mode():
+        hidden, _, _ = tfm.forward(model, embeds=embeds, positions=pos)
+        full = tfm.logits_fn(model, hidden)
+        for l in run.splits:
+            x = device_half(model, embeds=embeds, positions=pos, l=l).cpu()
+            bb = x.numel() * x.element_size()
+            logits = server_half(model, x.to(DEVICE), pos, l)
+            err = float((logits.float() - full.float()).abs().max())
+            log("split", json.dumps(dict(
+                arch=run.arch, route="embeds", l=l, boundary_bytes=bb,
+                max_abs_diff_vs_unsplit=err,
+                finite=bool(logits.isfinite().all()))))
+            if not torch.equal(logits, full):
+                raise AssertionError(f"{run.arch}: split from embeds at l={l}"
+                                     f" differs from the unsplit forward by "
+                                     f"up to {err}")
+            if bb != want_bytes:
+                raise AssertionError(f"{run.arch}: boundary bytes {bb} at "
+                                     f"l={l} from embeds, expected "
+                                     f"{want_bytes}")
+    counts = kernels.launch_counts()
+    check_launches(f"{run.arch} split embeds", counts,
+                   per(run, forwards=len(run.splits) + 1), plain)
+    return counts
+
+
+def ring_decode(kernels, run, cfg, model, dtype):
+    """A sliding-window arch's ring wrapped, counts zeroed before: at B 1
+    a prefill of RING_PROMPT tokens, past the window, rolls the ring of C
+    = window slots so that position p sits at slot p % C; then RING_NEW
+    decode steps, each fed the next token of the same sequence (teacher
+    forcing) and masking by ``kv_pos`` over the wrapped ring; against one
+    full forward over all RING_PROMPT + RING_NEW tokens (flash attention
+    with the window). Returns the decode steps' hidden states and the
+    forward's at the same positions, (RING_NEW, D) each in float32."""
+    from repro_torch.models import transformer as tfm
+
+    S, n, C = RING_PROMPT, RING_NEW, cfg.window
+    rng = np.random.default_rng(5)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S + n)),
+                          dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(S + n, dtype=torch.int32, device=DEVICE)[None]
+    cache = tfm.init_cache(cfg, 1, S + n, dtype=dtype, device=DEVICE)
+    kernels.reset_launch_counts()
+    with plain_calls_counted() as plain, torch.inference_mode():
+        full, _, _ = tfm.forward(model, tokens=tok, positions=pos)
+        tfm.forward(model, tokens=tok[:, :S], positions=pos[:, :S],
+                    cache=cache, t=0, mode="prefill")
+        dec = [tfm.forward(model, tokens=tok[:, t:t + 1],
+                           positions=pos[:, t:t + 1], cache=cache, t=t,
+                           mode="decode")[0][0, 0].float()
+               for t in range(S, S + n)]
+    counts = kernels.launch_counts()
+    ring = cache[0]["pos"][0].long()
+    log("ring", json.dumps(dict(
+        arch=run.arch, dtype=str(dtype).split(".")[-1], prompt=S, new=n,
+        slots=ring.numel(), window=cfg.window,
+        positions=[int(ring.min()), int(ring.max())], launches=counts,
+        plain_calls=plain)))
+    check_launches(f"{run.arch} ring", counts, per(run, forwards=2, steps=n),
+                   plain)
+    if not (S >= C == ring.numel() and int(ring.min()) == S + n - C
+            and int(ring.max()) == S + n - 1
+            and torch.equal(ring % C, torch.arange(C, device=DEVICE))):
+        raise AssertionError(f"{run.arch}: the ring of {ring.numel()} slots "
+                             f"does not hold positions {S + n - C}.."
+                             f"{S + n - 1} at p % {C}")
+    return torch.stack(dec), full[0, S:].float()
+
+
+def other_routes(kernels, run, cfg, model, dtype):
+    """The decode checks besides ``routes_checked``'s from tokens: from
+    ``gen_embeds`` for an audio or vision arch, over the wrapped ring for
+    a sliding-window arch. {route: (decoded, full forward)}."""
+    from repro_torch.models import frontends
+
+    out = {}
+    if frontends.uses_embeds(cfg):
+        out["embeds"] = prefill_decode(cfg, model, dtype, gen_embeds(cfg))
+    if cfg.attn_type == "swa":
+        out["ring"] = ring_decode(kernels, run, cfg, model, dtype)
+    return out
 
 
 # MoE layers (phase 5): how many assignments drop, and where the time goes
@@ -3811,14 +4072,34 @@ def moe_phase(run, cfg, model):
                 device_ms=moe_device_ms(fn))))
 
 
+def drop_free_factor(cfg, records):
+    """A capacity factor under which nothing drops. Where the model has
+    more than one MoE layer, E / k (C >= T): a layer's routes depend on
+    the drops in the layers before it. With one MoE layer, whose routes
+    no capacity moves, the least factor whose capacity holds the largest
+    expert load of each recorded dispatch (Kimi K2 at two layers: at E / k
+    its float32 buffers, (E, T, D) at T 1024, would take 11.3 GB each
+    beside its 78.3 GB of weights)."""
+    from repro_torch.models.moe import MIN_CAPACITY
+
+    E, k = cfg.n_experts, cfg.top_k
+    if cfg.layer_kinds().count("attn") > 1:
+        return E / k
+    # capacity = max(int(T k factor / E), MIN_CAPACITY)
+    need = [(max(r["load"]) + 0.5) * E / (r["T"] * k) for r in records
+            if max(r["load"]) > MIN_CAPACITY]
+    return min(E / k, max(need, default=cfg.capacity_factor))
+
+
 def routes_checked(run, cfg, model, dtype):
     """``prefill_decode``, with each MoE route's drops recorded (the
     full forward T 1024, the prefill T 1022, the decode step T 2). The
     capacity path drops by design, and the two routes see other loads:
-    where either drops, the check runs again on the same weights at the
-    capacity factor E / k (C >= T: nothing can drop). Logs which check
-    ran; returns (dec, full) of the check that counts and its MoE
-    dispatches' records (``moe_recorded``; none for a dense model)."""
+    where either drops, the check runs again on the same weights at a
+    capacity factor under which nothing can drop (``drop_free_factor``).
+    Logs which check ran; returns (dec, full) of the check that counts
+    and its MoE dispatches' records (``moe_recorded``; none for a dense
+    model)."""
     if not cfg.moe:
         return prefill_decode(cfg, model, dtype), []
     with moe_recorded() as records:
@@ -3828,7 +4109,7 @@ def routes_checked(run, cfg, model, dtype):
                 capacity_factor=cfg.capacity_factor, dropped_by_tokens=drops,
                 check="as configured")
     if any(drops.values()):
-        factor = cfg.n_experts / cfg.top_k
+        factor = drop_free_factor(cfg, records)
         with moe_capacity(model, factor), moe_recorded() as records:
             out = prefill_decode(cfg, model, dtype)
         again = {T: d["dropped"] for T, d in drop_stats(records).items()}
@@ -3848,7 +4129,8 @@ def route_flips(run, cfg, rec16, rec32):
     the decode step T 2), and within each dtype between the prefill or
     the decode step and the full forward at the same positions (the two
     routes ``decode_check`` compares)."""
-    E, L, S = cfg.n_experts, cfg.n_layers, GEN_PROMPT
+    E, S = cfg.n_experts, GEN_PROMPT
+    L = cfg.layer_kinds().count("attn")         # the MoE layers
     paths = ("forward", "prefill", "decode_step")
 
     def by_path(rec):
@@ -3873,14 +4155,15 @@ def route_flips(run, cfg, rec16, rec32):
 
     i16, i32 = by_path(rec16), by_path(rec32)
     log("moe_route_flips", json.dumps(dict(
-        arch=run.arch, layers=L,
+        arch=run.arch, moe_layers=L,
         pairs={p: L * i16[p][0].numel() for p in paths},
         bf16_vs_float32={p: count(i16[p], i32[p]) for p in paths},
         bf16=within(i16), float32=within(i32))))
 
 
-def decode_check(run, bf16, f32):
-    """Prefill + decode against the full forward. Float32: within
+def decode_check(run, bf16, f32, route="tokens"):
+    """Prefill + decode against the full forward (``route``: from tokens,
+    from embeddings, over the wrapped ring). Float32: within
     HIDDEN_TOL. Bfloat16: the two routes may differ by no more than the
     bf16 forward differs from the float32 copy on the same inputs (its
     own rounding error), and within ``run.bf16_tol`` where one is set.
@@ -3889,7 +4172,8 @@ def decode_check(run, bf16, f32):
     routes round independently (Qwen1.5-MoE-A2.7B on the H100: its 16 KV
     heads through flash and through split-T decode give last hidden
     states 5 bf16 ulps apart, each about 4 from float32), they may
-    differ by up to twice it while each is as close to float32."""
+    differ by up to twice it while each is as close to float32. Either
+    error bar is ``run.bf16_err_factor`` times the bf16 forward's own."""
     (dec16, full16), (dec32, full32) = bf16, f32
     atol, rtol = HIDDEN_TOL
     err32 = float((dec32 - full32).abs().max())
@@ -3897,7 +4181,8 @@ def decode_check(run, bf16, f32):
     err16 = float((dec16 - full16).abs().max())
     rounding = float((full16 - full32).abs().max())
     dec_err = float((dec16 - full32).abs().max())
-    ok16 = (dec_err if run.bf16_vs_float32 else err16) <= rounding
+    ok16 = ((dec_err if run.bf16_vs_float32 else err16)
+            <= run.bf16_err_factor * rounding)
     if run.bf16_tol:
         ok16 = ok16 and bool(torch.allclose(dec16, full16,
                                             atol=run.bf16_tol[0],
@@ -3906,91 +4191,170 @@ def decode_check(run, bf16, f32):
     qwen2_tol = float(((dec16 - full16).abs()
                        / (3e-2 + 2e-2 * full16.abs())).max())
     log("decode_vs_forward", json.dumps(dict(
-        arch=run.arch, float32_max_abs_err=err32, float32_atol=atol,
-        float32_rtol=rtol, bf16_max_abs_err=err16,
+        arch=run.arch, route=route, float32_max_abs_err=err32,
+        float32_atol=atol, float32_rtol=rtol, bf16_max_abs_err=err16,
         bf16_forward_vs_float32=rounding, bf16_tol=run.bf16_tol,
         bf16_vs_float32=run.bf16_vs_float32, dec_bf16_vs_float32=dec_err,
+        bf16_err_factor=run.bf16_err_factor,
         bf16_err_over_qwen2_tol=qwen2_tol,
         hidden_absmax=float(full32.abs().max()), ok=ok32 and ok16)))
     for name, t in (("bf16", dec16), ("float32", dec32)):
         if not bool(t.isfinite().all()):
-            raise AssertionError(f"{run.arch}: {name} decode is not finite")
+            raise AssertionError(f"{run.arch} {route}: {name} decode is not "
+                                 "finite")
     if not ok32:
-        raise AssertionError(f"{run.arch}: prefill + decode differs from "
-                             f"the forward by {err32} in float32")
+        raise AssertionError(f"{run.arch} {route}: prefill + decode differs "
+                             f"from the forward by {err32} in float32")
     if not ok16:
-        raise AssertionError(f"{run.arch}: prefill + decode differs from "
-                             f"the forward by {err16} in bf16, from the "
+        raise AssertionError(f"{run.arch} {route}: prefill + decode differs "
+                             f"from the forward by {err16} in bf16, from the "
                              f"float32 forward by {dec_err} (the bf16 "
                              f"forward's own error: {rounding})")
 
 
-def float32_copy(cfg32):
-    """The bf16 model's weights in float32, with no bf16 model resident:
-    drawn as ``init_model`` drew it (from seed 0, in float32, then cast),
-    each leaf rounded through bf16."""
+# ``float32_copy``: elements of a leaf staged through the host at a time
+# (256 MiB in float32), and the device memory a leaf's float32 copy must
+# leave free to be made on the card
+F32_COPY_ELEMS = 1 << 26
+F32_COPY_MARGIN = 1 << 30
+
+
+def float32_copy(model, cfg32, logits=True):
+    """The bf16 ``model``'s weights in float32 on the card, as a model of
+    ``cfg32``: leaf by leaf, largest first, each bf16 leaf dropped from
+    ``model`` (left without parameters) once its float32 copy is made,
+    so the card never holds both models whole (StarCoder2-15B: 31.9 and
+    63.8 GB). A leaf whose float32 copy does not fit beside what is
+    resident moves to the host first and comes back a slice of its first
+    axis at a time (Kimi K2's expert leaves: 11.3 GB in bf16, 22.5 in
+    float32). With ``logits`` False the unembedding is left out, for a
+    check that reads no logits (Kimi K2's: 4.7 GB). The weights are the
+    bf16 model's, exactly: those ``init_model`` draws in float32 from
+    seed 0, each rounded through bf16, as a float32 model drawn anew
+    and rounded holds them."""
     from repro_torch.models import transformer as tfm
 
-    model = tfm.init_model(cfg32, torch.Generator(DEVICE).manual_seed(0),
-                           DEVICE)
+    model32 = tfm.Transformer(cfg32, "meta")
+    names = sorted((n for n, _ in model.named_parameters()),
+                   key=lambda n: -model.get_parameter(n).numel())
     with torch.no_grad():
-        for p in model.parameters():
-            p.copy_(p.bfloat16())
-    return model
+        for name in names:
+            path, _, leaf = name.rpartition(".")
+            owner, owner32 = (m.get_submodule(path)
+                              for m in (model, model32))
+            src = model.get_parameter(name)
+            setattr(owner, leaf, None)                  # model lets go of it
+            if name == "unembed" and not logits:
+                setattr(owner32, leaf, None)
+                continue
+            free = (torch.cuda.mem_get_info()[0]
+                    + torch.cuda.memory_reserved()
+                    - torch.cuda.memory_allocated())
+            if 4 * src.numel() + F32_COPY_MARGIN <= free:
+                val = src.float()
+                del src
+            else:                                       # through the host
+                host = src.cpu()
+                del src
+                val = torch.empty(host.shape, dtype=torch.float32,
+                                  device=DEVICE)
+                rows = max(1, F32_COPY_ELEMS // max(1, host[0].numel()))
+                for r in range(0, host.shape[0], rows):
+                    val[r:r + rows].copy_(host[r:r + rows].to(DEVICE))
+                del host
+            setattr(owner32, leaf, torch.nn.Parameter(val,
+                                                      requires_grad=False))
+            del val
+    left = [n for n, p in model32.named_parameters() if p.is_meta]
+    if left:
+        raise AssertionError(f"float32 copy: {left} not copied")
+    return model32
 
 
 def model_phase(kernels, run):
     """Phase 5 for one model: serve (the entry point builds and frees its
-    own model), load the model, split, decode, profile, check decoding
-    in bf16, free it, check decoding on a float32 copy; a
-    ``model_phase`` line gives each step's seconds. Returns the launch
-    counts of its serving, split and generation runs."""
+    own model), load the model (``run.layers`` deep where set), split
+    (and, for an audio or vision arch, split from embeddings), decode,
+    profile; check decoding in bf16 (from tokens; from embeddings; over
+    the wrapped ring of a sliding-window arch) on the model or, where
+    ``run.check_layers`` is set, on a model of that depth drawn in its
+    place; turn that model into its float32 copy (``float32_copy``) and
+    check decoding there. A
+    ``model_phase`` line gives each step's seconds and peak device memory
+    and the depths run. Returns the launch counts of its serving, split
+    and generation runs."""
     from repro_torch.configs import get_config
+    from repro_torch.models import frontends
     from repro_torch.models import transformer as tfm
 
-    steps, lap = {}, [time.perf_counter()]
+    steps, peaks, lap = {}, {}, [time.perf_counter()]
 
     def step(name, fn, *a):
+        torch.cuda.reset_peak_memory_stats()
         out = fn(*a)
         torch.cuda.synchronize()
         steps[name] = time.perf_counter() - lap[0]
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
         lap[0] = time.perf_counter()
         return out
 
-    cfg = get_config(run.arch)
-    counts = dict(serve=step("serve", serve_phase, kernels, run, cfg))
+    def init(c):
+        return tfm.init_model(c, torch.Generator(DEVICE).manual_seed(0),
+                              DEVICE)
+
+    arch_cfg = get_config(run.arch)
+    cfg = (dataclasses.replace(arch_cfg, n_layers=run.layers) if run.layers
+           else arch_cfg)
+    counts = dict(serve=step("serve", serve_phase, kernels, run, arch_cfg))
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    model = step("init", tfm.init_model, cfg,
-                 torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    model = step("init", init, cfg)
     log("model", json.dumps(dict(
-        arch=run.arch, params=sum(p.numel() for p in model.parameters()),
+        arch=run.arch, layers=cfg.n_layers, config_layers=arch_cfg.n_layers,
+        params=sum(p.numel() for p in model.parameters()),
         param_counts=cfg.param_counts(), dtype=cfg.param_dtype,
-        init_s=steps["init"],
-        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)))
+        init_s=steps["init"], max_memory_allocated_gb=peaks["init"])))
     counts.update(
         split=step("split", split_phase, kernels, run, cfg, model),
         generate=step("generate", generate_phase, kernels, run, cfg, model))
+    if frontends.uses_embeds(cfg):
+        counts["split_embeds"] = step("split embeds", embeds_phase, kernels,
+                                      run, cfg, model)
     step("profile", profile_phase, run, cfg, model)
     if cfg.moe:
         step("moe", moe_phase, run, cfg, model)
+    if run.check_layers:
+        del model
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, n_layers=run.check_layers)
+        model = step("init check model", init, cfg)
     bf16, rec16 = step("bf16 check", routes_checked, run, cfg, model,
                        torch.bfloat16)
-    del model
-    torch.cuda.empty_cache()
+    more16 = step("bf16 routes", other_routes, kernels, run, cfg, model,
+                  torch.bfloat16)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    model32 = step("float32 copy", float32_copy, cfg32)
+    mesh = any(m[1] == run.arch for m in MESH_RUNS)   # phase 7b's bar
+    model32 = step("float32 copy", float32_copy, model, cfg32, mesh)
+    del model
     f32, rec32 = step("float32 check", routes_checked, run, cfg32, model32,
                       torch.float32)
-    GENERATED[run.arch]["logits32"] = step(
-        "float32 logits", lambda: forced_logits(
-            model32, cfg32, GENERATED[run.arch]["tokens"]).float().cpu())
+    more32 = step("float32 routes", other_routes, kernels, run, cfg32,
+                  model32, torch.float32)
+    if mesh:
+        GENERATED[run.arch]["logits32"] = step(
+            "float32 logits", lambda: forced_logits(
+                model32, cfg32, GENERATED[run.arch]["tokens"]
+            ).float().cpu())
     decode_check(run, bf16, f32)
+    for route in more16:
+        decode_check(run, more16[route], more32[route], route)
     if cfg.moe:
         route_flips(run, cfg, rec16, rec32)
     del model32
     torch.cuda.empty_cache()
-    log("model_phase", json.dumps(dict(arch=run.arch, seconds=steps)))
+    log("model_phase", json.dumps(dict(
+        arch=run.arch, layers=run.layers or arch_cfg.n_layers,
+        config_layers=arch_cfg.n_layers, check_layers=cfg.n_layers,
+        seconds=steps, peak_gb=peaks)))
     return counts
 
 
@@ -4909,10 +5273,10 @@ def mesh_generated(cfg):
         out = rserve.greedy_generate(model, cfg, gen_prompt(cfg), GEN_NEW,
                                      GEN_MAX_SEQ)
     got = dict(tokens=out.cpu(), logits=torch.stack(rec, 1).cpu())
-    del model, rec
-    torch.cuda.empty_cache()
+    del rec
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    model32 = float32_copy(cfg32)
+    model32 = float32_copy(model, cfg32)
+    del model
     got["logits32"] = forced_logits(model32, cfg32,
                                     got["tokens"]).float().cpu()
     del model32

@@ -347,9 +347,13 @@ def _dequant(wq, scale, dtype):
     return (wq.float() * scale).to(dtype)
 
 
+# the least capacity of an expert in the capacity dispatch
+MIN_CAPACITY = 4
+
+
 def moe_apply(p: MoE, x, cfg):
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar). Capacity per
-    expert max(T k cf / E, 4), T the rank's tokens; the ragged path keeps
+    expert max(T k cf / E, MIN_CAPACITY), T the rank's tokens; the ragged path keeps
     every assignment (T k rows, at least 8), or T k cf / m rows (at least
     8) in ``"expert"`` mode over m ranks. In ``"expert"`` mode the rank
     runs the assignments routed to its experts [e_lo, e_lo + E/m) and
@@ -382,7 +386,7 @@ def moe_apply(p: MoE, x, cfg):
             Tc = T * _shards(p.batch_ctx)
             before = _earlier(_counts(topi, cfg.n_experts), p.batch_ctx)
         cap_e = max(int(Tc * cfg.top_k * cfg.capacity_factor
-                        / cfg.n_experts), 4)
+                        / cfg.n_experts), MIN_CAPACITY)
         kw = {} if before is None else dict(before=before)
         out = _dispatch_ffn_capacity(xe, we, topi, wg, wu, wd, cfg, e_lo,
                                      e_n, cap_e, **kw)

@@ -1,8 +1,8 @@
 """Phase 7 of ``chip_smoke.py`` (the mesh) without the rest of the script,
 on one NVIDIA GPU: builds the forward kernels, runs phase 2's
 ``decode_attention`` rows (with and without the log-sum-exp), the two
-whole runs of phase 4b that phase 7a shards, the four greedy
-generations (and float32 logits) of phase 5 that phase 7b is held to,
+whole runs of phase 4b that phase 7a shards, the greedy generations
+(and float32 logits) of phase 5 that phase 7b is held to,
 then ``chip_smoke.mesh_phase``; prints a ``timings`` line.
 
     python3 tools/mesh_phase_dev.py       # from the root of a checkout
@@ -60,10 +60,10 @@ def main() -> int:
             seeds=want["seeds"], budgets=want["budgets"],
             archs=want["archs"]), EngineConfig(warm_start=False)).run())
     sec["4b"] = time.perf_counter() - t
-    for run in cs.MODEL_RUNS:
+    for arch in dict.fromkeys(m[1] for m in cs.MESH_RUNS):
         t = time.perf_counter()
-        cs.GENERATED[run.arch] = cs.mesh_generated(get_config(run.arch))
-        sec[f"5 {run.arch}"] = time.perf_counter() - t
+        cs.GENERATED[arch] = cs.mesh_generated(get_config(arch))
+        sec[f"5 {arch}"] = time.perf_counter() - t
     cs.mesh_phase(sec)
     cs.log("timings", json.dumps(dict(seconds=sec,
                                       total_s=time.perf_counter() - t0)))
